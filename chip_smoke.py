@@ -4,22 +4,32 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives the
-port's online path on the card through the entry points a user calls:
+port's paths on the card through the entry points a user calls:
 
   1. the card: name and power limit (``nvidia-smi``);
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes of the phases below and at two larger shapes;
+     shapes of the phases below and at larger or edge-case shapes;
   3. ``profile``: 2**23 entities x 32 float32 features written through
      ``FeatureStore.write_batch`` into a kernel-engine store on the card
      (online only, with a TTL, 256 partitions: ~2.5 GB of device tensors)
      and a vector-engine twin on the host; state, merge tallies and 64
-     served batches of 4,096 ids must be byte-identical;
+     served batches of 4,096 ids must be byte-identical.  Its first update
+     frame also goes, reduced to per-id winners, through the index-free
+     scan merge (``scan_merge``) into a clone of the device state, which
+     must equal the store's own state after ``write_batch``;
   4. the main path, ``txn_rolling``: 24 hourly scheduled materialization
      jobs over 1M entities and 200k events an hour, a 10-feature rolling
      DSL (sum/mean of two columns over 1 h and 6 h, counts), merged into the
-     offline and the online store and read back through the serving front.
-     The launch counts are zeroed just before it and read just after;
-  5. the ``kernels`` line: launches, errors, times and bounds per kernel.
+     offline and the online store and read back through the serving front;
+  5. ``offline_retrieval``: a 2**20-row spine joined point-in-time onto the
+     ``txn_rolling`` offline history through
+     ``FeatureStore.get_offline_features``, held against the plain search
+     on the card, the same call on the CPU and an independent numpy search;
+  6. the ``kernels`` line: launches, errors, times and bounds per kernel.
+
+Each path (``scan_merge``, the main path, ``offline_retrieval``) runs with
+the launch counts zeroed just before it and read just after, and must have
+launched each kernel of its own path.
 
 Each phase prints one JSON line; any failed check raises, so the run exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -28,6 +38,7 @@ CUDA device the script exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -47,11 +58,23 @@ from repro_torch.core.assets import (  # noqa: E402
 )
 from repro_torch.core.dsl import DslTransform, RollingAgg, UDFTransform  # noqa: E402
 from repro_torch.core.featurestore import FeatureStore  # noqa: E402
+from repro_torch.core.keys import encode_keys  # noqa: E402
+from repro_torch.core.merge_engine import plan_online_batch  # noqa: E402
+from repro_torch.core.pit import (  # noqa: E402
+    _prepare_history,
+    get_offline_features,
+    pit_join_feature_set,
+    search_inputs,
+)
 from repro_torch.core.table import Table  # noqa: E402
 from repro_torch.data.sources import SyntheticEventSource  # noqa: E402
 from repro_torch.kernels import native  # noqa: E402
 from repro_torch.kernels.online_lookup import ops as lookup_ops  # noqa: E402
 from repro_torch.kernels.online_lookup.ref import lookup_ref  # noqa: E402
+from repro_torch.kernels.online_merge import ops as merge_ops  # noqa: E402
+from repro_torch.kernels.online_merge.ref import match_winners, merge_scan_ref  # noqa: E402
+from repro_torch.kernels.pit_join import ops as pit_ops  # noqa: E402
+from repro_torch.kernels.pit_join.ref import pit_search_ref  # noqa: E402
 from repro_torch.kernels.rolling_agg import ops as rolling_ops  # noqa: E402
 from repro_torch.kernels.rolling_agg.ref import rolling_sum_ref  # noqa: E402
 
@@ -70,7 +93,19 @@ TXN_ENTITIES = 1_000_000
 TXN_EVENTS_PER_HOUR = 200_000
 TXN_HOURS = 24
 GET_BATCH = 4096
-COUNTERS = (lookup_ops.counter, rolling_ops.counter)
+SPINE_ROWS = 1 << 20
+EPOCH_MS = 1_700_000_000_000
+I64_MIN = -(2**63)
+COUNTERS = (lookup_ops.counter, rolling_ops.counter, pit_ops.counter, merge_ops.counter)
+
+
+def reset_counts() -> None:
+    for c in COUNTERS:
+        c.reset()
+
+
+def read_counts() -> dict:
+    return {c.name: c.launches for c in COUNTERS}
 
 
 def emit(obj: dict) -> None:
@@ -101,6 +136,23 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_restored(fn, restore, reps: int) -> float:
+    """Mean device time of ``fn()`` alone, each call on state ``restore()``
+    put back first (outside the timed span), after a warm-up."""
+    restore()
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        restore()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def bound(nbytes: int, ops: int) -> tuple[float, str]:
@@ -160,6 +212,166 @@ def check_rolling(values: torch.Tensor, starts: torch.Tensor, label: str) -> dic
     return row
 
 
+def check_pit(table_ts, q_ts, q_lo, q_hi, row_seg, q_seg, label: str) -> dict:
+    """Kernel vs plain on the card: idx and valid must be equal, and the
+    kernel must launch at this shape.  Bytes: each query's (q_ts, lo, hi)
+    read once and (idx, valid) written once, plus each distinct 32-byte
+    sector of the table that the bisection reads (the plain search records
+    every row it probes; a fresh allocation starts on a sector, so row r
+    lies in sector r // 4); operations: one int64 compare per probe.
+    Library: one ``torch.searchsorted`` over the composite key
+    segment * span + ts, where that key fits in int64 (building it is not
+    timed)."""
+    before = pit_ops.counter.launches
+    got = pit_ops.pit_search(table_ts, q_ts, q_lo, q_hi)
+    probes = []
+    want = pit_search_ref(table_ts, q_ts, q_lo, q_hi, probes)
+    torch.cuda.synchronize()
+    check(pit_ops.counter.launches == before + 1, f"pit_search kernel launched ({label})")
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"pit_search kernel == plain ({label})")
+    m, b = table_ts.shape[0], q_ts.shape[0]
+    seg_len = (q_hi.long() - q_lo.long()).double()
+    probed = torch.cat(probes)
+    steps, sectors = probed.numel(), torch.unique(probed // 4).numel()
+    per_query = 8 + q_lo.element_size() + q_hi.element_size() + 4 + 1
+    b_ms, b_by = bound(per_query * b + 32 * sectors, steps)
+    tmin, tmax = int(table_ts.min()), int(table_ts.max())
+    span = tmax - tmin + 2
+    n_seg = int(row_seg.max()) + 1
+    library_ms = None
+    if n_seg * span < 2**63:
+        comp_t = row_seg * span + (table_ts - tmin)
+        comp_q = q_seg * span + (q_ts - tmin).clamp(-1, span - 1)
+        ub = torch.searchsorted(comp_t, comp_q, right=True)
+        real = q_lo < q_hi
+        check(torch.equal((ub - 1)[real].int(), got[0][real])
+              and torch.equal((ub > q_lo)[real], got[1][real]),
+              f"torch.searchsorted on the composite key agrees ({label})")
+        library_ms = cuda_ms(lambda: torch.searchsorted(comp_t, comp_q, right=True), 20)
+    # the kernel alone, without the wrapper's bounds check (which syncs)
+    idx, valid = torch.empty_like(got[0]), torch.empty_like(got[1])
+    lo32, hi32 = q_lo.int(), q_hi.int()
+    launch_only = lambda: pit_ops._launch(table_ts, q_ts, lo32, hi32, idx, valid)
+    row = {
+        "phase": "kernel_check", "kernel": "pit_search", "shape": label,
+        "M": m, "B": b, "segments": n_seg, "mean_query_segment": float(seg_len.mean()),
+        "span_ms": tmax - tmin, "wide_span": tmax - tmin >= 2**31,
+        "found_frac": float(got[1].float().mean()), "bisection_steps": steps,
+        "table_sectors_read": sectors,
+        "max_abs_err": float(max((got[0].long() - want[0].long()).abs().max(),
+                                 (got[1] != want[1]).sum())),
+        "ms": cuda_ms(lambda: pit_ops.pit_search(table_ts, q_ts, q_lo, q_hi), 20),
+        "launch_only_ms": cuda_ms(launch_only, 20),
+        "plain_ms": cuda_ms(lambda: pit_search_ref(table_ts, q_ts, q_lo, q_hi), 5),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+    }
+    emit(row)
+    return row
+
+
+def check_merge(state, routed, creation: int, label: str) -> dict:
+    """Kernel vs plain on the card, each on its own copy of ``state`` (keys,
+    event_ts, creation_ts, values): the three updated tensors must be equal
+    byte for byte, and the kernel must launch at this shape.  Bytes: every
+    key read once (there is no index), the winners' keys read once, the old
+    ev and the winner's ev read at each matched slot, the old cr where the
+    two ev tie, and the winner's row read and (ev, cr, values) written at
+    each slot it wins; operations: one int64 compare per slot.  Times: each
+    call on the state put back."""
+    keys, ev0, cr0, v0 = state
+    q_keys, q_ev, q_vals = routed
+    mine = [t.clone() for t in (ev0, cr0, v0)]
+    plain = [t.clone() for t in (ev0, cr0, v0)]
+    before = merge_ops.counter.launches
+    merge_ops.merge(keys, *mine, q_keys, q_ev, q_vals, creation)
+    merge_scan_ref(keys, *plain, q_keys, q_ev, q_vals, creation)
+    torch.cuda.synchronize()
+    check(merge_ops.counter.launches == before + 1, f"merge_scan kernel launched ({label})")
+    check(all(torch.equal(a, b) for a, b in zip(mine, plain)),
+          f"merge_scan kernel == plain ({label})")
+    live = q_keys[q_keys >= 0]
+    sorted_q, order = torch.sort(q_keys, dim=1)
+    hit, _, new_ev = match_winners(keys, q_keys, q_ev, sorted_q, order)
+    matched, ties = int(hit.sum()), int((hit & (new_ev == ev0)).sum())
+    won = int(((mine[0] != ev0) | (mine[1] != cr0)).sum())
+    p, c = keys.shape
+    q, d = q_keys.shape[1], v0.shape[2]
+    b_ms, b_by = bound(8 * p * c + 8 * live.numel() + 16 * matched + 8 * ties
+                       + won * (16 + 8 * d), p * c)
+
+    def restore(copy):
+        return lambda: [a.copy_(b) for a, b in zip(copy, (ev0, cr0, v0))]
+
+    # the kernel alone, without the wrapper's sort and key check (which syncs)
+    launch_only = lambda: merge_ops._launch(keys, *mine, sorted_q, order, q_ev, q_vals,
+                                            creation)
+
+    row = {
+        "phase": "kernel_check", "kernel": "merge_scan", "shape": label,
+        "P": p, "C": c, "Q": q, "D": d, "winners": live.numel(), "matched_slots": matched,
+        "tied_slots": ties, "written_slots": won, "winner_keys_in": "shared" if 8 * q <= 96 * 1024 else "global",
+        "max_abs_err": float((mine[2] - plain[2]).abs().max()) if v0.numel() else 0.0,
+        "ms": cuda_ms_restored(
+            lambda: merge_ops.merge(keys, *mine, q_keys, q_ev, q_vals, creation),
+            restore(mine), 10),
+        "launch_only_ms": cuda_ms_restored(launch_only, restore(mine), 10),
+        "plain_ms": cuda_ms_restored(
+            lambda: merge_scan_ref(keys, *plain, q_keys, q_ev, q_vals, creation),
+            restore(plain), 3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+    emit(row)
+    return row
+
+
+def wide_span_case(rng, device, n_ent: int = 4096, rows: int = 2048, n_q: int = 1 << 20):
+    """``n_ent`` entities x ``rows`` epoch-ms rows each, gaps up to 2**22 ms
+    (zero gaps tie), so each entity spans about 2**32 ms; ``n_q`` queries
+    over 1.1 x the entities: before the first row, exact hits, after the last
+    row and in between, and missing entities (lo == hi)."""
+    ts = EPOCH_MS + np.cumsum(rng.integers(0, 1 << 22, (n_ent, rows)), axis=1)
+    ent = rng.integers(0, n_ent * 11 // 10, n_q)
+    e = np.minimum(ent, n_ent - 1)
+    lo = e * rows
+    hi = np.where(ent < n_ent, lo + rows, lo)
+    first, last = ts[e, 0], ts[e, -1]
+    kind = rng.integers(0, 4, n_q)
+    q = np.select(
+        [kind == 0, kind == 1, kind == 2],
+        [first - rng.integers(1, 1 << 30, n_q), ts[e, rng.integers(0, rows, n_q)],
+         last + rng.integers(0, 1 << 30, n_q)],
+        default=first + rng.integers(0, last - first + 1),
+    )
+    up = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(device)
+    return (up(ts.ravel(), np.int64), up(q, np.int64), up(lo, np.int32), up(hi, np.int32),
+            up(np.repeat(np.arange(n_ent), rows), np.int64), up(e, np.int64))
+
+
+def scan_case(rng, device, p: int, c: int, d: int, n_winners: int):
+    """A table whose keys sit in their hash partitions (3/4 of the slots),
+    event and creation timestamps drawn from int32/int64 boundary values
+    (INT64_MIN: pre-stamped fresh inserts), and ``n_winners`` unique
+    winners, 3/4 of them held keys, routed with pads."""
+    cand = rng.integers(0, 2**40, p * c)
+    home = lookup_ops.partition_of(cand, p)
+    keys = np.full((p, c), -1, np.int64)
+    for part in range(p):
+        mine = cand[home == part][: c * 3 // 4]
+        keys[part, rng.choice(c, len(mine), replace=False)] = mine
+    edge = np.array([2**31 - 1, 2**31, 2**32, -1, 0, I64_MIN, 2**31 + 1], np.int64)
+    live = keys[keys >= 0]
+    n_hit = min(n_winners * 3 // 4, len(live))
+    ids = np.concatenate([rng.choice(live, n_hit, replace=False),
+                          2**41 + rng.permutation(4 * n_winners)[: n_winners - n_hit]])
+    routed = merge_ops.route_winners(p, ids, rng.choice(edge, n_winners),
+                                     rng.standard_normal((n_winners, d)).astype(np.float32))
+    up = lambda a: torch.from_numpy(a).to(device)
+    state = (keys, rng.choice(edge, (p, c)), rng.choice(edge, (p, c)),
+             rng.standard_normal((p, c, d)).astype(np.float32))
+    return tuple(map(up, state)), tuple(map(up, routed))
+
+
 def routed_queries(store, ids: np.ndarray) -> torch.Tensor:
     routed = lookup_ops.route_queries_i64(store.num_partitions, ids)[0]
     return torch.from_numpy(routed).to(store.device)
@@ -210,16 +422,59 @@ def profile_frames(n_entities: int, frame_rows: int, seed: int):
         yield Table(cols(ids, ev)), cr
 
 
+def scan_merge(fs: FeatureStore, frame: Table, creation: int) -> dict:
+    """The frame reduced to per-id winners by the merge plan (as the
+    materialization bench's scan-merge engine does), then applied by the
+    index-free scan merge to a clone of the store's device state, with the
+    launch counts zeroed just before the merge and read just after."""
+    online = fs.online
+    state = online.device_state("profile", 1)
+    start = tuple(t.clone() for t in state.planes())
+    table = online._tables[("profile", 1)]
+    dev = state.keys.device
+
+    def resolve(uids: np.ndarray):
+        part, slot, found = online._index_find(table, uids)
+        ev, cr = merge_ops.gather_slot_ts(start[1], start[2], torch.from_numpy(part).to(dev),
+                                          torch.from_numpy(slot).to(dev))
+        return ev.cpu().numpy(), cr.cpu().numpy(), found
+
+    t0 = time.perf_counter()
+    plan = plan_online_batch(encode_keys([frame["entity_id"]]), frame["ts"].astype(np.int64),
+                             creation, resolve)
+    check(not plan.is_new.any(), "the update frame holds only stored ids")
+    feats = frame.column_stack([f"f{i}" for i in range(PROFILE_FEATURES)])[plan.winner_row]
+    routed = tuple(torch.from_numpy(a).to(dev) for a in merge_ops.route_winners(
+        online.num_partitions, plan.uids, plan.winner_ev, feats))
+    work = tuple(t.clone() for t in start[1:])
+    plan_s = time.perf_counter() - t0
+    reset_counts()
+    t1 = time.perf_counter()
+    merge_ops.merge(start[0], *work, *routed, creation)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t1
+    launches = read_counts()
+    check(launches["merge_scan"] == (dev.type == "cuda")
+          and sum(launches.values()) == launches["merge_scan"],
+          "the scan path launched merge_scan once and nothing else")
+    return {"start": start, "work": work, "routed": routed, "plan": plan,
+            "row": {"winners": len(plan.uids), "Q": routed[0].shape[1], "plan_s": plan_s,
+                    "merge_s": merge_s, "launches": launches}}
+
+
 def phase_profile(device: str, n_entities: int, frame_rows: int,
                   partitions: int, n_batches: int, seed: int = 0) -> dict:
-    for c in COUNTERS:
-        c.reset()
+    reset_counts()
     t0 = time.perf_counter()
     dev = profile_store(device, "kernel", partitions)
     host = profile_store("cpu", "vector", partitions)
     tallies = np.zeros(3, np.int64)
     merge_s = 0.0
+    scan = None
     for frame, cr in profile_frames(n_entities, frame_rows, seed):
+        if cr == 20_000:  # the first update frame also takes the scan path
+            scan = scan_merge(dev, frame, cr)
         t1 = time.perf_counter()
         a = dev.write_batch("profile", 1, frame, creation_ts=cr)["online"]
         merge_s += time.perf_counter() - t1
@@ -230,6 +485,16 @@ def phase_profile(device: str, n_entities: int, frame_rows: int,
                   "touched_event_ts", "touched_values"):
             check(np.array_equal(a[k], b[k]), f"profile MergeStats {k} equal")
         tallies += (a["inserts"], a["overrides"], a["noops"])
+        if cr == 20_000:
+            state = dev.online.device_state("profile", 1)
+            check(torch.equal(state.keys, scan["start"][0]), "the update frame inserted nothing")
+            for name, mine, theirs in zip(("event_ts", "creation_ts", "values"),
+                                          scan.pop("work"), state.planes()[1:]):
+                check(torch.equal(mine, theirs), f"scan merge == write_batch on {name}")
+            plan = scan.pop("plan")
+            check((plan.inserts, plan.overrides, plan.noops)
+                  == (a["inserts"], a["overrides"], a["noops"]),
+                  "scan merge plan tallies == write_batch MergeStats")
     check(tallies[1] > 0 and tallies[2] > 0, "updates hold overrides and no-ops")
     state = dev.online.device_state("profile", 1)
     device_gb = state.nbytes() / 1e9
@@ -263,11 +528,12 @@ def phase_profile(device: str, n_entities: int, frame_rows: int,
         "found_frac": found_frac[0], "found_frac_past_ttl": found_frac[-1],
         "get_p50_ms": float(np.percentile(get_ms[:-1], 50)),
         "get_p99_ms": float(np.percentile(get_ms[:-1], 99)),
-        "launches": {c.name: c.launches for c in COUNTERS},
+        "scan_merge": {**scan["row"], "equal_to_write_batch": True},
+        "launches": read_counts(),
         "seconds": time.perf_counter() - t0,
     }
     emit(row)
-    return {"row": row, "store": dev}
+    return {"row": row, "store": dev, "scan": scan}
 
 
 # -- phase 4: the main path -----------------------------------------------------
@@ -303,8 +569,7 @@ def phase_txn(device: str, n_entities: int, events_per_hour: int, hours: int,
     rng = np.random.default_rng(seed)
     batches = [rng.integers(0, int(1.1 * n_entities), GET_BATCH).astype(np.int64)
                for _ in range(n_batches)]
-    for c in COUNTERS:
-        c.reset()
+    reset_counts()
     t0 = time.perf_counter()
     jobs = {"succeeded": 0, "retried": 0, "failed": 0}
     for h in range(1, hours + 1):
@@ -312,7 +577,7 @@ def phase_txn(device: str, n_entities: int, events_per_hour: int, hours: int,
             jobs[k] += v
     tick_s = time.perf_counter() - t0
     served = [fs.get_online_features("txn_rolling", 1, [ids]) for ids in batches]
-    launches = {c.name: c.launches for c in COUNTERS}
+    launches = read_counts()
     path_s = time.perf_counter() - t0
 
     check(jobs["succeeded"] == hours and jobs["failed"] == 0, f"{hours} jobs succeeded")
@@ -362,6 +627,96 @@ def dsl_inputs(source, mid: int, window: int, device) -> tuple[torch.Tensor, tor
     return torch.from_numpy(vals).to(device), torch.from_numpy(starts).to(device)
 
 
+# -- phase 5: offline retrieval ------------------------------------------------
+def check_nearest_past(history: Table, ids, q_ts, res, features, rng, n: int) -> int:
+    """An independent numpy search on ``n`` sampled spine rows: the found
+    row is the one of greatest (event_ts, creation_ts) among the entity's
+    rows at or before ``q_ts``, and not found means there is none."""
+    sample = rng.choice(len(ids), n, replace=False)
+    key, ev, cr = history["__key__"], history["event_ts"], history["creation_ts"]
+    sub = np.flatnonzero(np.isin(key, ids[sample]))
+    for i in sample:
+        rows = sub[(key[sub] == ids[i]) & (ev[sub] <= q_ts[i])]
+        if len(rows) == 0:
+            check(not res.found[i], "a row with no past record is not found")
+            continue
+        best = rows[np.lexsort((cr[rows], ev[rows]))[-1]]
+        check(bool(res.found[i]) and res.event_ts[i] == ev[best]
+              and all(res.values[f][i] == history[f][best] for f in features),
+              "the found row is the nearest past")
+    return n
+
+
+def phase_offline(fs: FeatureStore, n_entities: int, spine_rows: int, seed: int = 0) -> dict:
+    """The training-data path: a seeded spine of ``spine_rows`` (entity_id,
+    ts) rows, ts uniform over [0 h, 25 h], ids over 1.1 x the entities,
+    joined point-in-time onto the ``txn_rolling`` offline history."""
+    spec = fs.registry.get_feature_set("txn_rolling", 1)
+    features = [f.name for f in spec.features]
+    sets = [("txn_rolling", 1)]
+    rng = np.random.default_rng(seed)
+    spine = Table({"entity_id": rng.integers(0, int(1.1 * n_entities), spine_rows),
+                   "ts": rng.integers(0, 25 * HOUR + 1, spine_rows)})
+    ids, ts = spine["entity_id"], spine["ts"]
+    per_call = int(fs.device.type == "cuda")  # a CPU store runs the plain search
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fs.get_offline_features(spine, sets)
+    facade_s = time.perf_counter() - t0
+    check(read_counts()["pit_search"] == per_call, "one pit_search launch per feature set")
+    plain = fs.get_offline_features(spine, sets, use_kernel=False)
+    on_cpu = get_offline_features(fs.offline, spine, [spec], device="cpu")
+    for c in out.columns:
+        check(np.array_equal(out[c], plain[c]), f"offline column {c}: kernel == plain")
+        check(np.array_equal(out[c], on_cpu[c]), f"offline column {c}: card == cpu")
+    t1 = time.perf_counter()
+    history = fs.offline.read("txn_rolling", 1)
+    read_s = time.perf_counter() - t1
+    results, checked = {}, 0
+    for s in (spec, dataclasses.replace(spec, expected_delay=15 * 60_000)):
+        before = read_counts()["pit_search"]
+        res = pit_join_feature_set([ids], ts, s, history, device=fs.device)
+        check(read_counts()["pit_search"] == before + per_call, "one pit_search launch per call")
+        host = pit_join_feature_set([ids], ts, s, history, device="cpu")
+        check(np.array_equal(res.found, host.found) and np.array_equal(res.event_ts, host.event_ts)
+              and all(np.array_equal(res.values[f], host.values[f]) for f in features),
+              f"delay {s.expected_delay}: card == cpu")
+        check(bool((res.event_ts <= ts - s.expected_delay)[res.found].all()),
+              f"delay {s.expected_delay}: no found row after ts - expected_delay")
+        checked += check_nearest_past(history, ids, ts - s.expected_delay, res, features,
+                                      rng, 2000)
+        results[s.expected_delay] = res
+    launches = read_counts()
+    first, delayed = results[0], results[15 * 60_000]
+    check(np.array_equal(out["txn_rolling:v1:__found__"], first.found)
+          and all(np.array_equal(out[f"txn_rolling:v1:{f}"], first.values[f]) for f in features),
+          "FeatureStore.get_offline_features == pit_join_feature_set")
+    check(delayed.found.sum() <= first.found.sum(), "the delay hides records, never adds any")
+    row = {
+        "phase": "offline_retrieval", "device": str(fs.device), "spine_rows": spine_rows,
+        "history_rows": len(history), "found_frac": float(first.found.mean()),
+        "found_frac_delay_15min": float(delayed.found.mean()),
+        "facade_s": facade_s, "spine_rows_per_s": spine_rows / facade_s, "read_s": read_s,
+        **{f"{k}_s": v for k, v in first.seconds.items()},
+        "nearest_past_checked": checked, "launches": launches,
+    }
+    emit(row)
+    return {"row": row, "history": history, "spine": spine, "spec": spec}
+
+
+def pit_main_inputs(history: Table, spine: Table, delay: int, device):
+    """The (table_ts, q_ts, q_lo, q_hi) the offline path hands the search,
+    plus each row's and each query's segment (for the library yardstick)."""
+    h, uniq, offsets = _prepare_history(history)
+    ids = encode_keys([spine["entity_id"]])
+    q_ts, q_lo, q_hi, _ = search_inputs(ids, spine["ts"], delay, uniq, offsets)
+    row_seg = np.repeat(np.arange(len(uniq)), np.diff(offsets))
+    q_seg = np.clip(np.searchsorted(uniq, ids), 0, len(uniq) - 1)
+    up = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(device)
+    return (up(h["event_ts"], np.int64), up(q_ts, np.int64), up(q_lo, np.int32),
+            up(q_hi, np.int32), up(row_seg, np.int64), up(q_seg, np.int64))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this run needs one GPU", file=sys.stderr)
@@ -391,16 +746,29 @@ def main() -> int:
         np.maximum(np.arange(n) - rng.integers(0, 8192, n), 0).astype(np.int32)).to(cuda)
     checks["rolling_sum"] = [check_rolling(vals, starts, "N=2^20 F=4 spans<=8192 synthetic")]
     del keys, vals, starts
+    checks["pit_search"] = [check_pit(*wide_span_case(rng, cuda),
+                                      "wide span: 4,096 x 2,048 epoch-ms rows, 2^20 queries")]
+    check(checks["pit_search"][0]["wide_span"], "the wide-span shape spans over 2^31 ms")
+    checks["merge_scan"] = [
+        check_merge(*scan_case(rng, cuda, 5, 1001, 3, 2000), 2**31,
+                    "synthetic P=5 C=1001 D=3, edge timestamps, winner keys in shared memory"),
+        check_merge(*scan_case(rng, cuda, 2, 3001, 5, 20_000), -1,
+                    "synthetic P=2 C=3001 D=5, edge timestamps, winner keys in global memory"),
+    ]
+    check(checks["merge_scan"][1]["winner_keys_in"] == "global", "the global-memory path ran")
 
     prof = phase_profile("cuda", PROFILE_ENTITIES, 1 << 20, PROFILE_PARTITIONS, 64)
-    prof_row, pstore = prof["row"], prof["store"].online
+    prof_row, pstore, scan = prof["row"], prof["store"].online, prof["scan"]
     check(prof_row["launches"]["online_lookup"] == prof_row["get_batches"],
           "one lookup launch per profile GET batch")
     checks["online_lookup"].append(check_lookup(
         pstore.device_state("profile", 1).keys,
         routed_queries(pstore, rng.integers(0, PROFILE_ENTITIES, GET_BATCH)),
         "profile table P=256, one 4,096-id GET"))
-    del prof, pstore
+    main_merge = check_merge(scan["start"], scan["routed"], 20_000,
+                             "profile table P=256 C=65,536 D=32, one 2^20-row frame's winners")
+    checks["merge_scan"].append(main_merge)
+    del prof, pstore, scan
     torch.cuda.empty_cache()
 
     txn = phase_txn("cuda", TXN_ENTITIES, TXN_EVENTS_PER_HOUR, TXN_HOURS, 16)
@@ -414,24 +782,40 @@ def main() -> int:
         checks["rolling_sum"].append(check_rolling(v, s, f"main path: one job's {tag} window"))
     main_roll = checks["rolling_sum"][-1]  # the 6 h window: the longer spans
 
-    launches = txn["row"]["launches"]
-    check(all(launches[c.name] > 0 for c in COUNTERS), "every kernel launched on the main path")
+    launches = {k: txn["row"]["launches"][k] for k in ("online_lookup", "rolling_sum")}
+    check(all(v > 0 for v in launches.values()), "each kernel of the main path launched")
     check(launches["rolling_sum"] == 2 * txn["row"]["jobs"]["succeeded"],
           "two rolling_sum launches per job (one per window)")
     check(launches["online_lookup"] == 16, "one lookup launch per GET batch")
+    launches["merge_scan"] = prof_row["scan_merge"]["launches"]["merge_scan"]
+    check(launches["merge_scan"] > 0, "merge_scan launched on the scan path")
+
+    off = phase_offline(txn["store"], TXN_ENTITIES, SPINE_ROWS)
+    launches["pit_search"] = off["row"]["launches"]["pit_search"]
+    check(launches["pit_search"] == 3, "pit_search launched once per offline call")
+    main_pit = check_pit(*pit_main_inputs(off["history"], off["spine"], 0, cuda),
+                         "main path: txn_rolling history, 2^20-row spine")
+    checks["pit_search"].append(main_pit)
+    del txn, ostore, off
+
     sources = {"online_lookup": ("src/repro_torch/csrc/online_lookup.cu",
                                  "src/repro/kernels/online_lookup/kernel.py:38"),
                "rolling_sum": ("src/repro_torch/csrc/rolling_sum.cu",
-                               "src/repro/kernels/rolling_agg/kernel.py:39")}
+                               "src/repro/kernels/rolling_agg/kernel.py:39"),
+               "pit_search": ("src/repro_torch/csrc/pit_search.cu",
+                              "src/repro/kernels/pit_join/kernel.py:34"),
+               "merge_scan": ("src/repro_torch/csrc/merge_scan.cu",
+                              "src/repro/kernels/online_merge/kernel.py:60")}
     kernels = []
-    for name, main_row in (("online_lookup", main_lookup), ("rolling_sum", main_roll)):
+    for name, main_row in (("online_lookup", main_lookup), ("rolling_sum", main_roll),
+                           ("pit_search", main_pit), ("merge_scan", main_merge)):
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in checks[name]),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-            "library_ms": None, "shape": main_row["shape"],
+            "library_ms": main_row["library_ms"], "shape": main_row["shape"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     emit({"card": card, "get_batch": GET_BATCH, "get_p50_ms": prof_row["get_p50_ms"],

@@ -1,10 +1,14 @@
-"""Carry online-store state between the JAX package and the port as numpy.
+"""Carry store state between the JAX package and the port as numpy.
 
 ``online_table_from_numpy`` installs one table's host state (the arrays a
 JAX ``OnlineStore`` table holds) into a port ``OnlineStore``, which uploads
 it to its device at its next kernel operation; ``_to_numpy`` reads a port
 table back out in the same form.  The JAX store's int32 key planes are not
 part of that state: ``keys_full`` carries the same keys as int64.
+
+``offline_history_from_numpy`` installs one feature set's offline history
+(the record-schema columns an ``OfflineStore.read`` returns) into a port
+``OfflineStore``; ``offline_history_to_numpy`` reads it back out.
 """
 
 from __future__ import annotations
@@ -14,9 +18,24 @@ from collections import deque
 import numpy as np
 
 from repro_torch.core.assets import FeatureSetSpec
+from repro_torch.core.keys import encode_full_keys
+from repro_torch.core.offline_store import (
+    CREATION_TS,
+    EVENT_TS,
+    OfflineStore,
+    _record_schema,
+    _Shard,
+)
 from repro_torch.core.online_store import OnlineStore, _PartitionedTable
+from repro_torch.core.table import Table
+from repro_torch.kernels.online_lookup.ops import partition_of
 
-__all__ = ["STATE_FIELDS", "online_table_from_numpy"]
+__all__ = [
+    "STATE_FIELDS",
+    "offline_history_from_numpy",
+    "offline_history_to_numpy",
+    "online_table_from_numpy",
+]
 
 STATE_FIELDS = (
     "keys_full", "event_ts", "creation_ts", "values", "fill",
@@ -65,3 +84,36 @@ def _to_numpy(store: OnlineStore, name: str, version: int) -> dict:
     out = {k: np.array(getattr(t, k), copy=True) for k in STATE_FIELDS}
     out["free"] = [list(f) for f in t.free]
     return out
+
+
+def offline_history_from_numpy(
+    store: OfflineStore, spec: FeatureSetSpec, columns: dict
+) -> None:
+    """Install ``columns`` (the record schema of ``spec``: ``__key__``, the
+    index columns, ``event_ts``, ``creation_ts`` and the features) as
+    ``spec``'s whole history in ``store``, replacing any it held.  Rows go
+    to their key's shard in the order given, one chunk per shard, with the
+    full-key index later merges dedup against; the arrays are copied.  A
+    history read from a store with as many shards comes back from
+    ``store.read`` in the same row order."""
+    schema = _record_schema(spec)
+    if set(columns) != set(schema):
+        raise ValueError(f"columns {sorted(columns)} are not the record schema {sorted(schema)}")
+    cols = {k: np.array(columns[k], dtype=dt, copy=True) for k, dt in schema.items()}
+    if len({len(v) for v in cols.values()}) != 1:
+        raise ValueError("history columns must have one length")
+    shard_of = partition_of(cols["__key__"], store.num_shards)
+    shards = []
+    for s in range(store.num_shards):
+        rows = np.flatnonzero(shard_of == s)
+        chunk = Table({k: v[rows] for k, v in cols.items()})
+        index = np.sort(encode_full_keys(chunk["__key__"], chunk[EVENT_TS], chunk[CREATION_TS]))
+        shards.append(_Shard([chunk], index=index, num_rows=len(rows)))
+    store._shards[spec.key] = shards
+    store._specs[spec.key] = spec
+
+
+def offline_history_to_numpy(store: OfflineStore, name: str, version: int) -> dict:
+    """One feature set's whole port history as record-schema columns, in
+    ``store.read`` order, copied: what ``offline_history_from_numpy`` takes."""
+    return {k: np.array(v, copy=True) for k, v in store.read(name, version).columns.items()}

@@ -5,9 +5,8 @@ feature store management, asset management, feature engineering (scheduled +
 backfill materialization, online retrieval), monitoring/lineage, and
 geo-distributed placement.
 
-Not ported yet: offline point-in-time retrieval (``get_offline_features``)
-and the replication surface (``lag``, ``drain``, ``failover``, ``rejoin``,
-``attach_replication``).
+Not ported yet: the replication surface (``lag``, ``drain``, ``failover``,
+``rejoin``, ``attach_replication``).
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ from repro_torch.core.materializer import FaultInjector, Materializer
 from repro_torch.core.monitoring import HealthMonitor
 from repro_torch.core.offline_store import OfflineStore
 from repro_torch.core.online_store import OnlineStore
+from repro_torch.core.pit import get_offline_features
 from repro_torch.core.registry import AssetRegistry
 from repro_torch.core.regions import (
     GeoPlacement,
@@ -188,6 +188,26 @@ class FeatureStore:
         if spec.materialization.online_enabled:
             out["online"] = self.online.merge(spec, frame, creation)
         return out
+
+    def get_offline_features(
+        self,
+        spine: Table,
+        feature_sets: Sequence[tuple[str, int]],
+        *,
+        spine_ts_col: str = "ts",
+        use_kernel: bool = True,
+    ) -> Table:
+        """Point-in-time correct offline retrieval (§2.1 item 3, §4.4), with
+        the as-of search on the store's device."""
+        specs = [self.registry.get_feature_set(n, v) for n, v in feature_sets]
+        return get_offline_features(
+            self.offline,
+            spine,
+            specs,
+            spine_ts_col=spine_ts_col,
+            device=self.device,
+            use_kernel=use_kernel,
+        )
 
     def get_online_features(
         self,

@@ -39,6 +39,12 @@ _SIGNATURES = {
     "online_lookup_i64": (_P, _P, _P, _I, _I, _I, _P),
     # values (N, F) f32, starts (N,) i32, out (N, F) f32, N, F, stream
     "rolling_sum_f32": (_P, _P, _P, _L, _I, _P),
+    # table_ts (M,) i64, q_ts (B,) i64, q_lo/q_hi (B,) i32, idx (B,) i32,
+    # valid (B,) bool, B, stream
+    "pit_search_i64": (_P, _P, _P, _P, _P, _P, _L, _P),
+    # keys/ev/cr (P, C) i64, values (P, C, D) f32, sorted_q/order/q_ev (P, Q)
+    # i64, q_values (P, Q, D) f32, creation, P, C, Q, D, stream
+    "merge_scan_i64": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

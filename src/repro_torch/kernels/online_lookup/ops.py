@@ -171,6 +171,8 @@ def lookup(keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"lookup runs on cuda or cpu, not {keys.device}")
     p, c = keys.shape
     q = queries.shape[1]
+    if p * q == 0:  # nothing to launch, nothing to count
+        return torch.empty((p, q), dtype=torch.int32, device=keys.device)
     lib = native.library()
     with torch.cuda.device(keys.device):
         out = torch.zeros((p, q), dtype=torch.int32, device=keys.device)

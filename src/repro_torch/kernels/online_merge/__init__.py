@@ -1,1 +1,1 @@
-"""Online-store write path: the resident Algorithm-2 merge."""
+"""Online-store write path: the resident Algorithm-2 merge and the scan."""

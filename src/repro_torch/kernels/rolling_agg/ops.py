@@ -73,9 +73,11 @@ def rolling_sum(values: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
         return rolling_sum_ref(values, starts)
     if values.device.type != "cuda":
         raise ValueError(f"rolling_sum runs on cuda or cpu, not {values.device}")
+    out = torch.empty((n, f), dtype=torch.float32, device=values.device)
+    if n * f == 0:  # nothing to launch, nothing to count
+        return out
     lib = native.library()
     with torch.cuda.device(values.device):
-        out = torch.empty((n, f), dtype=torch.float32, device=values.device)
         stream = torch.cuda.current_stream(values.device).cuda_stream
         err = lib.rolling_sum_f32(
             values.data_ptr(), starts.data_ptr(), out.data_ptr(), n, f, stream

@@ -45,7 +45,8 @@ def test_port_imports_without_jax_or_repro():
         "repro_torch.core.dsl", "repro_torch.convert",
         "repro_torch.kernels.online_lookup.ops", "repro_torch.kernels.rolling_agg.ops",
         "repro_torch.kernels.online_merge.ops", "repro_torch.runtime.supervisor",
-        "repro_torch.data.sources",
+        "repro_torch.data.sources", "repro_torch.core.pit",
+        "repro_torch.kernels.pit_join.ops",
     }
     assert expected <= set(res["modules"])
 

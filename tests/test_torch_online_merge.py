@@ -10,6 +10,7 @@ import numpy as np  # noqa: E402
 
 from repro.kernels.online_lookup.ops import combine_i64, split_i64  # noqa: E402
 from repro.kernels.online_merge import ops as jops  # noqa: E402
+from repro_torch.kernels.online_lookup.ops import partition_of  # noqa: E402
 from repro_torch.kernels.online_merge import ops as tops  # noqa: E402
 
 _I32_MAX = np.iinfo(np.int32).max
@@ -115,3 +116,186 @@ def test_gather_slot_ts_matches_jax():
     )
     np.testing.assert_array_equal(tev.numpy(), combine_i64(out[0], out[1]))
     np.testing.assert_array_equal(tcr.numpy(), combine_i64(out[2], out[3]))
+
+
+# -- the index-free scan merge: route_and_merge / merge --------------------------
+I64 = np.iinfo(np.int64)
+BOUNDARY_TS = np.array([2**31 - 1, 2**31, 2**32, -1, I64.min, 0, 2**31 + 1], np.int64)
+
+
+def _scan_case(rng, p, c, d, g, *, boundary):
+    """A table whose keys sit in their hash partitions, with empty slots, one
+    key held by two slots, INT64_MIN-stamped fresh inserts and (if
+    ``boundary``) timestamps at the int32/int64 edges; ``g`` unique winner
+    ids: held keys with event_ts below, equal to and above the stored one,
+    plus ids the table does not hold."""
+    cand = rng.integers(0, 2**40, size=p * c, dtype=np.int64)
+    home = partition_of(cand, p)
+    keys = np.full((p, c), -1, np.int64)
+    for q in range(p):
+        mine = cand[home == q][: c * 3 // 4]
+        keys[q, rng.choice(c, size=len(mine), replace=False)] = mine
+    shared = keys[0][keys[0] >= 0][0]
+    twin = np.flatnonzero(keys[0] == -1)[0]
+    keys[0, twin] = shared  # one key in two slots of its partition
+    if boundary:
+        ev = rng.choice(BOUNDARY_TS, size=(p, c))
+        cr = rng.choice(BOUNDARY_TS, size=(p, c))
+    else:
+        ev = 1_700_000_000_000 + rng.integers(-3, 3, size=(p, c))
+        cr = rng.integers(100, 103, size=(p, c)).astype(np.int64)
+    fresh = rng.random((p, c)) < 0.1
+    ev[fresh] = cr[fresh] = I64.min
+    first, twin = np.flatnonzero(keys[0] == shared)
+    ev[0, twin], cr[0, twin] = ev[0, first], cr[0, first]
+    values = rng.standard_normal((p, c, d)).astype(np.float32)
+    values[0, twin] = values[0, first]
+    live = np.unique(keys[keys >= 0])
+    n_hit = min(g * 3 // 4, len(live))
+    ids = np.concatenate([rng.choice(live, n_hit, replace=False),
+                          rng.integers(2**41, 2**42, g - n_hit)])
+    if shared not in ids:
+        ids[0] = shared
+    # stored event_ts of each id (any of its slots), then -1 / 0 / +1
+    where = {int(k): ev[pp, cc] for (pp, cc), k in np.ndenumerate(keys) if k >= 0}
+    base = np.array([where.get(int(i), 0) for i in ids], np.int64)
+    step = rng.integers(-1, 2, size=g)
+    q_ev = np.where((step < 0) & (base == I64.min), base, base + step)
+    if boundary:
+        q_ev[::3] = rng.choice(BOUNDARY_TS, size=len(q_ev[::3]))
+    vals = rng.standard_normal((g, d)).astype(np.float32)
+    return keys, ev, cr, values, ids, q_ev, vals
+
+
+def _jax_route_and_merge(keys, ev, cr, values, ids, q_ev, vals, creation):
+    klo, khi = split_i64(keys)
+    return jops.route_and_merge(klo, khi, ev, cr, values, ids, q_ev, vals, creation,
+                                interpret=True)
+
+
+@pytest.mark.parametrize(
+    "boundary,creation",
+    [(False, 101), (False, 103), (True, 2**31), (True, 2**32), (True, -1), (True, 0)],
+)
+def test_route_and_merge_matches_jax(boundary, creation):
+    rng = np.random.default_rng(creation % 997 + boundary)
+    p, c, d, g = 4, 96, 3, 150
+    case = _scan_case(rng, p, c, d, g, boundary=boundary)
+    keep = [a.copy() for a in case]
+    want = _jax_route_and_merge(*case, creation)
+    got = tops.route_and_merge(*case, creation, device="cpu")
+    for a, b in zip(case, keep):  # value semantics: inputs untouched
+        np.testing.assert_array_equal(a, b)
+    for w, t in zip(want, got):
+        assert w.dtype == t.dtype
+        np.testing.assert_array_equal(t, w)
+    keys, ev, cr = case[:3]
+    changed = got[0] != ev
+    assert changed.any() and (~changed & (keys >= 0)).any()  # overrides and no-ops
+    assert (got[1][cr == I64.min] != I64.min).any()  # pre-stamped inserts taken
+    both = np.flatnonzero(keys[0] == keys[0][keys[0] >= 0][0])  # one key, two slots
+    assert len(both) == 2
+    for out in got:
+        np.testing.assert_array_equal(out[0, both[0]], out[0, both[1]])
+
+
+def test_route_and_merge_creation_ts_breaks_equal_event_ts():
+    keys = np.array([[5, 6, -1]], np.int64)
+    ev = np.array([[10, 10, 0]], np.int64)
+    cr = np.array([[100, 300, 0]], np.int64)
+    values = np.zeros((1, 3, 2), np.float32)
+    ids, q_ev = np.array([5, 6]), np.array([10, 10])
+    vals = np.ones((2, 2), np.float32)
+    for use in ("jax", "port"):
+        if use == "jax":
+            out = _jax_route_and_merge(keys, ev, cr, values, ids, q_ev, vals, 200)
+        else:
+            out = tops.route_and_merge(keys, ev, cr, values, ids, q_ev, vals, 200,
+                                       device="cpu")
+        # greater creation_ts wins the tie on slot 0; lesser loses on slot 1
+        assert out[1].tolist() == [[200, 300, 0]], use
+        assert out[2][0, :, 0].tolist() == [1.0, 0.0, 0.0], use
+
+
+def test_route_and_merge_empty_batch_and_pads():
+    rng = np.random.default_rng(3)
+    keys, ev, cr, values, ids, q_ev, vals = _scan_case(rng, 3, 40, 2, 20, boundary=False)
+    for out in (_jax_route_and_merge(keys, ev, cr, values, ids[:0], q_ev[:0], vals[:0], 7),
+                tops.route_and_merge(keys, ev, cr, values, ids[:0], q_ev[:0], vals[:0], 7,
+                                     device="cpu")):
+        for a, b in zip(out, (ev, cr, values)):
+            np.testing.assert_array_equal(a, b)
+            assert a is not b
+    # one winner routes to a partition padded far past it: pads match nothing,
+    # not even a slot whose key equals the pad value
+    keys[1, 3] = tops.PAD
+    q_ids, _, _ = tops.route_winners(3, ids[:1], q_ev[:1], vals[:1])
+    assert q_ids.shape[1] == 128 and (q_ids == tops.PAD).sum() == 3 * 128 - 1
+    wid = next(k for k in keys[0] if k >= 0 and (keys == k).sum() == 1)
+    got = tops.route_and_merge(keys, ev, cr, values, np.array([wid]),
+                               np.array([ev[keys == wid].max() + 10]), vals[:1], 7,
+                               device="cpu")
+    assert (got[0] != ev).sum() == (keys == wid).sum() == 1
+
+
+def test_merge_validates_winner_keys():
+    keys = torch.tensor([[1, 2]])
+    ev, cr = torch.zeros((1, 2), dtype=torch.int64), torch.zeros((1, 2), dtype=torch.int64)
+    values = torch.zeros((1, 2, 1))
+    q_vals = torch.zeros((1, 2, 1))
+    with pytest.raises(ValueError, match="distinct"):
+        tops.merge(keys, ev, cr, values, torch.tensor([[1, 1]]), ev, q_vals, 5)
+    with pytest.raises(ValueError, match="pad"):
+        tops.merge(keys, ev, cr, values, torch.tensor([[-3, 1]]), ev, q_vals, 5)
+    with pytest.raises(TypeError):
+        tops.merge(keys, ev, cr, values.double(), torch.tensor([[2, 1]]), ev, q_vals, 5)
+    with pytest.raises(ValueError):
+        tops.merge(keys, ev, cr, values, torch.tensor([[2, 1, 3]]), ev, q_vals, 5)
+    tops.merge(keys, ev, cr, values, torch.tensor([[2, -2]]), ev + 1,
+               torch.ones((1, 2, 1)), 5)
+    # in place, on the slot of key 2 only
+    assert ev.tolist() == [[0, 1]] and cr.tolist() == [[0, 5]]
+    assert values.flatten().tolist() == [0.0, 1.0]
+
+
+@pytest.mark.parametrize("p,c,q", [(2, 3, 4), (0, 3, 4), (2, 0, 4), (2, 3, 0)])
+def test_merge_launch_counts_only_a_launch(monkeypatch, p, c, q):
+    """The launch counter moves where the kernel launches and nowhere else:
+    an empty table or batch launches nothing and counts nothing."""
+    calls = []
+    fake = type("Lib", (), {"merge_scan_i64": staticmethod(lambda *a: calls.append(a) or 0)})
+    monkeypatch.setattr(tops.native, "library", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: type("S", (), {"cuda_stream": 0}))
+    table = torch.zeros((p, c), dtype=torch.int64)
+    batch = torch.zeros((p, q), dtype=torch.int64)
+    before = tops.counter.launches
+    tops._launch(table, table, table, torch.zeros((p, c, 2)), batch, batch, batch,
+                 torch.zeros((p, q, 2)), 7)
+    launched = p * c * q > 0
+    assert len(calls) == launched and tops.counter.launches == before + launched
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_merge_scan_kernel_matches_plain_on_card(cuda_device):
+    rng = np.random.default_rng(17)
+    keys, ev, cr, values, ids, q_ev, vals = _scan_case(rng, 8, 3000, 5, 6000, boundary=True)
+    routed = tops.route_winners(8, ids, q_ev, vals)
+    table = [torch.from_numpy(a) for a in (keys, ev, cr, values)]
+    on_card = [t.to(cuda_device) for t in table]
+    before = tops.counter.launches
+    tops.merge(*on_card, *(torch.from_numpy(a).to(cuda_device) for a in routed), 2**31)
+    torch.cuda.synchronize()
+    assert tops.counter.launches == before + 1
+    tops.merge(*table, *(torch.from_numpy(a) for a in routed), 2**31)
+    for a, b in zip(on_card, table):
+        assert torch.equal(a.cpu(), b)
+    no_winners = (torch.zeros((8, 0), dtype=torch.int64, device=cuda_device),) * 2
+    tops.merge(*on_card, *no_winners, torch.zeros((8, 0, 5), device=cuda_device), 2**31)
+    assert tops.counter.launches == before + 1  # an empty batch launches nothing
