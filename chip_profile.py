@@ -8,14 +8,18 @@ entities and 200k events an hour, then 16 GETs of 4,096 ids) on the card
 under ``cProfile`` and prints one JSON line with the host seconds spent in
 each layer (cumulative, so a layer includes the layers below it).  Then it
 runs two more jobs and 16 more GETs under ``torch.profiler`` and prints the
-device's busy share of that window and its kernel time by name.  The
-untraced times are those ``chip_smoke.py`` prints.  Exits non-zero without
-a CUDA device.
+device's busy share of that window and its kernel time by name.  Last, the
+LM serving slice at phi3-medium-14b's full width (seeded bf16 weights):
+8 decode steps of 8 requests and one flash prefill forward at 4 x 2,048,
+each under ``torch.profiler``, with the host time per step, the device's
+busy share and its time by kernel.  The untraced times are those
+``chip_smoke.py`` prints.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
 import cProfile
+import dataclasses
 import pstats
 import sys
 import time
@@ -57,6 +61,72 @@ def layer_seconds(stats: pstats.Stats) -> dict:
     return out
 
 
+def device_ops(tp) -> dict:
+    """Device-side activity only (kernels, copies, fills) by name: host ops
+    report their children's device time too, which would count it twice."""
+    on_device = {}
+    for e in tp.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            row = on_device.setdefault(e.key[:80], {"device_ms": 0.0, "count": 0})
+            row["device_ms"] += e.self_device_time_total / 1e3
+            row["count"] += e.count
+    if not on_device:
+        raise RuntimeError("the profiler recorded no device activity: time with CUDA events")
+    return on_device
+
+
+def traced(fn, device: torch.device) -> tuple[float, dict]:
+    """(wall seconds, device ops by name) of ``fn()`` under torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize(device)
+    with torch.profiler.profile(activities=acts) as tp:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    return wall, device_ops(tp)
+
+
+def summary(window: str, wall: float, ops: dict, **extra) -> dict:
+    busy = sum(v["device_ms"] for v in ops.values())
+    top = dict(sorted(ops.items(), key=lambda kv: -kv[1]["device_ms"])[:10])
+    return {"window": window, "window_s": wall, "device_busy_ms": busy,
+            "device_busy_share": busy / 1e3 / wall, **extra, "top_device_ops": top}
+
+
+def lm_traces(card: str, steps: int = 8) -> None:
+    """The LM slice's two units on the card: ``steps`` decode steps of
+    ``cs.LM_REQUESTS`` requests against a 32-token cache, and one flash
+    prefill forward at ``cs.PREFILL_BATCH`` x ``cs.PREFILL_SEQ``."""
+    cfg = cs.get_config(cs.LM_ARCH)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    params = cs.api.init_params(0, cfg, device=dev)
+    toks = cs.api.make_dummy_batch(cfg, cs.LM_REQUESTS, 32 + steps, seed=1, device=dev)["tokens"]
+    cache = cs.api.init_cache(cfg, cs.LM_REQUESTS, 32 + steps, device=dev)
+    for i in range(32):  # fill the cache as the served prompts would
+        cs.api.decode_step(params, cache, toks[:, i:i + 1], cfg)
+
+    def decode():
+        for i in range(32, 32 + steps):
+            cs.api.decode_step(params, cache, toks[:, i:i + 1], cfg)
+
+    wall, ops = traced(decode, dev)
+    cs.emit({"phase": "lm_decode_trace", "card": card, "arch": cfg.name,
+             **summary(f"{steps} decode steps of {cs.LM_REQUESTS} requests", wall, ops,
+                       ms_per_step=wall / steps * 1e3,
+                       device_launches_per_step=sum(v["count"] for v in ops.values()) / steps)})
+    del cache
+    flash = cs.make_prefill_step(dataclasses.replace(cfg, attn_impl="pallas_flash"))
+    batch = cs.api.make_dummy_batch(cfg, cs.PREFILL_BATCH, cs.PREFILL_SEQ, seed=2, device=dev)
+    flash(params, batch)  # warm-up
+    wall, ops = traced(lambda: flash(params, batch), dev)
+    flash_ms = sum(v["device_ms"] for k, v in ops.items() if "flash_fwd" in k)
+    busy = sum(v["device_ms"] for v in ops.values())
+    cs.emit({"phase": "lm_prefill_trace", "card": card, "arch": cfg.name,
+             **summary(f"one flash forward at {cs.PREFILL_BATCH} x {cs.PREFILL_SEQ}", wall, ops,
+                       flash_device_ms=flash_ms, flash_share_of_device=flash_ms / busy)})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device visible; this run needs one GPU", file=sys.stderr)
@@ -87,16 +157,7 @@ def main() -> int:
             fs.get_online_features("txn_rolling", 1, [ids])
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-    # device-side activity only (kernels, copies, fills): host ops report
-    # their children's device time too, which would count it twice
-    on_device = {}
-    for e in tp.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
-            row = on_device.setdefault(e.key[:80], {"device_ms": 0.0, "count": 0})
-            row["device_ms"] += e.self_device_time_total / 1e3
-            row["count"] += e.count
-    if not on_device:
-        raise RuntimeError("the profiler recorded no device activity: time with CUDA events")
+    on_device = device_ops(tp)
     busy_ms = sum(v["device_ms"] for v in on_device.values())
     copy_ms = sum(v["device_ms"] for k, v in on_device.items() if k.startswith("Memcpy"))
     top = dict(sorted(on_device.items(), key=lambda kv: -kv[1]["device_ms"])[:10])
@@ -104,6 +165,9 @@ def main() -> int:
              "jobs_s": t2 - t1, "gets_s": t3 - t2, "window_s": t3 - t1,
              "device_busy_ms": busy_ms, "device_copy_ms": copy_ms,
              "device_busy_share": busy_ms / 1e3 / (t3 - t1), "top_device_ops": top})
+    del txn, fs
+    torch.cuda.empty_cache()
+    lm_traces(card)
     print(card, flush=True)
     return 0
 

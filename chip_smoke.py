@@ -25,11 +25,25 @@ port's paths on the card through the entry points a user calls:
      ``txn_rolling`` offline history through
      ``FeatureStore.get_offline_features``, held against the plain search
      on the card, the same call on the CPU and an independent numpy search;
-  6. the ``kernels`` line: launches, errors, times and bounds per kernel.
+  6. ``flash_attn`` against its plain version at phi3-medium-14b's prefill
+     shape (B=4, S=2,048, H=40, KV=10, D=128, bf16), a ragged float32 GQA
+     shape and an MQA D=256 shape, beside ``scaled_dot_product_attention``;
+  7. ``lm_serve``: the ported LM request path (``launch/serve.py``) at
+     phi3-medium-14b's full width (40 layers, d_model 5,120, random bf16
+     weights from a seed, 29.3 GB): 8 sessions' contexts fetched through the
+     online store (the lookup kernel), a stepped prefill of the 32-token
+     contexts, 16 greedy tokens; contexts equal to the offline latest,
+     prompts equal to a CPU run of the serving plane;
+  8. ``lm_prefill``: ``make_prefill_step`` with ``attn_impl="pallas_flash"``
+     on the same model, on the served prompts (against the stepped prefill's
+     logits) and on a 4 x 2,048 batch from a ``FeatureStoreLoader`` over the
+     serving plane (against ``attn_impl="xla"``), 40 flash launches per
+     forward;
+  9. the ``kernels`` line: launches, errors, times and bounds per kernel.
 
-Each path (``scan_merge``, the main path, ``offline_retrieval``) runs with
-the launch counts zeroed just before it and read just after, and must have
-launched each kernel of its own path.
+Each path (``scan_merge``, the main path, ``offline_retrieval``,
+``lm_serve``, ``lm_prefill``) runs with the launch counts zeroed just before
+it and read just after, and must have launched each kernel of its own path.
 
 Each phase prints one JSON line; any failed check raises, so the run exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -77,10 +91,19 @@ from repro_torch.kernels.pit_join import ops as pit_ops  # noqa: E402
 from repro_torch.kernels.pit_join.ref import pit_search_ref  # noqa: E402
 from repro_torch.kernels.rolling_agg import ops as rolling_ops  # noqa: E402
 from repro_torch.kernels.rolling_agg.ref import rolling_sum_ref  # noqa: E402
+from repro_torch.kernels.flash_attn import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attn.ref import attention_ref  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.offline_store import CREATION_TS  # noqa: E402
+from repro_torch.data.loader import FeatureStoreLoader  # noqa: E402
+from repro_torch.launch.serve import build_serving_plane, serve  # noqa: E402
+from repro_torch.launch.steps import make_prefill_step  # noqa: E402
+from repro_torch.models import api  # noqa: E402
 
 HOUR = 3_600_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bfloat16 tensor-core rate
 # rolling_sum: kernel and plain both sum in float64 and round once to float32,
 # so they differ by at most about one float32 ulp of the result
 ROLL_RTOL, ROLL_ATOL = 1e-6, 1e-5
@@ -94,9 +117,24 @@ TXN_EVENTS_PER_HOUR = 200_000
 TXN_HOURS = 24
 GET_BATCH = 4096
 SPINE_ROWS = 1 << 20
+LM_ARCH = "phi3-medium-14b"  # full width: 40 layers, d_model 5120, GQA 40/10, vocab 100,352
+LM_REQUESTS, LM_NEW_TOKENS = 8, 16
+PREFILL_BATCH, PREFILL_SEQ = 4, 2048
 EPOCH_MS = 1_700_000_000_000
 I64_MIN = -(2**63)
-COUNTERS = (lookup_ops.counter, rolling_ops.counter, pit_ops.counter, merge_ops.counter)
+# lm_prefill, the flash forward's logits against the stepped prefill and the
+# xla path: both compute attention in float32 from bfloat16 q, k, v and
+# differ in summation order and in one bfloat16 rounding of each attention
+# output (the stepped prefill also in its matmuls' shapes), amplified over 40
+# random-weight layers; compared relative to the logits' scale
+LOGITS_REL_RMS, LOGITS_TOP1 = 0.1, 0.8
+# flash_attn, kernel vs plain: both compute float32 scores, softmax and sums
+# and round once to the output type; they differ in summation order only, so
+# float32 agrees to 1e-5 and bfloat16 to one output rounding (the JAX
+# package's own flash tolerances)
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+COUNTERS = (lookup_ops.counter, rolling_ops.counter, pit_ops.counter, merge_ops.counter,
+            flash_ops.counter)
 
 
 def reset_counts() -> None:
@@ -155,10 +193,11 @@ def cuda_ms_restored(fn, restore, reps: int) -> float:
     return total / reps
 
 
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
+def bound(nbytes: int, ops: int, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     """Least time for the work: bytes over the memory rate vs operations over
-    the float32 rate, in ms, and which of the two bounds it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    the rate of their type (float32 unless given), in ms, and which of the
+    two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -320,6 +359,52 @@ def check_merge(state, routed, creation: int, label: str) -> dict:
             lambda: merge_scan_ref(keys, *plain, q_keys, q_ev, q_vals, creation),
             restore(plain), 3),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+    emit(row)
+    return row
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The library yardstick for flash_attn: one PyTorch call on the same
+    (B, S, H, D) inputs, viewed as (B, H, S, D).  Timed here, used nowhere
+    in the port."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+        enable_gqa=True).transpose(1, 2)
+
+
+def check_flash(b: int, s: int, h: int, kv: int, d: int, dtype, label: str, rng,
+                reps: int = 10) -> dict:
+    """Kernel vs plain on the card within FLASH_TOL, on seeded normal q, k,
+    v (the library call's distance to plain is reported).  Operations: 4·D per
+    (query head, visible key) pair -- two for q.k, two for p.v -- over the
+    rate of the input type (bfloat16 tensor cores, or float32); bytes: q, k,
+    v read once and O written once."""
+    up = lambda shape: torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        "cuda").to(dtype)
+    q, k, v = up((b, s, h, d)), up((b, s, kv, d)), up((b, s, kv, d))
+    before = flash_ops.counter.launches
+    got = flash_ops.flash_attention(q, k, v)
+    want = attention_ref(q, k, v).to(dtype)
+    lib = sdpa(q, k, v)
+    torch.cuda.synchronize()
+    check(flash_ops.counter.launches == before + 1, f"flash_attn kernel launched ({label})")
+    tol = FLASH_TOL[dtype]
+    check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+          f"flash_attn kernel within {tol} of plain ({label})")
+    pairs = sum(min(i + 1, s) for i in range(s))
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    b_ms, b_by = bound(q.element_size() * (2 * q.numel() + 2 * k.numel()),
+                       4 * b * h * d * pairs, rate)
+    row = {
+        "phase": "kernel_check", "kernel": "flash_attn", "shape": label,
+        "B": b, "S": s, "H": h, "KV": kv, "D": d, "dtype": str(dtype).removeprefix("torch."),
+        "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "library_max_abs_err": float((lib.float() - want.float()).abs().max()),
+        "ms": cuda_ms(lambda: flash_ops.flash_attention(q, k, v), reps),
+        "plain_ms": cuda_ms(lambda: attention_ref(q, k, v), 3),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: sdpa(q, k, v), reps),
     }
     emit(row)
     return row
@@ -717,6 +802,161 @@ def pit_main_inputs(history: Table, spine: Table, delay: int, device):
             up(q_hi, np.int32), up(row_seg, np.int64), up(q_seg, np.int64))
 
 
+# -- phases 6-7: the LM serving path ------------------------------------------------
+def latest_chunks(fs: FeatureStore, spec, ids: np.ndarray) -> np.ndarray:
+    """The offline store's latest record (greatest (event_ts, creation_ts))
+    of each id, as the feature row the online store must serve."""
+    hist = fs.offline.read(spec.name, spec.version)
+    cols = [f.name for f in spec.features]
+    rows = []
+    for i in ids:
+        mine = np.flatnonzero(hist["doc_id"] == i)
+        rows.append(mine[np.lexsort((hist[CREATION_TS][mine], hist["event_ts"][mine]))[-1]])
+    return np.stack([hist[c][rows] for c in cols], axis=1).astype(np.float32)
+
+
+def logits_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Distance of bfloat16 logits ``got`` from ``want``: max abs, relative
+    RMS (||got - want|| / ||want||), and the share of positions whose top-1
+    token agrees."""
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all()),
+          "logits are finite")
+    g, w = got.float(), want.float()
+    return {"max_abs_err": float((g - w).abs().max()), "max_abs": float(w.abs().max()),
+            "rel_rms_err": float((g - w).norm() / w.norm()),
+            "top1_agree": float((g.argmax(-1) == w.argmax(-1)).float().mean())}
+
+
+def phase_lm_serve(cfg, device: str) -> dict:
+    """The ported request path at full width: the context GET through the
+    online store, stepped prefill of the 32-token contexts, greedy decode."""
+    t0 = time.perf_counter()
+    plane = build_serving_plane(cfg, seed=0, device=device)
+    plane_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(0, cfg, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_gb = sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9
+    reset_counts()
+    out = serve(cfg, requests=LM_REQUESTS, new_tokens=LM_NEW_TOKENS, seed=0, device=device,
+                params=params, plane=plane, keep_logits=True)
+    launches = read_counts()
+    check(launches["online_lookup"] == 1, "the context GET launched online_lookup once")
+    check(launches["flash_attn"] == 0, "decode takes the einsum path, not the flash kernel")
+    fs, spec, src = plane
+    hit = out["found"]
+    check(hit.sum() > 0, "the GET found warm sessions")
+    check(np.array_equal(out["contexts"][hit], latest_chunks(fs, spec, out["doc_ids"][hit])),
+          "every served context is the offline store's latest chunk for its id")
+    cfs, cspec, _ = build_serving_plane(cfg, seed=0, device="cpu")
+    ctx, found = cfs.get_online_features(cspec.name, cspec.version, [out["doc_ids"]])
+    prompts = np.where(found[:, None], np.clip(ctx.astype(np.int64), 0, cfg.vocab_size - 1), 1)
+    check(np.array_equal(found, hit) and np.array_equal(prompts, out["prompts"]),
+          "the prompts are byte-identical to a CPU run of the serving plane")
+    gen = out["generated"]
+    check(gen.shape == (LM_REQUESTS, LM_NEW_TOKENS) and (gen >= 0).all()
+          and (gen < cfg.vocab_size).all(), "generated tokens of the expected shape and range")
+    check(bool(torch.isfinite(out["prompt_logits"]).all()), "prefill logits are finite")
+    decode_ms = out["decode_ms_total"] - out["prefill_ms"]
+    row = {
+        "phase": "lm_serve", "arch": cfg.name, "device": str(params.device),
+        "layers": cfg.num_layers, "d_model": cfg.d_model, "heads": cfg.num_heads,
+        "kv_heads": cfg.num_kv_heads, "vocab": cfg.vocab_size, "weight_gb": weight_gb,
+        "init_s": init_s, "plane_s": plane_s, "requests": LM_REQUESTS,
+        "prompt_len": int(out["prompts"].shape[1]), "context_hits": out["context_hits"],
+        "new_tokens": LM_NEW_TOKENS, "online_lookup_ms": out["online_lookup_ms"],
+        "stepped_prefill_ms": out["prefill_ms"],
+        "decode_ms_per_step": decode_ms / LM_NEW_TOKENS,
+        "decode_tokens_per_s": LM_REQUESTS * LM_NEW_TOKENS / decode_ms * 1e3,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
+    }
+    emit(row)
+    return {"row": row, "params": params, "plane": plane, "out": out}
+
+
+def prefill_batch(plane, seq: int, batch: int) -> tuple[dict, FeatureStoreLoader]:
+    """A (batch, seq) token batch from a loader over the serving plane,
+    advanced hour by hour until every document holds ``seq`` tokens of
+    history, so no sampled row is left-padded."""
+    fs, spec, src = plane
+    loader = FeatureStoreLoader(store=fs, spec=spec, seq_len=seq, batch_size=batch,
+                                chunk_len=src.chunk_len, seed=0)
+    need = -(-seq // src.chunk_len)
+    hours = 3
+    while True:
+        loader.advance(hours * HOUR)
+        counts = np.bincount(fs.offline.read(spec.name, spec.version)["doc_id"],
+                             minlength=src.num_docs)
+        if counts.min() >= need:
+            break
+        hours += 4
+    return loader.sample_batch(0), loader
+
+
+def phase_lm_prefill(cfg, served: dict, kernel_ms: float) -> dict:
+    """``make_prefill_step`` with ``attn_impl="pallas_flash"`` on the served
+    model: (i) on the served prompts against the stepped prefill's logits,
+    (ii) on a 4 x 2,048 loader batch against ``attn_impl="xla"``."""
+    params, out = served["params"], served["out"]
+    flash = make_prefill_step(dataclasses.replace(cfg, attn_impl="pallas_flash"))
+    xla = make_prefill_step(dataclasses.replace(cfg, attn_impl="xla"))
+    t0 = time.perf_counter()
+    batch, loader = prefill_batch(served["plane"], PREFILL_SEQ, PREFILL_BATCH)
+    batch_s = time.perf_counter() - t0
+    tokens = torch.as_tensor(batch["tokens"], device=params.device)
+    check(tokens.shape == (PREFILL_BATCH, PREFILL_SEQ), "the loader batch is 4 x 2,048")
+    check(bool((batch["__max_event_ts__"] <= batch["__observation_ts__"]).all()),
+          "no token from after the loader's clock")
+
+    reset_counts()
+    short = flash(params, {"tokens": out["prompts"]})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    long = flash(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    reps, t0 = 2, time.perf_counter()
+    for _ in range(reps):
+        flash(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    forward_s = (time.perf_counter() - t0) / reps
+    launches = read_counts()
+    forwards = 2 + reps
+    check(launches["flash_attn"] == cfg.num_layers * forwards,
+          f"{cfg.num_layers} flash launches per forward ({forwards} forwards)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref = xla(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    xla_s = time.perf_counter() - t0
+    check(read_counts()["flash_attn"] == launches["flash_attn"], "the xla path launches no flash")
+    vs_stepped = logits_agreement(short, out["prompt_logits"])
+    vs_xla = logits_agreement(long, ref)
+    check(short.shape == out["prompt_logits"].shape and long.shape == ref.shape
+          == (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab_size), "logits of the expected shapes")
+    check(vs_stepped["rel_rms_err"] <= LOGITS_REL_RMS and vs_stepped["top1_agree"] >= LOGITS_TOP1,
+          f"flash prefill within {LOGITS_REL_RMS} relative RMS and {LOGITS_TOP1} top-1 "
+          "agreement of the stepped prefill")
+    check(vs_xla["rel_rms_err"] <= LOGITS_REL_RMS and vs_xla["top1_agree"] >= LOGITS_TOP1,
+          f"flash prefill within {LOGITS_REL_RMS} relative RMS and {LOGITS_TOP1} top-1 "
+          "agreement of the xla path")
+    n_tok = PREFILL_BATCH * PREFILL_SEQ
+    row = {
+        "phase": "lm_prefill", "arch": cfg.name, "batch": PREFILL_BATCH, "seq": PREFILL_SEQ,
+        "loader_clock_h": loader.clock / HOUR, "batch_s": batch_s,
+        "vs_stepped_prefill": vs_stepped, "vs_xla": vs_xla,
+        "first_forward_s": first_s, "forward_s": forward_s, "xla_forward_s": xla_s,
+        "prefill_tokens_per_s": n_tok / forward_s,
+        "xla_prefill_tokens_per_s": n_tok / xla_s,
+        "flash_share_of_forward": cfg.num_layers * kernel_ms / (forward_s * 1e3),
+        "xla_peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
+    }
+    emit(row)
+    return {"row": row}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this run needs one GPU", file=sys.stderr)
@@ -731,6 +971,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "cached": native.build_log.get("cached"), "library": Path(native.build_log["path"]).name})
     cuda = torch.device("cuda", torch.cuda.current_device())
+    # float32 products in full float32 (the plain versions' reference numerics)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # quick kernel checks first, so a broken kernel stops the run early
     rng = np.random.default_rng(1)
@@ -797,6 +1040,26 @@ def main() -> int:
                          "main path: txn_rolling history, 2^20-row spine")
     checks["pit_search"].append(main_pit)
     del txn, ostore, off
+    torch.cuda.empty_cache()
+
+    checks["flash_attn"] = [
+        check_flash(PREFILL_BATCH, PREFILL_SEQ, 40, 10, 128, torch.bfloat16,
+                    "main path: B=4 S=T=2,048 H=40 KV=10 D=128 bf16 (phi3-medium-14b)", rng),
+        check_flash(2, 100, 8, 2, 64, torch.float32, "f32 GQA B=2 S=T=100 (ragged) H=8 KV=2 D=64",
+                    rng),
+        check_flash(2, 1024, 8, 1, 256, torch.bfloat16,
+                    "MQA B=2 S=T=1,024 H=8 KV=1 D=256 bf16 (gemma-2b heads)", rng),
+    ]
+    main_flash = checks["flash_attn"][0]
+    cfg = get_config(LM_ARCH)
+    served = phase_lm_serve(cfg, "cuda")
+    prefill = phase_lm_prefill(cfg, served, main_flash["ms"])
+    launches["flash_attn"] = prefill["row"]["launches"]["flash_attn"]
+    check(launches["flash_attn"] > 0, "flash_attn launched on the prefill path")
+    lm_row = {k: served["row"][k] for k in ("weight_gb", "online_lookup_ms", "decode_ms_per_step")}
+    lm_row["prefill_tokens_per_s"] = prefill["row"]["prefill_tokens_per_s"]
+    del served, prefill
+    torch.cuda.empty_cache()
 
     sources = {"online_lookup": ("src/repro_torch/csrc/online_lookup.cu",
                                  "src/repro/kernels/online_lookup/kernel.py:38"),
@@ -805,10 +1068,13 @@ def main() -> int:
                "pit_search": ("src/repro_torch/csrc/pit_search.cu",
                               "src/repro/kernels/pit_join/kernel.py:34"),
                "merge_scan": ("src/repro_torch/csrc/merge_scan.cu",
-                              "src/repro/kernels/online_merge/kernel.py:60")}
+                              "src/repro/kernels/online_merge/kernel.py:60"),
+               "flash_attn": ("src/repro_torch/csrc/flash_attn.cu",
+                              "src/repro/kernels/flash_attn/kernel.py:41")}
     kernels = []
     for name, main_row in (("online_lookup", main_lookup), ("rolling_sum", main_roll),
-                           ("pit_search", main_pit), ("merge_scan", main_merge)):
+                           ("pit_search", main_pit), ("merge_scan", main_merge),
+                           ("flash_attn", main_flash)):
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],
@@ -819,7 +1085,8 @@ def main() -> int:
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     emit({"card": card, "get_batch": GET_BATCH, "get_p50_ms": prof_row["get_p50_ms"],
-          "get_p99_ms": prof_row["get_p99_ms"], "seconds": time.perf_counter() - t_start})
+          "get_p99_ms": prof_row["get_p99_ms"], "lm": lm_row,
+          "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,13 @@ part of that state: ``keys_full`` carries the same keys as int64.
 ``offline_history_from_numpy`` installs one feature set's offline history
 (the record-schema columns an ``OfflineStore.read`` returns) into a port
 ``OfflineStore``; ``offline_history_to_numpy`` reads it back out.
+
+``lm_params_from_numpy`` builds a port ``LM`` from the JAX package's
+parameter tree (numpy leaves; the scanned ``tail`` holds layer-leading
+arrays, unstacked here into one block per layer), and
+``lm_params_to_numpy`` gives the tree back; ``kv_cache_to_numpy`` gives a
+decode cache in the JAX package's layout.  bfloat16 leaves come back as
+float32 (exact), since numpy has no bfloat16 of its own.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from __future__ import annotations
 from collections import deque
 
 import numpy as np
+import torch
 
 from repro_torch.core.assets import FeatureSetSpec
 from repro_torch.core.keys import encode_full_keys
@@ -28,10 +36,17 @@ from repro_torch.core.offline_store import (
 )
 from repro_torch.core.online_store import OnlineStore, _PartitionedTable
 from repro_torch.core.table import Table
+from repro_torch.device import resolve_device
 from repro_torch.kernels.online_lookup.ops import partition_of
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import torch_dtype
+from repro_torch.models.lm import LM
 
 __all__ = [
     "STATE_FIELDS",
+    "kv_cache_to_numpy",
+    "lm_params_from_numpy",
+    "lm_params_to_numpy",
     "offline_history_from_numpy",
     "offline_history_to_numpy",
     "online_table_from_numpy",
@@ -117,3 +132,98 @@ def offline_history_to_numpy(store: OfflineStore, name: str, version: int) -> di
     """One feature set's whole port history as record-schema columns, in
     ``store.read`` order, copied: what ``offline_history_from_numpy`` takes."""
     return {k: np.array(v, copy=True) for k, v in store.read(name, version).columns.items()}
+
+
+# -- the LM's weights and decode cache ----------------------------------------
+def _leaves(tree: dict, prefix: str = ""):
+    """(dotted path, leaf) over a nested dict of arrays."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    a = np.array(a, copy=True)  # writable and contiguous: JAX's arrays are read-only
+    if a.dtype.name == "bfloat16":  # JAX hands bfloat16 out as an ml_dtypes array
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for path, v in flat.items():
+        *parents, leaf = path.split(".")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def lm_params_from_numpy(cfg: ModelConfig, tree: dict, *,
+                         device: str | torch.device = "cuda") -> LM:
+    """A port ``LM`` holding the JAX package's weights ``tree`` (the dict
+    ``lm.init_params`` returns, leaves as numpy arrays), cast to
+    ``cfg.param_dtype`` on ``device``.  Raises if the tree's names or shapes
+    are not the model's."""
+    dev = resolve_device(device)
+    model = LM(cfg, None, device=dev)
+    flat = {k: tree[k] for k in ("embed", "final_norm", "lm_head") if k in tree}
+    for i, bp in enumerate(tree.get("prefix", [])):
+        flat.update((f"prefix.{i}.{k}", v) for k, v in _leaves(bp))
+    for k, v in _leaves(tree.get("tail", {})):
+        flat.update((f"tail.{j}.{k}", v[j]) for j in range(np.shape(v)[0]))
+    state = dict(model.named_parameters())
+    if set(flat) != set(state):
+        raise ValueError(f"parameter names differ: tree only {sorted(set(flat) - set(state))}, "
+                         f"model only {sorted(set(state) - set(flat))}")
+    dtype = torch_dtype(cfg.param_dtype)
+    with torch.no_grad():
+        for name, p in state.items():
+            src = _tensor(flat[name], dtype, dev)
+            if src.shape != p.shape:
+                raise ValueError(f"{name}: tree {tuple(src.shape)}, model {tuple(p.shape)}")
+            p.copy_(src)
+    return model
+
+
+def lm_params_to_numpy(model: LM) -> dict:
+    """The JAX package's parameter tree of ``model``: per-layer blocks of
+    ``tail`` stacked into layer-leading arrays, ``prefix`` a list."""
+    top, prefix, tail = {}, {}, {}
+    for name, p in model.named_parameters():
+        head, _, rest = name.partition(".")
+        if head == "prefix":
+            i, _, path = rest.partition(".")
+            prefix.setdefault(int(i), {})[path] = _numpy(p)
+        elif head == "tail":
+            j, _, path = rest.partition(".")
+            tail.setdefault(path, {})[int(j)] = _numpy(p)
+        else:
+            top[name] = _numpy(p)
+    if prefix:
+        top["prefix"] = [_nest(prefix[i]) for i in sorted(prefix)]
+    if tail:
+        top["tail"] = _nest({k: np.stack([v[j] for j in sorted(v)]) for k, v in tail.items()})
+    return top
+
+
+def kv_cache_to_numpy(cache: dict) -> dict:
+    """A decode cache in the JAX package's layout: ``t`` an int32 scalar,
+    ``prefix`` a list of layer caches, ``tail`` stacked layer-leading."""
+    out = {"t": np.int32(cache["t"])}
+    if "prefix" in cache:
+        out["prefix"] = [{k: _numpy(v) for k, v in lc.items()} for lc in cache["prefix"]]
+    if "tail" in cache:
+        out["tail"] = {k: np.stack([_numpy(lc[k]) for lc in cache["tail"]])
+                       for k in cache["tail"][0]}
+    return out

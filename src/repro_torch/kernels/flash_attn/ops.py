@@ -1,0 +1,112 @@
+"""Causal GQA flash attention in the model's layout, and its traffic model.
+
+``flash_attention(q, k, v)`` takes (B, S, H, D) x (B, T, KV, D) and returns
+(B, S, H, D) in q's dtype.  A CUDA tensor launches ``csrc/flash_attn.cu``,
+which reads kv head h // (H / KV) for query head h in place and masks ragged
+S and T itself: no GQA expansion, no transpose, no padding copy.  A CPU
+tensor runs the plain version in ``ref.py``.  ``flash_bytes`` is the JAX
+package's analytic HBM-traffic model, verbatim.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import native
+from repro_torch.kernels.flash_attn.ref import attention_ref
+
+__all__ = ["HEAD_DIMS", "counter", "flash_attention", "flash_bytes"]
+
+#: head dims the kernel is built for (phi3/qwen 128, gemma 256, small checks)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the JAX wrapper's default block: its non-causal path refuses a ragged T
+_JAX_BLOCK = 512
+
+counter = native.LaunchCounter("flash_attn")
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"flash_attention takes q (B, S, H, D) and k, v (B, T, KV, D), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, _, h, d = q.shape
+    kv = k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or kv == 0 or h % kv:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not pair (H % KV == 0)")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"flash_attention takes float32 or bfloat16 q, k, v of one dtype, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} is not one the kernel is built for: {HEAD_DIMS}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention takes contiguous q, k, v")
+    if k.shape[1] == 0 and q.shape[1] > 0:
+        raise ValueError("flash_attention needs at least one key")
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, T, KV, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Attention of q over k, v (key t masked for query s where t > s when
+    ``causal``), float32 inside, returned in q's dtype.  Runs where the
+    tensors lie: CUDA launches the kernel, CPU runs the plain version.
+    ``causal=False`` is refused where the JAX wrapper refuses it (a T that
+    its blocks would pad), so both packages take the same calls."""
+    _check_args(q, k, v)
+    t = k.shape[1]
+    bk = min(_JAX_BLOCK, _round_up(t, 8))
+    if not causal and _round_up(t, bk) != t:
+        raise NotImplementedError("non-causal padding path unused")
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal).to(q.dtype)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    b, s, h, d = q.shape
+    if b * s * h == 0:  # nothing to launch, nothing to count
+        return torch.empty_like(q)
+    if s > 65535 * 64 or b * h >= 2**31:
+        raise ValueError(f"flash_attention grid too large for B*H={b * h}, S={s}")
+    for x in (q, k, v):
+        if x.data_ptr() % 16:
+            raise ValueError("flash_attention takes 16-byte aligned q, k, v")
+    lib = native.library()
+    with torch.cuda.device(q.device):
+        out = torch.empty_like(q)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, s, t, h, k.shape[2], d, _DTYPES[q.dtype], int(causal),
+            q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+            stream,
+        )
+    native.check(err, "flash_attn_fwd")
+    counter.add()
+    return out
+
+
+def flash_bytes(b: int, s: int, t: int, h: int, kv: int, d: int,
+                *, dtype_bytes: int = 2, block_k: int = 512) -> int:
+    """Analytic HBM traffic of the flash forward: Q read once, K/V streamed
+    once per q-block row of the grid, O written once.  This is the number
+    the §Roofline 'with-flash' adjusted memory term substitutes for the
+    measured XLA score traffic."""
+    q_bytes = b * h * s * d * dtype_bytes
+    o_bytes = q_bytes
+    n_q_blocks = max(1, s // block_k)
+    kv_bytes = 2 * b * kv * t * d * dtype_bytes * n_q_blocks
+    return q_bytes + o_bytes + kv_bytes

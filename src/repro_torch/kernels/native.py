@@ -45,6 +45,11 @@ _SIGNATURES = {
     # keys/ev/cr (P, C) i64, values (P, C, D) f32, sorted_q/order/q_ev (P, Q)
     # i64, q_values (P, Q, D) f32, creation, P, C, Q, D, stream
     "merge_scan_i64": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+    # q (B, S, H, D), k/v (B, T, KV, D), out (B, S, H, D); B, S, T, H, KV, D,
+    # dtype (0 f32, 1 bf16), causal, q strides (b, s, h), k/v strides (b, t, h),
+    # stream
+    "flash_attn_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _L, _L, _L, _L, _L, _L, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,0 +1,145 @@
+"""Shared neural-net layers: norms, rotary embeddings, MLP variants, inits.
+
+The JAX package's ``models/layers.py`` on tensors.  Parameters live in
+``ParamModule``s, which index like the JAX package's parameter dicts
+(``p["w_up"]``, ``"ffn" in p``), so the functions below read as the JAX
+ones do.  ``reduce_boundary`` is a plain cast here: its optimization barrier
+exists for XLA's tensor-parallel all-reduce and has no counterpart on one
+device.  Serving needs no gradients, so parameters never require them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = [
+    "MLP",
+    "ParamModule",
+    "apply_rope",
+    "dense_init",
+    "layer_norm",
+    "mlp_apply",
+    "mlp_init",
+    "reduce_boundary",
+    "rms_norm",
+    "rope",
+    "torch_dtype",
+]
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """A config's dtype name ("bfloat16", "float32", ...) as a torch dtype."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+class ParamModule(nn.Module):
+    """Named tensors held as parameters that need no gradient, indexable by
+    name like the JAX package's parameter dicts; child modules index too."""
+
+    def __init__(self, tensors: Mapping[str, torch.Tensor] = ()) -> None:
+        super().__init__()
+        for name, t in dict(tensors).items():
+            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+def reduce_boundary(x: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The operand of a row-parallel matmul in a compact dtype: a cast."""
+    return x.to(dtype)
+
+
+def dense_init(gen: Optional[torch.Generator], shape, fan_in: Optional[int] = None,
+               dtype: torch.dtype = torch.bfloat16,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    """normal * 1/sqrt(fan_in), drawn in float32 on ``gen``'s device, then
+    cast.  With no generator the tensor is left uninitialised on ``device``
+    (for weights that are loaded next)."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    fan = fan_in if fan_in is not None else shape[0]
+    scale = 1.0 / math.sqrt(max(fan, 1))
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    return (x * scale).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps) * (1.0 + gamma.float())
+    return out.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    out = out * gamma.float() + beta.float()
+    return out.to(x.dtype)
+
+
+# -- rotary position embeddings ------------------------------------------------
+def rope(positions: torch.Tensor, dim: int, theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions (...,) -> (cos, sin) of shape (..., dim//2), float32."""
+    freqs = torch.exp(
+        -math.log(theta)
+        * torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device) / dim
+    )
+    angles = positions.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, D) with cos/sin (..., S, D//2) — rotate-half convention."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2].float(), x[..., d2:].float()
+    c = cos[..., None, :]  # broadcast over heads
+    s = sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# -- MLPs ---------------------------------------------------------------------
+def mlp_init(gen: Optional[torch.Generator], d_model: int, d_ff: int, variant: str,
+             dtype: torch.dtype = torch.bfloat16,
+             device: Optional[torch.device] = None) -> dict:
+    init = lambda shape: dense_init(gen, shape, dtype=dtype, device=device)  # noqa: E731
+    if variant in ("swiglu", "geglu"):
+        return {
+            "w_gate": init((d_model, d_ff)),
+            "w_up": init((d_model, d_ff)),
+            "w_down": init((d_ff, d_model)),
+        }
+    return {"w_up": init((d_model, d_ff)), "w_down": init((d_ff, d_model))}
+
+
+def mlp_apply(params, x: torch.Tensor, variant: str) -> torch.Tensor:
+    if variant in ("swiglu", "geglu"):
+        g = x @ params["w_gate"]
+        g = F.silu(g) if variant == "swiglu" else F.gelu(g, approximate="tanh")
+        h = g * (x @ params["w_up"])
+    else:
+        h = F.gelu(x @ params["w_up"], approximate="tanh")
+    return reduce_boundary(h, x.dtype) @ params["w_down"]
+
+
+class MLP(ParamModule):
+    """One dense FFN: ``w_gate``/``w_up``/``w_down`` (SwiGLU, GeGLU) or
+    ``w_up``/``w_down`` (GELU), in JAX's (in, out) layout."""
+
+    def __init__(self, gen, d_model: int, d_ff: int, variant: str, *,
+                 dtype: torch.dtype, device: Optional[torch.device] = None) -> None:
+        super().__init__(mlp_init(gen, d_model, d_ff, variant, dtype, device))

@@ -47,6 +47,9 @@ def test_port_imports_without_jax_or_repro():
         "repro_torch.kernels.online_merge.ops", "repro_torch.runtime.supervisor",
         "repro_torch.data.sources", "repro_torch.core.pit",
         "repro_torch.kernels.pit_join.ops",
+        "repro_torch.models.lm", "repro_torch.models.attention",
+        "repro_torch.kernels.flash_attn.ops", "repro_torch.launch.serve",
+        "repro_torch.data.loader",
     }
     assert expected <= set(res["modules"])
 
