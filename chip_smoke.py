@@ -27,7 +27,9 @@ port's paths on the card through the entry points a user calls:
      on the card, the same call on the CPU and an independent numpy search;
   6. ``flash_attn`` against its plain version at phi3-medium-14b's prefill
      shape (B=4, S=2,048, H=40, KV=10, D=128, bf16), a ragged float32 GQA
-     shape and an MQA D=256 shape, beside ``scaled_dot_product_attention``;
+     shape, an MQA D=256 shape and a ragged bf16 D=128 shape, beside
+     ``scaled_dot_product_attention``; each check asserts its route (bf16 at
+     D 64/128/256 on the tensor cores, ``wgmma``; float32 on the CUDA cores);
   7. ``lm_serve``: the ported LM request path (``launch/serve.py``) at
      phi3-medium-14b's full width (40 layers, d_model 5,120, random bf16
      weights from a seed, 29.3 GB): 8 sessions' contexts fetched through the
@@ -38,7 +40,7 @@ port's paths on the card through the entry points a user calls:
      on the same model, on the served prompts (against the stepped prefill's
      logits) and on a 4 x 2,048 batch from a ``FeatureStoreLoader`` over the
      serving plane (against ``attn_impl="xla"``), 40 flash launches per
-     forward;
+     forward, all on the tensor-core route;
   9. the ``kernels`` line: launches, errors, times and bounds per kernel.
 
 Each path (``scan_merge``, the main path, ``offline_retrieval``,
@@ -54,6 +56,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -128,13 +131,15 @@ I64_MIN = -(2**63)
 # output (the stepped prefill also in its matmuls' shapes), amplified over 40
 # random-weight layers; compared relative to the logits' scale
 LOGITS_REL_RMS, LOGITS_TOP1 = 0.1, 0.8
-# flash_attn, kernel vs plain: both compute float32 scores, softmax and sums
-# and round once to the output type; they differ in summation order only, so
-# float32 agrees to 1e-5 and bfloat16 to one output rounding (the JAX
-# package's own flash tolerances)
+# flash_attn, kernel vs plain: the plain version keeps float32 throughout.  The
+# float32 route (CUDA cores) differs from it in summation order only: 1e-5.
+# The bfloat16 route (tensor cores) also rounds P to bfloat16 before P.V, as
+# the TPU kernel's DEFAULT-precision dot does on its own chip and as
+# scaled_dot_product_attention does, and rounds the output once to bfloat16:
+# 2e-2, the JAX package's own bfloat16 flash tolerance
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 COUNTERS = (lookup_ops.counter, rolling_ops.counter, pit_ops.counter, merge_ops.counter,
-            flash_ops.counter)
+            flash_ops.counter, flash_ops.tc_counter)
 
 
 def reset_counts() -> None:
@@ -161,6 +166,32 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def tc_sass(so: Path) -> dict:
+    """Per tensor-core flash kernel in the built library, from ``cuobjdump``:
+    its HGMMA (wgmma) instructions, and the registers a thread starts with
+    (before ``setmaxnreg``) and its stack bytes (spills) from the resource
+    usage table."""
+    tool = str(Path(native.nvcc()).with_name("cuobjdump"))
+    run = lambda *a: subprocess.run([tool, *a, str(so)], capture_output=True, text=True,
+                                    check=True, timeout=300).stdout
+    name = lambda mangled: re.sub(r".*flash_fwd_tcILi(\d+)E.*", r"flash_fwd_tc<\1>", mangled)
+    out, fn = {}, None
+    for line in run("-sass").splitlines():
+        if (m := re.search(r"Function : (\S+)", line)):
+            fn = name(m.group(1)) if "flash_fwd_tc" in m.group(1) else None
+            if fn:
+                out[fn] = {"hgmma": 0}
+        elif fn and "HGMMA" in line:
+            out[fn]["hgmma"] += 1
+    fn = None
+    for line in run("-res-usage").splitlines():
+        if (m := re.search(r"Function (\S+):", line)):
+            fn = name(m.group(1)) if "flash_fwd_tc" in m.group(1) else None
+        elif fn and (m := re.search(r"REG:(\d+) STACK:(\d+)", line)):
+            out[fn].update(registers=int(m.group(1)), stack_bytes=int(m.group(2)))
+    return out
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -373,22 +404,25 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         enable_gqa=True).transpose(1, 2)
 
 
-def check_flash(b: int, s: int, h: int, kv: int, d: int, dtype, label: str, rng,
+def check_flash(b: int, s: int, h: int, kv: int, d: int, dtype, route: str, label: str, rng,
                 reps: int = 10) -> dict:
     """Kernel vs plain on the card within FLASH_TOL, on seeded normal q, k,
-    v (the library call's distance to plain is reported).  Operations: 4·D per
-    (query head, visible key) pair -- two for q.k, two for p.v -- over the
-    rate of the input type (bfloat16 tensor cores, or float32); bytes: q, k,
-    v read once and O written once."""
+    v (the library call's distance to plain is reported), launched on
+    ``route``.  Operations: 4·D per (query head, visible key) pair -- two for
+    q.k, two for p.v -- over the rate of the input type (bfloat16 tensor
+    cores, or float32); bytes: q, k, v read once and O written once."""
     up = lambda shape: torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
         "cuda").to(dtype)
     q, k, v = up((b, s, h, d)), up((b, s, kv, d)), up((b, s, kv, d))
-    before = flash_ops.counter.launches
+    before = flash_ops.counter.launches, flash_ops.tc_counter.launches
     got = flash_ops.flash_attention(q, k, v)
     want = attention_ref(q, k, v).to(dtype)
     lib = sdpa(q, k, v)
     torch.cuda.synchronize()
-    check(flash_ops.counter.launches == before + 1, f"flash_attn kernel launched ({label})")
+    check(flash_ops.route(dtype, d) == route, f"flash_attn takes the {route} route ({label})")
+    check(flash_ops.counter.launches == before[0] + 1
+          and flash_ops.tc_counter.launches == before[1] + (route == "wgmma"),
+          f"flash_attn kernel launched on the {route} route ({label})")
     tol = FLASH_TOL[dtype]
     check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
           f"flash_attn kernel within {tol} of plain ({label})")
@@ -397,7 +431,7 @@ def check_flash(b: int, s: int, h: int, kv: int, d: int, dtype, label: str, rng,
     b_ms, b_by = bound(q.element_size() * (2 * q.numel() + 2 * k.numel()),
                        4 * b * h * d * pairs, rate)
     row = {
-        "phase": "kernel_check", "kernel": "flash_attn", "shape": label,
+        "phase": "kernel_check", "kernel": "flash_attn", "shape": label, "route": route,
         "B": b, "S": s, "H": h, "KV": kv, "D": d, "dtype": str(dtype).removeprefix("torch."),
         "max_abs_err": float((got.float() - want.float()).abs().max()),
         "library_max_abs_err": float((lib.float() - want.float()).abs().max()),
@@ -924,8 +958,9 @@ def phase_lm_prefill(cfg, served: dict, kernel_ms: float) -> dict:
     forward_s = (time.perf_counter() - t0) / reps
     launches = read_counts()
     forwards = 2 + reps
-    check(launches["flash_attn"] == cfg.num_layers * forwards,
-          f"{cfg.num_layers} flash launches per forward ({forwards} forwards)")
+    check(launches["flash_attn"] == launches["flash_attn_wgmma"] == cfg.num_layers * forwards,
+          f"{cfg.num_layers} flash launches per forward, all on the tensor cores "
+          f"({forwards} forwards)")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ref = xla(params, {"tokens": tokens})
@@ -968,8 +1003,13 @@ def main() -> int:
           "cuda": torch.version.cuda})
     t0 = time.perf_counter()
     native.library()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "cached": native.build_log.get("cached"), "library": Path(native.build_log["path"]).name})
+    build_s = time.perf_counter() - t0
+    sass = tc_sass(Path(native.build_log["path"]))
+    check(sorted(sass) == [f"flash_fwd_tc<{d}>" for d in (128, 256, 64)]
+          and all(k["hgmma"] > 0 for k in sass.values()),
+          "each tensor-core flash kernel is built with HGMMA instructions")
+    emit({"phase": "build", "seconds": build_s, "cached": native.build_log.get("cached"),
+          "library": Path(native.build_log["path"]).name, "tensor_core_sass": sass})
     cuda = torch.device("cuda", torch.cuda.current_device())
     # float32 products in full float32 (the plain versions' reference numerics)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1043,12 +1083,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     checks["flash_attn"] = [
-        check_flash(PREFILL_BATCH, PREFILL_SEQ, 40, 10, 128, torch.bfloat16,
+        check_flash(PREFILL_BATCH, PREFILL_SEQ, 40, 10, 128, torch.bfloat16, "wgmma",
                     "main path: B=4 S=T=2,048 H=40 KV=10 D=128 bf16 (phi3-medium-14b)", rng),
-        check_flash(2, 100, 8, 2, 64, torch.float32, "f32 GQA B=2 S=T=100 (ragged) H=8 KV=2 D=64",
-                    rng),
-        check_flash(2, 1024, 8, 1, 256, torch.bfloat16,
+        check_flash(2, 100, 8, 2, 64, torch.float32, "cuda_cores",
+                    "f32 GQA B=2 S=T=100 (ragged) H=8 KV=2 D=64", rng),
+        check_flash(2, 1024, 8, 1, 256, torch.bfloat16, "wgmma",
                     "MQA B=2 S=T=1,024 H=8 KV=1 D=256 bf16 (gemma-2b heads)", rng),
+        check_flash(2, 1000, 40, 10, 128, torch.bfloat16, "wgmma",
+                    "ragged bf16 B=2 S=T=1,000 H=40 KV=10 D=128", rng),
     ]
     main_flash = checks["flash_attn"][0]
     cfg = get_config(LM_ARCH)

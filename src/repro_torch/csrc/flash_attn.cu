@@ -1,4 +1,7 @@
-// Causal GQA flash attention, forward, for Hopper (sm_90a).
+// Causal GQA flash attention, forward, on the CUDA cores (sm_90a): the
+// float32 route at every head dim and the bf16 route at D 16 and 32.  bf16 at
+// D 64, 128 and 256 -- every configuration's hot path -- runs on the tensor
+// cores in flash_attn_tc.cu instead.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` (src/repro/kernels/flash_attn/
 // kernel.py:41) together with what its wrapper (ops.py) did around it.  Same
@@ -13,14 +16,10 @@
 // model layout through their strides (no `moveaxis`), and ragged S and T are
 // masked here (no padding copies).  Keys at or past T never enter the softmax.
 //
-// Bound on this card: operations.  At the main path's shape (B=4, S=T=2048,
-// H=40, KV=10, D=128) causal attention is 4*B*H*D*(S*(S+1)/2) = 1.72e11
-// operations, 0.174 ms at the tensor cores' 989 TFLOP/s, while q, k, v and O
-// read and written once are 0.063 ms at 3.35 TB/s.  This first kernel does its
-// products in float32 on the CUDA cores (67 TFLOP/s at best), so it cannot get
-// within 15x of that bound: it is simple and exact first.  What it leaves on the
-// table: tensor cores (wgmma on bf16 tiles), TMA loads overlapped with compute,
-// and K/V tiles shared by the H/KV query heads of one group.
+// Bound on this card: operations, at the CUDA cores' float32 rate (67 TFLOP/s)
+// for the float32 inputs it exists for.  It does its products in float32 on
+// the CUDA cores, so it is exact to float32 summation order (1e-5 against the
+// plain version); no configuration runs its shapes on the hot path.
 //
 // Design: one block of 256 threads per (64-query tile, b*h), the heaviest
 // (latest) query tiles scheduled first.  The block loops over 64-key tiles up to
@@ -255,23 +254,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   return cudaGetLastError();
 }
 
+// float32 at every head dim; bf16 at D 16 and 32 only (flash_attn_tc.cu
+// takes the others)
 template <typename T>
 cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o, int B, int S,
                      int Tk, int H, int KV, const long long* st, int causal, cudaStream_t s) {
+  constexpr bool kF32 = sizeof(T) == 4;
   switch (D) {
     case 16: return launch<T, 16>(q, k, v, o, B, S, Tk, H, KV, st, causal, s);
     case 32: return launch<T, 32>(q, k, v, o, B, S, Tk, H, KV, st, causal, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, Tk, H, KV, st, causal, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, Tk, H, KV, st, causal, s);
-    case 256: return launch<T, 256>(q, k, v, o, B, S, Tk, H, KV, st, causal, s);
-    default: return cudaErrorInvalidValue;
+    case 64:
+      if constexpr (kF32) return launch<T, 64>(q, k, v, o, B, S, Tk, H, KV, st, causal, s);
+      break;
+    case 128:
+      if constexpr (kF32) return launch<T, 128>(q, k, v, o, B, S, Tk, H, KV, st, causal, s);
+      break;
+    case 256:
+      if constexpr (kF32) return launch<T, 256>(q, k, v, o, B, S, Tk, H, KV, st, causal, s);
+      break;
   }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q/o strides (batch, seq, head) and k/v strides (batch, seq, head) in elements;
-// the head dim is contiguous.  dtype: 0 float32, 1 bfloat16.  Returns
+// the head dim is contiguous.  dtype: 0 float32, 1 bfloat16 (D 16 or 32).  Returns
 // cudaGetLastError() after the launch.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o, int B, int S,
                               int T, int H, int KV, int D, int dtype, int causal,

@@ -1,10 +1,14 @@
 """Causal GQA flash attention in the model's layout, and its traffic model.
 
 ``flash_attention(q, k, v)`` takes (B, S, H, D) x (B, T, KV, D) and returns
-(B, S, H, D) in q's dtype.  A CUDA tensor launches ``csrc/flash_attn.cu``,
-which reads kv head h // (H / KV) for query head h in place and masks ragged
-S and T itself: no GQA expansion, no transpose, no padding copy.  A CPU
-tensor runs the plain version in ``ref.py``.  ``flash_bytes`` is the JAX
+(B, S, H, D) in q's dtype.  A CUDA tensor launches one of two kernels, chosen
+by ``route``: bf16 at D 64, 128 or 256 runs on the tensor cores
+(``csrc/flash_attn_tc.cu``, wgmma on TMA-fed tiles, P rounded to bf16 before
+P.V as the TPU kernel's DEFAULT-precision dot does); float32, and bf16 at D
+16 or 32, on the CUDA cores (``csrc/flash_attn.cu``, exact float32).  Both
+read kv head h // (H / KV) for query head h in place and mask ragged S and T
+themselves: no GQA expansion, no transpose, no padding copy.  A CPU tensor
+runs the plain version in ``ref.py``.  ``flash_bytes`` is the JAX
 package's analytic HBM-traffic model, verbatim.
 """
 
@@ -15,15 +19,28 @@ import torch
 from repro_torch.kernels import native
 from repro_torch.kernels.flash_attn.ref import attention_ref
 
-__all__ = ["HEAD_DIMS", "counter", "flash_attention", "flash_bytes"]
+__all__ = ["ENTRIES", "HEAD_DIMS", "TC_HEAD_DIMS", "counter", "flash_attention", "flash_bytes",
+           "route", "tc_counter"]
 
-#: head dims the kernel is built for (phi3/qwen 128, gemma 256, small checks)
+#: head dims the kernels are built for (phi3/qwen 128, gemma 256, small checks)
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: head dims of the tensor-core route (bf16 only)
+TC_HEAD_DIMS = (64, 128, 256)
+#: C entry of each route
+ENTRIES = {"wgmma": "flash_attn_fwd_tc", "cuda_cores": "flash_attn_fwd"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the JAX wrapper's default block: its non-causal path refuses a ragged T
 _JAX_BLOCK = 512
 
+#: every flash launch, either route
 counter = native.LaunchCounter("flash_attn")
+#: the tensor-core route's launches
+tc_counter = native.LaunchCounter("flash_attn_wgmma")
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel a CUDA call with this dtype and head dim launches."""
+    return "wgmma" if dtype == torch.bfloat16 and d in TC_HEAD_DIMS else "cuda_cores"
 
 
 def _round_up(x: int, m: int) -> int:
@@ -84,18 +101,21 @@ def flash_attention(
     for x in (q, k, v):
         if x.data_ptr() % 16:
             raise ValueError("flash_attention takes 16-byte aligned q, k, v")
-    lib = native.library()
+    path = route(q.dtype, d)
+    entry = getattr(native.library(), ENTRIES[path])
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attn_fwd(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, s, t, h, k.shape[2], d, _DTYPES[q.dtype], int(causal),
             q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
             stream,
         )
-    native.check(err, "flash_attn_fwd")
+    native.check(err, ENTRIES[path])
     counter.add()
+    if path == "wgmma":
+        tc_counter.add()
     return out
 
 

@@ -21,7 +21,7 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["LaunchCounter", "NVCC_FLAGS", "build", "check", "library"]
+__all__ = ["LaunchCounter", "NVCC_FLAGS", "build", "check", "library", "nvcc"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -50,6 +50,9 @@ _SIGNATURES = {
     # stream
     "flash_attn_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _L, _L, _L, _L, _L, _L, _P),
+    # the same arguments; bf16 at D 64, 128, 256 on the tensor cores
+    "flash_attn_fwd_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _L, _L, _L, _L, _L, _L, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -75,7 +78,7 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME  # locates the toolkit
 
     if CUDA_HOME is None:
@@ -96,7 +99,7 @@ def build() -> Path:
         build_log.update(path=str(so), seconds=0.0, cached=True)
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc_bin = nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs, procs = [], []
@@ -104,7 +107,7 @@ def build() -> Path:
             obj = Path(tmp) / (s.stem + ".o")
             objs.append(obj)
             procs.append(subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(obj)],
+                [nvcc_bin, *NVCC_FLAGS, "-c", str(s), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             ))
         for s, p in zip(srcs, procs):
@@ -117,7 +120,7 @@ def build() -> Path:
                 raise RuntimeError(f"nvcc failed on {s.name}:\n{out}")
         tmp_so = Path(tmp) / so.name
         link = subprocess.run(
-            [nvcc, *NVCC_FLAGS[:2], "-shared", *map(str, objs), "-o", str(tmp_so)],
+            [nvcc_bin, *NVCC_FLAGS[:2], "-shared", *map(str, objs), "-o", str(tmp_so)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         if link.returncode != 0:

@@ -13,11 +13,14 @@ import numpy as np  # noqa: E402
 
 from repro.kernels.flash_attn import ops as jops  # noqa: E402
 from repro.kernels.flash_attn.ref import attention_ref as jref  # noqa: E402
+from repro_torch.kernels import native  # noqa: E402
 from repro_torch.kernels.flash_attn import ops as tops  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import attention_ref  # noqa: E402
 
 # float32: both compute float32 scores and sums and differ in summation order
-# only; bfloat16: both round a float32 result once (the JAX tests' tolerances)
+# only; bfloat16: both round a float32 result once (the JAX tests' tolerances),
+# and the tensor-core route also rounds P to bfloat16 before P.V, as the TPU
+# kernel's DEFAULT-precision dot does on its chip
 F32_TOL, BF16_TOL = 1e-5, 2e-2
 
 
@@ -123,9 +126,54 @@ def test_flash_rejects_what_the_kernel_does_not_take():
 
 
 def test_flash_cpu_counts_no_launch():
-    before = tops.counter.launches
+    before = tops.counter.launches, tops.tc_counter.launches
     _port(_rand(1, 32, 4, 2, 64))
-    assert tops.counter.launches == before
+    _port(_rand(1, 32, 4, 2, 128), torch.bfloat16)
+    assert (tops.counter.launches, tops.tc_counter.launches) == before
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 256, "wgmma"),
+    (torch.bfloat16, 16, "cuda_cores"), (torch.bfloat16, 32, "cuda_cores"),
+    (torch.float32, 16, "cuda_cores"), (torch.float32, 32, "cuda_cores"),
+    (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores"),
+    (torch.float32, 256, "cuda_cores"),
+])
+def test_flash_route_choice(dtype, d, want):
+    """bf16 at the configs' head dims takes the tensor cores; float32, and
+    bf16 at D 16/32, the exact CUDA-core kernel.  Both C entries take the
+    same arguments."""
+    assert tops.route(dtype, d) == want
+    assert tops.ENTRIES == {"wgmma": "flash_attn_fwd_tc", "cuda_cores": "flash_attn_fwd"}
+    assert (native._SIGNATURES["flash_attn_fwd_tc"] == native._SIGNATURES["flash_attn_fwd"])
+
+
+def _attention_bf16_p(q, k, v):
+    """Plain causal GQA attention with the tensor-core route's one extra
+    rounding: float32 scores and softmax, P rounded to bfloat16 before P.V,
+    normalised by the sum of the unrounded P."""
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, s, kv, h // kv, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) / d ** 0.5
+    mask = torch.arange(t)[None, :] <= torch.arange(s)[:, None]
+    scores = scores.masked_fill(~mask, -1e30)
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    out = torch.einsum("bkgst,btkd->bskgd", p.bfloat16().float(), v.float())
+    out = out / p.sum(-1).permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, s, h, d)
+
+
+def test_flash_bf16_p_fits_the_tolerance():
+    """The tensor-core route's arithmetic (P in bfloat16) on bf16 inputs is
+    within BF16_TOL of the JAX package's Pallas kernel in interpret mode."""
+    arrays = _rand(1, 257, 8, 2, 128, seed=14)
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in arrays)
+    got = _attention_bf16_p(q, k, v).bfloat16().float().numpy()
+    want_kernel, _ = _jax(arrays, jnp.bfloat16)
+    np.testing.assert_allclose(got, want_kernel, rtol=BF16_TOL, atol=BF16_TOL)
+    exact = attention_ref(q, k, v).bfloat16().float().numpy()
+    assert 0 < np.abs(got - exact).max() < BF16_TOL  # the rounding shows, and stays inside
 
 
 @pytest.fixture
@@ -142,13 +190,22 @@ def cuda_device():
     (2, 257, 8, 8, 128, torch.bfloat16),
     (1, 70, 4, 2, 16, torch.float32),
     (1, 129, 4, 4, 32, torch.bfloat16),
+    # the tensor-core route: GQA 4:1 at D=128 across tile edges, D=64, MQA D=256
+    (1, 1, 8, 2, 128, torch.bfloat16),
+    (1, 127, 8, 2, 128, torch.bfloat16),
+    (1, 129, 8, 2, 128, torch.bfloat16),
+    (1, 2048, 8, 2, 128, torch.bfloat16),
+    (1, 300, 8, 2, 64, torch.bfloat16),
+    (1, 1000, 4, 1, 256, torch.bfloat16),
 ])
 def test_flash_kernel_matches_plain_on_card(cuda_device, b, s, h, kv, d, dtype):
     arrays = [torch.from_numpy(a).to(cuda_device, dtype) for a in _rand(b, s, h, kv, d, seed=s)]
-    before = tops.counter.launches
+    before = tops.counter.launches, tops.tc_counter.launches
     got = tops.flash_attention(*arrays)
     torch.cuda.synchronize()
-    assert tops.counter.launches == before + 1 and got.dtype == dtype
+    on_tc = tops.route(dtype, d) == "wgmma"
+    assert (tops.counter.launches, tops.tc_counter.launches) == (before[0] + 1, before[1] + on_tc)
+    assert got.dtype == dtype
     want = attention_ref(*arrays).to(dtype)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
