@@ -8,7 +8,14 @@ port's paths on the card through the entry points a user calls:
 
   1. the card: name and power limit (``nvidia-smi``);
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes of the phases below and at larger or edge-case shapes;
+     shapes of the phases below and at larger or edge-case shapes
+     (``rolling_sum`` also from row 0 on every row, and at an N that is not
+     a multiple of its tile); then ``error_checks``: a bad segment bound and
+     a bad window start raise the CPU path's ``ValueError`` at
+     ``check_error`` after a synchronization, or at the next call, and the
+     next good call succeeds.  On the main path's inputs each of the two
+     wrappers runs once under ``torch.cuda.set_sync_debug_mode("error")``
+     (``sync_free``);
   3. ``profile``: 2**23 entities x 32 float32 features written through
      ``FeatureStore.write_batch`` into a kernel-engine store on the card
      (online only, with a TTL, 256 partitions: ~2.5 GB of device tensors)
@@ -138,6 +145,8 @@ LOGITS_REL_RMS, LOGITS_TOP1 = 0.1, 0.8
 # scaled_dot_product_attention does, and rounds the output once to bfloat16:
 # 2e-2, the JAX package's own bfloat16 flash tolerance
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+L2_FLUSH_BYTES = 128 << 20  # written before a launch to empty the 50 MB L2
+SLEEP_CYCLES = 50_000_000  # a sleep kernel of about 25 ms on an H100
 COUNTERS = (lookup_ops.counter, rolling_ops.counter, pit_ops.counter, merge_ops.counter,
             flash_ops.counter, flash_ops.tc_counter)
 
@@ -224,6 +233,28 @@ def cuda_ms_restored(fn, restore, reps: int) -> float:
     return total / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()`` with the host out of the way: the calls
+    are queued behind a sleep kernel that keeps the card busy while the host
+    issues them, so they run back to back.  Fails if queueing them took the
+    host longer than the sleep lasted (the time would then include host
+    gaps)."""
+    fn()
+    torch.cuda.synchronize()
+    slept, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    slept.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    check(queued_ms < slept.elapsed_time(start), "the calls were queued before the sleep ended")
+    return start.elapsed_time(end) / reps
+
+
 def bound(nbytes: int, ops: int, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     """Least time for the work: bytes over the memory rate vs operations over
     the rate of their type (float32 unless given), in ms, and which of the
@@ -257,24 +288,38 @@ def check_lookup(keys: torch.Tensor, queries: torch.Tensor, label: str) -> dict:
 
 
 def check_rolling(values: torch.Tensor, starts: torch.Tensor, label: str) -> dict:
-    """Kernel vs plain on the card within ROLL_RTOL/ROLL_ATOL.  Bytes: values
-    and starts read once, sums written once; operations: a prefix and a
-    difference, two float32 adds per element."""
+    """Kernel vs plain on the card within ROLL_RTOL/ROLL_ATOL, and the same
+    bits from a second call.  Bytes: values and starts read once, sums
+    written once; operations: a prefix and a difference, two float32 adds
+    per element.  ``launch_only_ms``: the kernel's launches alone, into an
+    output and a scratch allocated beforehand; ``device_ms``: the same with
+    the host out of the way."""
     got = rolling_ops.rolling_sum(values, starts)
+    again = rolling_ops.rolling_sum(values, starts)
     want = rolling_sum_ref(values, starts)
     torch.cuda.synchronize()
+    rolling_ops.check_error()
+    check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+          f"rolling_sum gives the same bits from two calls ({label})")
     check(
         torch.allclose(got, want, rtol=ROLL_RTOL, atol=ROLL_ATOL),
         f"rolling_sum kernel within rtol {ROLL_RTOL}, atol {ROLL_ATOL} of plain ({label})",
     )
     n, f = values.shape
-    spans = torch.arange(1, n + 1, device=starts.device) - starts.long()
+    rows = torch.arange(n, device=starts.device)
+    spans = rows + 1 - starts.long()
+    tile_start = rows // rolling_ops.TILE_ROWS * rolling_ops.TILE_ROWS
     b_ms, b_by = bound(8 * n * f + 4 * n, 2 * n * f)
+    out = torch.empty_like(got)
+    scratch = torch.empty(rolling_ops.scratch_len(n, f), dtype=torch.float64, device=values.device)
+    launch = lambda: rolling_ops._launch(values, starts, out, scratch)
     row = {
         "phase": "kernel_check", "kernel": "rolling_sum", "shape": label,
         "N": n, "F": f, "max_span": int(spans.max()), "mean_span": float(spans.double().mean()),
+        "cross_tile_rows": int((starts.long() < tile_start).sum()),
         "max_abs_err": float((got - want).abs().max()),
         "ms": cuda_ms(lambda: rolling_ops.rolling_sum(values, starts), 20),
+        "launch_only_ms": cuda_ms(launch, 20), "device_ms": device_ms(launch, 20),
         "plain_ms": cuda_ms(lambda: rolling_sum_ref(values, starts), 5),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
@@ -288,15 +333,19 @@ def check_pit(table_ts, q_ts, q_lo, q_hi, row_seg, q_seg, label: str) -> dict:
     read once and (idx, valid) written once, plus each distinct 32-byte
     sector of the table that the bisection reads (the plain search records
     every row it probes; a fresh allocation starts on a sector, so row r
-    lies in sector r // 4); operations: one int64 compare per probe.
+    lies in sector r // 4); operations: one int64 compare per probe.  The
+    second bytes bound, ``query_bytes_bound_ms``, counts the query bytes
+    alone: the least time if every table sector came from L2.
     Library: one ``torch.searchsorted`` over the composite key
     segment * span + ts, where that key fits in int64 (building it is not
-    timed)."""
+    timed).  The kernel alone is timed with L2 warm (repeated launches) and
+    with L2 flushed before each launch."""
     before = pit_ops.counter.launches
     got = pit_ops.pit_search(table_ts, q_ts, q_lo, q_hi)
     probes = []
     want = pit_search_ref(table_ts, q_ts, q_lo, q_hi, probes)
     torch.cuda.synchronize()
+    pit_ops.check_error()
     check(pit_ops.counter.launches == before + 1, f"pit_search kernel launched ({label})")
     check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
           f"pit_search kernel == plain ({label})")
@@ -319,10 +368,11 @@ def check_pit(table_ts, q_ts, q_lo, q_hi, row_seg, q_seg, label: str) -> dict:
               and torch.equal((ub > q_lo)[real], got[1][real]),
               f"torch.searchsorted on the composite key agrees ({label})")
         library_ms = cuda_ms(lambda: torch.searchsorted(comp_t, comp_q, right=True), 20)
-    # the kernel alone, without the wrapper's bounds check (which syncs)
+    # the kernel alone, without the wrapper's argument checks and allocations
     idx, valid = torch.empty_like(got[0]), torch.empty_like(got[1])
     lo32, hi32 = q_lo.int(), q_hi.int()
     launch_only = lambda: pit_ops._launch(table_ts, q_ts, lo32, hi32, idx, valid)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=table_ts.device)
     row = {
         "phase": "kernel_check", "kernel": "pit_search", "shape": label,
         "M": m, "B": b, "segments": n_seg, "mean_query_segment": float(seg_len.mean()),
@@ -332,12 +382,102 @@ def check_pit(table_ts, q_ts, q_lo, q_hi, row_seg, q_seg, label: str) -> dict:
         "max_abs_err": float(max((got[0].long() - want[0].long()).abs().max(),
                                  (got[1] != want[1]).sum())),
         "ms": cuda_ms(lambda: pit_ops.pit_search(table_ts, q_ts, q_lo, q_hi), 20),
-        "launch_only_ms": cuda_ms(launch_only, 20),
+        "launch_only_ms": cuda_ms(launch_only, 20), "device_ms": device_ms(launch_only, 20),
+        "launch_only_cold_l2_ms": cuda_ms_restored(launch_only, flush.zero_, 10),
         "plain_ms": cuda_ms(lambda: pit_search_ref(table_ts, q_ts, q_lo, q_hi), 5),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+        "bound_ms": b_ms, "bound_by": b_by,
+        "query_bytes_bound_ms": per_query * b / HBM_BYTES_PER_S * 1e3, "library_ms": library_ms,
     }
     emit(row)
     return row
+
+
+def check_sync_free(name: str, call, label: str) -> dict:
+    """``call()``, a wrapper on inputs already on the card, run once more
+    under ``torch.cuda.set_sync_debug_mode("error")`` after a warm call (the
+    first call builds the kernels and allocates the error word): any
+    synchronizing torch op in the wrapper raises.  The mode is restored."""
+    call()
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    row = {"phase": "sync_free", "kernel": name, "shape": label, "sync_free": True}
+    emit(row)
+    return row
+
+
+def raises_value_error(fn, message: str) -> bool:
+    """Whether ``fn()`` raises ``ValueError(message)``."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e) == message
+    return False
+
+
+def check_bad_inputs(device) -> dict:
+    """Per kernel, a bad input on the card (a segment bound past the table,
+    a window start past its row): the wrapper returns without raising, the
+    bad query or row alone is marked (valid False, NaN), and the CPU path's
+    ValueError surfaces at ``check_error`` after a synchronization; a report
+    nobody read raises at the next call instead; the next good call then
+    succeeds and equals the plain version."""
+    out = {"phase": "error_checks"}
+    i64 = lambda *v: torch.tensor(v, dtype=torch.int64, device=device)
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=device)
+    table, q, lo = torch.arange(10, dtype=torch.int64, device=device), i64(5, 5, 5), i32(0, 0, 2)
+    good_hi, bad_hi = i32(10, 10, 10), i32(10, 11, 10)
+    msg = pit_ops.BOUNDS_MESSAGE
+    idx, valid = pit_ops.pit_search(table, q, lo, bad_hi)
+    torch.cuda.synchronize()
+    check(valid.tolist() == [True, False, True] and idx.tolist() == [5, -1, 5],
+          "pit_search marks only the query with bad bounds")
+    check(raises_value_error(pit_ops.check_error, msg),
+          "pit_search's bad bounds raise at check_error after a synchronization")
+    pit_ops.pit_search(table, q, lo, bad_hi)
+    torch.cuda.synchronize()
+    check(raises_value_error(lambda: pit_ops.pit_search(table, q, lo, good_hi), msg),
+          "pit_search's unread report raises at the next call")
+    got, want = pit_ops.pit_search(table, q, lo, good_hi), pit_search_ref(table, q, lo, good_hi)
+    torch.cuda.synchronize()
+    pit_ops.check_error()
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "pit_search's next good call succeeds")
+    out["pit_search"] = {"message": msg, "raised_at_check_error": True,
+                         "raised_at_next_call": True, "next_good_call_ok": True}
+
+    n = rolling_ops.TILE_ROWS + 100
+    vals = torch.ones(n, 2, device=device)
+    good = torch.zeros(n, dtype=torch.int32, device=device)
+    msg = rolling_ops.STARTS_MESSAGE
+    for row, start in ((7, 8), (n - 1, -1)):
+        bad = good.clone()
+        bad[row] = start
+        sums = rolling_ops.rolling_sum(vals, bad)
+        torch.cuda.synchronize()
+        nan_rows = sums.isnan().any(dim=1)
+        check(bool(nan_rows[row]) and int(nan_rows.sum()) == 1,
+              f"rolling_sum marks only the row with start {start} (row {row}) NaN")
+        check(raises_value_error(rolling_ops.check_error, msg),
+              "rolling_sum's bad start raises at check_error after a synchronization")
+        rolling_ops.rolling_sum(vals, bad)
+        torch.cuda.synchronize()
+        check(raises_value_error(lambda: rolling_ops.rolling_sum(vals, good), msg),
+              "rolling_sum's unread report raises at the next call")
+        sums = rolling_ops.rolling_sum(vals, good)
+        torch.cuda.synchronize()
+        rolling_ops.check_error()
+        check(torch.equal(sums, rolling_sum_ref(vals, good)),
+              "rolling_sum's next good call succeeds")
+    out["rolling_sum"] = {"message": msg, "raised_at_check_error": True,
+                          "raised_at_next_call": True, "next_good_call_ok": True}
+    emit(out)
+    return out
 
 
 def check_merge(state, routed, creation: int, label: str) -> dict:
@@ -1027,8 +1167,18 @@ def main() -> int:
     vals = torch.from_numpy(rng.standard_normal((n, 4)).astype(np.float32) * 100).to(cuda)
     starts = torch.from_numpy(
         np.maximum(np.arange(n) - rng.integers(0, 8192, n), 0).astype(np.int32)).to(cuda)
-    checks["rolling_sum"] = [check_rolling(vals, starts, "N=2^20 F=4 spans<=8192 synthetic")]
+    checks["rolling_sum"] = [
+        check_rolling(vals, starts, "N=2^20 F=4 spans<=8192 synthetic"),
+        check_rolling(vals, torch.zeros_like(starts), "N=2^20 F=4 start=0 on every row"),
+    ]
+    n = 1_000_003  # not a multiple of the tile; F=5 takes two feature chunks
+    vals = torch.from_numpy(rng.standard_normal((n, 5)).astype(np.float32) * 100).to(cuda)
+    starts = torch.from_numpy(
+        np.maximum(np.arange(n) - rng.integers(0, 3000, n), 0).astype(np.int32)).to(cuda)
+    checks["rolling_sum"].append(check_rolling(
+        vals, starts, "N=1,000,003 (not a multiple of the tile) F=5 spans<=3000 synthetic"))
     del keys, vals, starts
+    check_bad_inputs(cuda)
     checks["pit_search"] = [check_pit(*wide_span_case(rng, cuda),
                                       "wide span: 4,096 x 2,048 epoch-ms rows, 2^20 queries")]
     check(checks["pit_search"][0]["wide_span"], "the wide-span shape spans over 2^31 ms")
@@ -1064,6 +1214,9 @@ def main() -> int:
         v, s = dsl_inputs(txn["source"], txn["mid"], window, cuda)
         checks["rolling_sum"].append(check_rolling(v, s, f"main path: one job's {tag} window"))
     main_roll = checks["rolling_sum"][-1]  # the 6 h window: the longer spans
+    check_sync_free("rolling_sum", lambda: rolling_ops.rolling_sum(v, s),
+                    "main path: one job's 6h window")
+    del v, s
 
     launches = {k: txn["row"]["launches"][k] for k in ("online_lookup", "rolling_sum")}
     check(all(v > 0 for v in launches.values()), "each kernel of the main path launched")
@@ -1076,9 +1229,12 @@ def main() -> int:
     off = phase_offline(txn["store"], TXN_ENTITIES, SPINE_ROWS)
     launches["pit_search"] = off["row"]["launches"]["pit_search"]
     check(launches["pit_search"] == 3, "pit_search launched once per offline call")
-    main_pit = check_pit(*pit_main_inputs(off["history"], off["spine"], 0, cuda),
-                         "main path: txn_rolling history, 2^20-row spine")
+    pit_inputs = pit_main_inputs(off["history"], off["spine"], 0, cuda)
+    main_pit = check_pit(*pit_inputs, "main path: txn_rolling history, 2^20-row spine")
     checks["pit_search"].append(main_pit)
+    check_sync_free("pit_search", lambda: pit_ops.pit_search(*pit_inputs[:4]),
+                    "main path: txn_rolling history, 2^20-row spine")
+    del pit_inputs
     del txn, ostore, off
     torch.cuda.empty_cache()
 

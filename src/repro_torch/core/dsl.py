@@ -125,14 +125,12 @@ class DslTransform(TransformProtocol):
         for window, group in kernel_groups.items():
             cols = sorted(set(a.source_col for a in group))
             mat = np.stack([sorted_df[c].astype(np.float32) for c in cols], axis=1)
-            sums = (
-                rolling_ops.rolling_agg(
-                    torch.from_numpy(mat).to(self.device),
-                    starts_by_window[window], "sum",
-                )
-                .cpu()
-                .numpy()
+            sums_t = rolling_ops.rolling_agg(
+                torch.from_numpy(mat).to(self.device), starts_by_window[window], "sum"
             )
+            sums = sums_t.cpu().numpy()
+            # after the download: the kernel's starts report is in
+            rolling_ops.check_error(sums_t.device)
             counts = np.arange(n) + 1 - starts_by_window[window]
             for a in group:
                 col = sums[:, cols.index(a.source_col)]

@@ -113,7 +113,10 @@ def pit_join_feature_set(
     up = lambda a: torch.from_numpy(a).to(dev)
     search = pit_ops.pit_search if use_kernel else pit_search_ref
     idx, valid = search(up(table_ev), up(q_ts), up(q_lo), up(q_hi))
+    search_dev = idx.device
     idx, valid = idx.cpu().numpy(), valid.cpu().numpy()
+    if use_kernel:  # the download synchronized: the kernel's bounds report is in
+        pit_ops.check_error(search_dev)
     valid = valid & has_entity
 
     t2 = time.perf_counter()

@@ -8,7 +8,11 @@ edited source is rebuilt and an unchanged one is loaded as it is.  The
 objects compile in parallel, one ``nvcc`` per source.
 
 Each C entry launches on the stream it is given and returns
-``cudaGetLastError()``; ``check`` raises on anything but 0.
+``cudaGetLastError()``; ``check`` raises on anything but 0.  A kernel whose
+input is wrong in a way only the data shows (a bound past the table) sets its
+device's ``ErrorWord`` instead of making its wrapper synchronize to check
+first; the wrapper's caller reads the word after its own next
+synchronization.
 """
 
 from __future__ import annotations
@@ -21,7 +25,9 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["LaunchCounter", "NVCC_FLAGS", "build", "check", "library", "nvcc"]
+import torch
+
+__all__ = ["ErrorWord", "LaunchCounter", "NVCC_FLAGS", "build", "check", "library", "nvcc"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -37,11 +43,12 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # keys (P, C) i64, queries (P, Q) i64, out (P, Q) i32, P, C, Q, stream
     "online_lookup_i64": (_P, _P, _P, _I, _I, _I, _P),
-    # values (N, F) f32, starts (N,) i32, out (N, F) f32, N, F, stream
-    "rolling_sum_f32": (_P, _P, _P, _L, _I, _P),
+    # values (N, F) f32, starts (N,) i32, out (N, F) f32, scratch f64 and its
+    # length, error word, N, F, stream
+    "rolling_sum_f32": (_P, _P, _P, _P, _L, _P, _L, _I, _P),
     # table_ts (M,) i64, q_ts (B,) i64, q_lo/q_hi (B,) i32, idx (B,) i32,
-    # valid (B,) bool, B, stream
-    "pit_search_i64": (_P, _P, _P, _P, _P, _P, _L, _P),
+    # valid (B,) bool, error word, M, B, stream
+    "pit_search_i64": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _P),
     # keys/ev/cr (P, C) i64, values (P, C, D) f32, sorted_q/order/q_ev (P, Q)
     # i64, q_values (P, Q, D) f32, creation, P, C, Q, D, stream
     "merge_scan_i64": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
@@ -72,6 +79,58 @@ class LaunchCounter:
 
     def reset(self) -> None:
         self.launches = 0
+
+
+class ErrorWord:
+    """32-bit words in pinned host memory, one per device, that a kernel sets
+    when its input is wrong (``csrc/errors.cu``).  The kernel gets
+    ``ptr(device)``, its device's word, allocated at that device's first
+    launch; the host reads the word from its own memory, so reading never
+    synchronizes.
+
+    The one reliable read is after a synchronization of the device: it sees
+    every kernel of that device that finished before it, so a caller reads
+    after its own download of the results.  A wrapper also reads its
+    device's word before each launch, as a best-effort safety net for a
+    report nobody read: what that read sees depends on which earlier kernels
+    have finished by then, so the report may surface there or at a later
+    call.  ``raise_if_set`` raises ``ValueError(message)`` and clears the
+    word; a report that a kernel still running stores into a word already
+    set is merged into that one raise."""
+
+    def __init__(self, message: str) -> None:
+        self.message = message
+        self._ptrs: dict[torch.device, int] = {}
+
+    def ptr(self, device: torch.device) -> int:
+        """The word of ``device`` (a tensor's device), allocated at its first
+        use with ``device`` current."""
+        if device not in self._ptrs:
+            ptr = library().repro_error_word_alloc()
+            if not ptr:
+                raise RuntimeError("could not allocate a device-mapped error word")
+            self._ptrs[device] = int(ptr)
+        return self._ptrs[device]
+
+    def raise_if_set(self, device: torch.device | str | None = None) -> None:
+        """Raise if the word of ``device`` (of any device where None) is set,
+        clearing it.  A word never allocated reads clear."""
+        if device is None:
+            keys = list(self._ptrs)
+        else:
+            device = torch.device(device)
+            if device.type == "cuda" and device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+            keys = [device]
+        found = False
+        for key in keys:
+            if key in self._ptrs:
+                word = ctypes.c_int32.from_address(self._ptrs[key])
+                if word.value:
+                    word.value = 0
+                    found = True
+        if found:
+            raise ValueError(self.message)
 
 
 def _sources() -> list[Path]:
@@ -141,6 +200,8 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.repro_cuda_error_string.argtypes = (ctypes.c_int,)
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        lib.repro_error_word_alloc.argtypes = ()
+        lib.repro_error_word_alloc.restype = ctypes.c_void_p
         _lib = lib
     return _lib
 

@@ -7,7 +7,14 @@ its jnp oracle, which needs JAX's 64-bit mode to see int64 at all (without
 it ``jnp.asarray`` truncates epoch-ms to int32), so those cases run under
 ``jax.enable_x64``.  The port has one regime, native int64.  The join does
 no arithmetic, so ``idx``, ``valid``, ``found``, ``event_ts`` and every value
-must be byte-identical."""
+must be byte-identical.
+
+On the card the segment bounds are checked by the kernel, which sets an error
+word that the caller reads at its next synchronization; the CPU tests drive
+that word through a stand-in for the kernel library."""
+
+import ctypes
+import re
 
 import pytest
 
@@ -28,6 +35,7 @@ from repro_torch.core import assets as tassets  # noqa: E402
 from repro_torch.core import pit as tpit  # noqa: E402
 from repro_torch.core.dsl import UDFTransform as TUDF  # noqa: E402
 from repro_torch.core.table import Table as TTable  # noqa: E402
+from repro_torch.kernels import native  # noqa: E402
 from repro_torch.kernels.pit_join import ops as tops  # noqa: E402
 from repro_torch.kernels.pit_join.ref import pit_search_ref  # noqa: E402
 
@@ -156,20 +164,115 @@ def test_pit_search_ref_records_its_probes():
     assert torch.cat(probes).tolist() == [2, 1]
 
 
+def _fake_library(monkeypatch, **entries):
+    """A kernel library without a card: ``entries`` stand in for the C
+    entries, and the error word is a ctypes int the test owns."""
+    word = ctypes.c_int32(0)
+    lib = type("Lib", (), {"repro_error_word_alloc": staticmethod(lambda: ctypes.addressof(word)),
+                           **{k: staticmethod(v) for k, v in entries.items()}})
+    monkeypatch.setattr(tops.native, "library", lambda: lib)
+    monkeypatch.setattr(tops, "errors", native.ErrorWord(tops.errors.message))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: type("S", (), {"cuda_stream": 0}))
+    return word
+
+
 @pytest.mark.parametrize("n_queries", [0, 3])
 def test_pit_launch_counts_only_a_launch(monkeypatch, n_queries):
     """The launch counter moves where the kernel launches and nowhere else:
     no queries, no launch and no count."""
     calls = []
-    fake = type("Lib", (), {"pit_search_i64": staticmethod(lambda *a: calls.append(a) or 0)})
-    monkeypatch.setattr(tops.native, "library", lambda: fake)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: type("S", (), {"cuda_stream": 0}))
+    _fake_library(monkeypatch, pit_search_i64=lambda *a: calls.append(a) or 0)
     q = torch.zeros(n_queries, dtype=torch.int64)
     b = torch.zeros(n_queries, dtype=torch.int32)
     before = tops.counter.launches
     tops._launch(torch.arange(4), q, b, b, b.clone(), torch.zeros(n_queries, dtype=torch.bool))
     launched = n_queries > 0
     assert len(calls) == launched and tops.counter.launches == before + launched
+
+
+def test_pit_entry_takes_the_error_word(monkeypatch):
+    """The C entry's signature carries the error word's pointer, and the
+    launch passes the word it reads."""
+    sig = native._SIGNATURES["pit_search_i64"]
+    assert len(sig) == 10 and sig[6] is ctypes.c_void_p
+    calls = []
+    word = _fake_library(monkeypatch, pit_search_i64=lambda *a: calls.append(a) or 0)
+    q = torch.zeros(2, dtype=torch.int64)
+    b = torch.zeros(2, dtype=torch.int32)
+    tops._launch(torch.arange(4), q, b, b, b.clone(), torch.zeros(2, dtype=torch.bool))
+    (args,) = calls
+    ptr = tops.errors.ptr(torch.device("cpu"))
+    assert len(args) == len(sig) and args[6] == ptr == ctypes.addressof(word)
+    assert args[7:9] == (4, 2)  # M, B
+
+
+@pytest.mark.parametrize("bad", [True, False])
+def test_pit_error_word_raises_at_the_join_and_the_next_call(monkeypatch, bad):
+    """A kernel that reports bad bounds makes the join raise the wrapper's
+    own ValueError after its download, and, if nobody read the report, the
+    next launch (not the CPU path, which reads no word); a clear word raises
+    nothing."""
+    def kernel(*args):
+        ctypes.c_int32.from_address(args[6]).value = int(bad)
+        return 0
+
+    _fake_library(monkeypatch, pit_search_i64=kernel)
+    wrapper = tops.pit_search
+
+    def launched_on_cpu(table_ts, q_ts, q_lo, q_hi):
+        idx, valid = pit_search_ref(table_ts, q_ts, q_lo, q_hi)
+        tops._launch(table_ts, q_ts, q_lo.int(), q_hi.int(), idx, valid)
+        return idx, valid
+
+    monkeypatch.setattr(tops, "pit_search", launched_on_cpu)
+    _, spec = _specs(0, ("entity_id",))
+    cols = _history(np.random.default_rng(3), 50, 5, ("entity_id",), 0, 1000)
+    join = lambda: tpit.pit_join_feature_set([np.arange(6)], np.full(6, 500), spec,
+                                             TTable(dict(cols)), device="cpu")
+    msg = re.escape(tops.BOUNDS_MESSAGE)
+    if bad:
+        with pytest.raises(ValueError, match=msg):
+            join()
+        tops.errors.raise_if_set()  # the join cleared the word
+    else:
+        assert join().found.any()
+    launched_on_cpu(*_GOOD)  # a report nobody read ...
+    got, want = wrapper(*_GOOD), pit_search_ref(*_GOOD)  # ... is not the CPU path's
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if bad:
+        with pytest.raises(ValueError, match=msg):  # ... raises at the next launch
+            launched_on_cpu(*_GOOD)
+    tops.check_error()  # and is gone after it
+
+
+def test_error_word_is_per_device(monkeypatch):
+    """Each device has its own word: a report on one device raises at a
+    read of that device or of every device, never at another device's."""
+    words = []
+
+    def alloc():
+        words.append(ctypes.c_int32(0))
+        return ctypes.addressof(words[-1])
+
+    monkeypatch.setattr(native, "library",
+                        lambda: type("Lib", (), {"repro_error_word_alloc": staticmethod(alloc)}))
+    word = native.ErrorWord("bad")
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    p0, p1 = word.ptr(d0), word.ptr(d1)
+    assert p0 != p1 and word.ptr(d0) == p0 and len(words) == 2
+    ctypes.c_int32.from_address(p1).value = 1
+    word.raise_if_set(d0)  # another device's report
+    with pytest.raises(ValueError, match="bad"):
+        word.raise_if_set(d1)
+    word.raise_if_set(d1)  # cleared by the raise
+    ctypes.c_int32.from_address(p0).value = 1
+    with pytest.raises(ValueError, match="bad"):
+        word.raise_if_set()
+    word.raise_if_set()
+
+
+_GOOD = (torch.tensor([1, 5, 9], dtype=torch.int64), torch.tensor([5, 6], dtype=torch.int64),
+         torch.tensor([0, 1], dtype=torch.int32), torch.tensor([3, 3], dtype=torch.int32))
 
 
 def _specs(delay, index_cols):
@@ -283,3 +386,87 @@ def test_pit_search_kernel_matches_plain_on_card(cuda_device):
     empty = torch.zeros(0, dtype=torch.int64, device=cuda_device)
     idx, valid = tops.pit_search(args[0].to(cuda_device), empty, empty, empty)
     assert idx.shape == (0,) and tops.counter.launches == before + 1  # nothing launched
+
+
+def _edge_segments():
+    """Segments of 0..40 rows starting at every offset mod 4 (so every
+    16-byte pair alignment), values with runs of ties and both int64
+    extremes, and queries at, between and outside every segment's rows."""
+    big = np.iinfo(np.int64)
+    pool = np.array([big.min, big.min + 1, -7, 0, 0, 3, 3, 3, 8, big.max - 1, big.max], np.int64)
+    rng = np.random.default_rng(5)
+    parts, lo, hi, q, off = [], [], [], [], 0
+    for pad in range(4):
+        parts.append(np.zeros(pad, np.int64))
+        off += pad
+        for n in range(41):
+            seg = np.sort(rng.choice(pool, n))
+            parts.append(seg)
+            for t in (*pool, *seg, -1, 4, 9):
+                lo.append(off)
+                hi.append(off + n)
+                q.append(t)
+            off += n
+    return [torch.from_numpy(np.asarray(a, dt)) for a, dt in (
+        (np.concatenate(parts), np.int64), (q, np.int64), (lo, np.int32), (hi, np.int32))]
+
+
+@pytest.mark.gpu
+def test_pit_search_kernel_edges_on_card(cuda_device):
+    """Byte-identical to the plain search at every segment length 0..40 and
+    alignment, ties and int64 extremes, and on 5,000-row segments."""
+    args = _edge_segments()
+    rng = np.random.default_rng(6)
+    table, bounds = _segments(rng, 6, 5000, EPOCH_MS, 2**34)
+    q_ts, lo, hi = _queries(rng, table, bounds, 4000, EPOCH_MS, 2**34)
+    for case in (args, [torch.from_numpy(a) for a in (table, q_ts, lo.astype(np.int32),
+                                                      hi.astype(np.int32))]):
+        dev = [a.to(cuda_device) for a in case]
+        idx = torch.empty(len(case[1]), dtype=torch.int32, device=cuda_device)
+        valid = torch.empty(len(case[1]), dtype=torch.bool, device=cuda_device)
+        tops._launch(*dev, idx, valid)
+        torch.cuda.synchronize()
+        tops.check_error()
+        want = pit_search_ref(*case)
+        assert torch.equal(idx.cpu(), want[0]) and torch.equal(valid.cpu(), want[1])
+
+
+@pytest.mark.gpu
+def test_pit_search_bad_bounds_on_card(cuda_device):
+    """Bounds past the table raise the CPU path's ValueError at the read
+    after a synchronization, or at the next call; the bad query is not
+    valid, the others are right, and the next good call succeeds."""
+    t, q, lo, hi = (a.to(cuda_device) for a in _GOOD)
+    for bad_lo, bad_hi in ((0, 4), (-1, 2), (2, 1)):
+        blo, bhi = lo.clone(), hi.clone()
+        blo[0], bhi[0] = bad_lo, bad_hi
+        idx, valid = tops.pit_search(t, q, blo, bhi)  # no raise: nothing synchronized
+        torch.cuda.synchronize()
+        assert not valid[0] and idx[0] == -1 and valid[1] and idx[1] == 1
+        with pytest.raises(ValueError, match=re.escape(tops.BOUNDS_MESSAGE)):
+            tops.check_error()
+        tops.pit_search(t, q, blo, bhi.long())  # int64 bounds, the same check
+        torch.cuda.synchronize()
+        with pytest.raises(ValueError, match=re.escape(tops.BOUNDS_MESSAGE)):
+            tops.pit_search(t, q, lo, hi)
+        got, want = tops.pit_search(t, q, lo, hi), pit_search_ref(*_GOOD)
+        torch.cuda.synchronize()
+        tops.check_error()
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.gpu
+def test_pit_search_does_not_synchronize_on_card(cuda_device):
+    args = [a.to(cuda_device) for a in _edge_segments()]
+    tops.pit_search(*args)  # the first call builds and allocates
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        idx, valid = tops.pit_search(*args)
+        idx64, _ = tops.pit_search(args[0], args[1], args[2].long(), args[3].long())
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    tops.check_error()
+    assert torch.equal(idx, idx64) and torch.equal(idx.cpu(), pit_search_ref(*_edge_segments())[0])
