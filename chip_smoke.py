@@ -10,10 +10,14 @@ port's paths on the card through the entry points a user calls:
   2. each kernel against its plain PyTorch version on the card, at the
      shapes of the phases below and at larger or edge-case shapes
      (``rolling_sum`` also from row 0 on every row, and at an N that is not
-     a multiple of its tile); then ``error_checks``: a bad segment bound and
-     a bad window start raise the CPU path's ``ValueError`` at
-     ``check_error`` after a synchronization, or at the next call, and the
-     next good call succeeds.  On the main path's inputs each of the two
+     a multiple of its tile; ``online_lookup`` on queries -1, -2, INT64_MIN
+     and INT64_MAX against keys holding each many times, and
+     ``online_lookup`` and ``merge_scan`` at P = 65,536 partitions); then
+     ``error_checks``: a bad segment bound, a bad window start and a bad or
+     duplicate winner key raise the CPU path's ``ValueError`` at
+     ``check_error`` after a synchronization, or at the next call, a refused
+     merge leaves the table byte-identical, and the next good call
+     succeeds.  On the main path's inputs each of the four feature-store
      wrappers runs once under ``torch.cuda.set_sync_debug_mode("error")``
      (``sync_free``);
   3. ``profile``: 2**23 entities x 32 float32 features written through
@@ -255,6 +259,31 @@ def device_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms_restored(fn, restore, reps: int) -> float:
+    """Mean device time of ``fn()`` alone, each call on state ``restore()``
+    put back first, with the host out of the way: each call is queued behind
+    its restore and a sleep kernel and timed between two events.  Fails if
+    queueing a call took the host longer than the sleep lasted."""
+    restore()
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        restore()
+        slept, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        slept.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        end.record()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        check(queued_ms < slept.elapsed_time(start), "the call was queued before the sleep ended")
+        total += start.elapsed_time(end)
+    return total / reps
+
+
 def bound(nbytes: int, ops: int, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     """Least time for the work: bytes over the memory rate vs operations over
     the rate of their type (float32 unless given), in ms, and which of the
@@ -265,21 +294,29 @@ def bound(nbytes: int, ops: int, ops_per_s: float = FP32_OPS_PER_S) -> tuple[flo
 
 # -- kernel against plain ------------------------------------------------------
 def check_lookup(keys: torch.Tensor, queries: torch.Tensor, label: str) -> dict:
-    """Kernel vs plain on the card: slots must be equal.  Bytes: keys and
-    queries read once, slots written once; operations: one int64 compare
-    per key and per query (the least any GET does on these inputs)."""
+    """Kernel vs plain on the card: slots must be equal, and the kernel must
+    launch once.  Bytes: keys and queries read once, slots written once;
+    operations: one int64 compare per key and per query (the least any GET
+    does on these inputs).  ``launch_only_ms``: the kernel's launch alone,
+    into an output allocated beforehand; ``device_ms``: the same with the
+    host out of the way."""
+    before = lookup_ops.counter.launches
     got = lookup_ops.lookup(keys, queries)
     want = lookup_ref(keys, queries)
     torch.cuda.synchronize()
+    check(lookup_ops.counter.launches == before + 1, f"lookup kernel launched once ({label})")
     check(torch.equal(got, want), f"lookup kernel == plain ({label})")
     p, c = keys.shape
     q = queries.shape[1]
     b_ms, b_by = bound(8 * p * c + 12 * p * q, 2 * (p * c + p * q))
+    out = torch.empty_like(got)
+    launch = lambda: lookup_ops._launch(keys, queries, out)
     row = {
         "phase": "kernel_check", "kernel": "online_lookup", "shape": label,
         "P": p, "C": c, "Q": q, "hits": int((got >= 0).sum()),
         "max_abs_err": float((got.long() - want.long()).abs().max()),
         "ms": cuda_ms(lambda: lookup_ops.lookup(keys, queries), 20),
+        "launch_only_ms": cuda_ms(launch, 20), "device_ms": device_ms(launch, 20),
         "plain_ms": cuda_ms(lambda: lookup_ref(keys, queries), 5),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
@@ -476,6 +513,41 @@ def check_bad_inputs(device) -> dict:
               "rolling_sum's next good call succeeds")
     out["rolling_sum"] = {"message": msg, "raised_at_check_error": True,
                           "raised_at_next_call": True, "next_good_call_ok": True}
+
+    state, (q_keys, q_ev, q_vals) = scan_case(np.random.default_rng(5), device, 3, 400, 4, 600)
+    keys, table = state[0], [t.clone() for t in state[1:]]
+    live = torch.nonzero(q_keys[0] >= 0)[0].item()
+    for bad, msg in (("duplicate", merge_ops.DUPLICATE_MESSAGE),
+                     ("negative", merge_ops.BAD_KEY_MESSAGE)):
+        wrong = q_keys.clone()
+        if bad == "duplicate":
+            wrong[2, -1] = wrong[2, 0] = 7  # key 7 twice in the last partition
+        else:
+            wrong[0, live] = -5
+        merge_ops.merge(keys, *table, wrong, q_ev, q_vals, 99)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(table, state[1:])),
+              f"merge_scan's refused batch ({bad} key) leaves the table byte-identical")
+        check(raises_value_error(merge_ops.check_error, msg),
+              f"merge_scan's {bad} key raises at check_error after a synchronization")
+        merge_ops.merge(keys, *table, wrong, q_ev, q_vals, 99)
+        torch.cuda.synchronize()
+        check(raises_value_error(
+            lambda: merge_ops.merge(keys, *table, q_keys, q_ev, q_vals, 99), msg),
+            f"merge_scan's unread report ({bad} key) raises at the next call")
+        check(all(torch.equal(a, b) for a, b in zip(table, state[1:])),
+              "a merge that raised at its call changed nothing")
+    plain = [t.clone() for t in table]
+    merge_ops.merge(keys, *table, q_keys, q_ev, q_vals, 99)
+    merge_scan_ref(keys, *plain, q_keys, q_ev, q_vals, 99)
+    torch.cuda.synchronize()
+    merge_ops.check_error()
+    check(all(torch.equal(a, b) for a, b in zip(table, plain))
+          and not torch.equal(table[0], state[1]), "merge_scan's next good call succeeds")
+    out["merge_scan"] = {"messages": list(merge_ops.errors.messages),
+                         "raised_at_check_error": True, "raised_at_next_call": True,
+                         "refused_batch_left_table_identical": True,
+                         "next_good_call_ok": True}
     emit(out)
     return out
 
@@ -488,7 +560,9 @@ def check_merge(state, routed, creation: int, label: str) -> dict:
     ev and the winner's ev read at each matched slot, the old cr where the
     two ev tie, and the winner's row read and (ev, cr, values) written at
     each slot it wins; operations: one int64 compare per slot.  Times: each
-    call on the state put back."""
+    call on the state put back; ``launch_only_ms`` the C entry alone, into a
+    scratch allocated beforehand; ``device_ms`` the same with the host out
+    of the way."""
     keys, ev0, cr0, v0 = state
     q_keys, q_ev, q_vals = routed
     mine = [t.clone() for t in (ev0, cr0, v0)]
@@ -497,12 +571,12 @@ def check_merge(state, routed, creation: int, label: str) -> dict:
     merge_ops.merge(keys, *mine, q_keys, q_ev, q_vals, creation)
     merge_scan_ref(keys, *plain, q_keys, q_ev, q_vals, creation)
     torch.cuda.synchronize()
+    merge_ops.check_error()
     check(merge_ops.counter.launches == before + 1, f"merge_scan kernel launched ({label})")
     check(all(torch.equal(a, b) for a, b in zip(mine, plain)),
           f"merge_scan kernel == plain ({label})")
     live = q_keys[q_keys >= 0]
-    sorted_q, order = torch.sort(q_keys, dim=1)
-    hit, _, new_ev = match_winners(keys, q_keys, q_ev, sorted_q, order)
+    hit, _, new_ev = match_winners(keys, q_keys, q_ev)
     matched, ties = int(hit.sum()), int((hit & (new_ev == ev0)).sum())
     won = int(((mine[0] != ev0) | (mine[1] != cr0)).sum())
     p, c = keys.shape
@@ -513,24 +587,28 @@ def check_merge(state, routed, creation: int, label: str) -> dict:
     def restore(copy):
         return lambda: [a.copy_(b) for a, b in zip(copy, (ev0, cr0, v0))]
 
-    # the kernel alone, without the wrapper's sort and key check (which syncs)
-    launch_only = lambda: merge_ops._launch(keys, *mine, sorted_q, order, q_ev, q_vals,
+    # the kernel alone, without the wrapper's argument checks and allocation
+    scratch = torch.empty(merge_ops.scratch_len(p, q), dtype=torch.int64, device=keys.device)
+    launch_only = lambda: merge_ops._launch(keys, *mine, q_keys, q_ev, q_vals, scratch,
                                             creation)
 
     row = {
         "phase": "kernel_check", "kernel": "merge_scan", "shape": label,
         "P": p, "C": c, "Q": q, "D": d, "winners": live.numel(), "matched_slots": matched,
-        "tied_slots": ties, "written_slots": won, "winner_keys_in": "shared" if 8 * q <= 96 * 1024 else "global",
+        "tied_slots": ties, "written_slots": won,
+        "winner_keys_in": "shared" if merge_ops.hash_in_shared(q) else "global",
         "max_abs_err": float((mine[2] - plain[2]).abs().max()) if v0.numel() else 0.0,
         "ms": cuda_ms_restored(
             lambda: merge_ops.merge(keys, *mine, q_keys, q_ev, q_vals, creation),
             restore(mine), 10),
         "launch_only_ms": cuda_ms_restored(launch_only, restore(mine), 10),
+        "device_ms": device_ms_restored(launch_only, restore(mine), 10),
         "plain_ms": cuda_ms_restored(
             lambda: merge_scan_ref(keys, *plain, q_keys, q_ev, q_vals, creation),
             restore(plain), 3),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
+    merge_ops.check_error()
     emit(row)
     return row
 
@@ -631,6 +709,46 @@ def scan_case(rng, device, p: int, c: int, d: int, n_winners: int):
     return tuple(map(up, state)), tuple(map(up, routed))
 
 
+def many_partitions_case(rng, device, p: int, c: int, d: int, n_winners: int):
+    """``scan_case`` for P in the tens of thousands, built without a loop
+    over partitions: 2 * P * c / 3 random ids, each in the first free slot
+    of its hash partition (up to 3/4 of the slots), edge timestamps, and
+    ``n_winners`` unique winners, 3/4 of them held keys."""
+    ids = np.unique(rng.integers(0, 2**40, 2 * p * c // 3))
+    home = lookup_ops.partition_of(ids, p)
+    order = np.argsort(home, kind="stable")
+    ids, home = ids[order], home[order]
+    slot = np.arange(len(ids)) - np.searchsorted(home, home)
+    keep = slot < c * 3 // 4
+    keys = np.full((p, c), -1, np.int64)
+    keys[home[keep], slot[keep]] = ids[keep]
+    edge = np.array([2**31 - 1, 2**31, 2**32, -1, 0, I64_MIN, 2**31 + 1], np.int64)
+    live = ids[keep]
+    n_hit = min(n_winners * 3 // 4, len(live))
+    win = np.concatenate([rng.choice(live, n_hit, replace=False),
+                          2**41 + rng.permutation(4 * n_winners)[: n_winners - n_hit]])
+    routed = merge_ops.route_winners(p, win, rng.choice(edge, n_winners),
+                                     rng.standard_normal((n_winners, d)).astype(np.float32))
+    up = lambda a: torch.from_numpy(a).to(device)
+    state = (keys, rng.choice(edge, (p, c)), rng.choice(edge, (p, c)),
+             rng.standard_normal((p, c, d)).astype(np.float32))
+    return tuple(map(up, state)), tuple(map(up, routed))
+
+
+def adversarial_lookup_case(rng, device, p: int, c: int, q: int):
+    """Keys drawn half from -1 (empty), -2 (pad), INT64_MIN, INT64_MAX and a
+    few other values, half at random; queries 70% from the same values (so
+    each partition holds each in many slots and asks for each in many
+    columns), the rest held keys, and every 16th column a miss."""
+    pool = np.array([-1, -2, I64_MIN, 2**63 - 1, 0, 1, 2**32, -(2**31)], np.int64)
+    keys = np.where(rng.random((p, c)) < 0.5, rng.choice(pool, (p, c)),
+                    rng.integers(I64_MIN, 2**63 - 1, (p, c), dtype=np.int64))
+    queries = np.where(rng.random((p, q)) < 0.7, rng.choice(pool, (p, q)),
+                       keys[np.arange(p)[:, None], rng.integers(0, c, (p, q))])
+    queries[:, ::16] = rng.integers(2**40, 2**41, (p, len(range(0, q, 16))))  # misses
+    return torch.from_numpy(keys).to(device), torch.from_numpy(queries).to(device)
+
+
 def routed_queries(store, ids: np.ndarray) -> torch.Tensor:
     routed = lookup_ops.route_queries_i64(store.num_partitions, ids)[0]
     return torch.from_numpy(routed).to(store.device)
@@ -712,6 +830,7 @@ def scan_merge(fs: FeatureStore, frame: Table, creation: int) -> dict:
     merge_ops.merge(start[0], *work, *routed, creation)
     if dev.type == "cuda":
         torch.cuda.synchronize()
+        merge_ops.check_error(dev)
     merge_s = time.perf_counter() - t1
     launches = read_counts()
     check(launches["merge_scan"] == (dev.type == "cuda")
@@ -1161,8 +1280,17 @@ def main() -> int:
     q = np.full((16, 512), -2, np.int64)  # routed: 256 hits, 128 misses, pads
     q[:, :256] = keys[:, ::1024].cpu().numpy()
     q[:, 256:384] = rng.integers(0, 2**62, (16, 128))
-    checks = {"online_lookup": [check_lookup(keys, torch.from_numpy(q).to(cuda),
-                                             "P=16 C=2^18 Q=512 synthetic")]}
+    checks = {"online_lookup": [
+        check_lookup(keys, torch.from_numpy(q).to(cuda), "P=16 C=2^18 Q=512 synthetic"),
+        check_lookup(*adversarial_lookup_case(rng, cuda, 16, 1 << 16, 512),
+                     "adversarial: queries -1, -2, INT64_MIN/MAX, duplicates; P=16 C=2^16 "
+                     "Q=512 (a cluster a partition)"),
+        check_lookup(*adversarial_lookup_case(rng, cuda, 300, 2000, 3000),
+                     "adversarial: P=300 C=2,000 Q=3,000 (a block a partition, two "
+                     "query chunks)"),
+        check_lookup(*adversarial_lookup_case(rng, cuda, 65_536, 64, 128),
+                     "adversarial: P=65,536 C=64 Q=128 (grid x past 65,535)"),
+    ]}
     n = 1 << 20
     vals = torch.from_numpy(rng.standard_normal((n, 4)).astype(np.float32) * 100).to(cuda)
     starts = torch.from_numpy(
@@ -1189,6 +1317,9 @@ def main() -> int:
                     "synthetic P=2 C=3001 D=5, edge timestamps, winner keys in global memory"),
     ]
     check(checks["merge_scan"][1]["winner_keys_in"] == "global", "the global-memory path ran")
+    checks["merge_scan"].append(check_merge(
+        *many_partitions_case(rng, cuda, 65_536, 32, 4, 400_000), 2**31,
+        "synthetic P=65,536 C=32 D=4, edge timestamps (grid x past 65,535)"))
 
     prof = phase_profile("cuda", PROFILE_ENTITIES, 1 << 20, PROFILE_PARTITIONS, 64)
     prof_row, pstore, scan = prof["row"], prof["store"].online, prof["scan"]
@@ -1201,15 +1332,25 @@ def main() -> int:
     main_merge = check_merge(scan["start"], scan["routed"], 20_000,
                              "profile table P=256 C=65,536 D=32, one 2^20-row frame's winners")
     checks["merge_scan"].append(main_merge)
+    work = [t.clone() for t in scan["start"][1:]]
+    check_sync_free("merge_scan",
+                    lambda: merge_ops.merge(scan["start"][0], *work, *scan["routed"], 20_000),
+                    "profile table P=256 C=65,536 D=32, one 2^20-row frame's winners")
+    merge_ops.check_error()
+    del work
     del prof, pstore, scan
     torch.cuda.empty_cache()
 
     txn = phase_txn("cuda", TXN_ENTITIES, TXN_EVENTS_PER_HOUR, TXN_HOURS, 16)
     ostore = txn["store"].online
-    main_lookup = check_lookup(
-        ostore.device_state("txn_rolling", 1).keys, routed_queries(ostore, txn["batch"]),
-        "main path: txn_rolling table, one 4,096-id GET")
+    main_keys = ostore.device_state("txn_rolling", 1).keys
+    main_queries = routed_queries(ostore, txn["batch"])
+    main_lookup = check_lookup(main_keys, main_queries,
+                               "main path: txn_rolling table, one 4,096-id GET")
     checks["online_lookup"].append(main_lookup)
+    check_sync_free("online_lookup", lambda: lookup_ops.lookup(main_keys, main_queries),
+                    "main path: txn_rolling table, one 4,096-id GET")
+    del main_keys, main_queries
     for window, tag in ((HOUR, "1h"), (6 * HOUR, "6h")):
         v, s = dsl_inputs(txn["source"], txn["mid"], window, cuda)
         checks["rolling_sum"].append(check_rolling(v, s, f"main path: one job's {tag} window"))
@@ -1277,7 +1418,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in checks[name]),
-            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "ms": main_row["ms"], "device_ms": main_row.get("device_ms"),
+            "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"], "shape": main_row["shape"],
         })

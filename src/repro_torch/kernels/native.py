@@ -3,9 +3,10 @@
 Every ``*.cu`` under ``repro_torch/csrc`` is compiled for Hopper (``sm_90a``)
 with ``nvcc`` into one shared library with a plain C interface, loaded with
 ``ctypes``.  The library is built at first use, into ``build/kernels/`` at
-the root of the checkout, and named by a hash of the sources and flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.  The
-objects compile in parallel, one ``nvcc`` per source.
+the root of the checkout, and named by a hash of the sources, the ``*.cuh``
+headers they include and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.  The objects compile in parallel, one
+``nvcc`` per source.
 
 Each C entry launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` raises on anything but 0.  A kernel whose
@@ -41,7 +42,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry -> argtypes; every entry returns a cudaError_t as int
 _SIGNATURES = {
-    # keys (P, C) i64, queries (P, Q) i64, out (P, Q) i32, P, C, Q, stream
+    # keys (P, C) i64, queries (P, Q) i64, out (P, Q) i32 (written whole),
+    # P, C, Q, stream
     "online_lookup_i64": (_P, _P, _P, _I, _I, _I, _P),
     # values (N, F) f32, starts (N,) i32, out (N, F) f32, scratch f64 and its
     # length, error word, N, F, stream
@@ -49,9 +51,10 @@ _SIGNATURES = {
     # table_ts (M,) i64, q_ts (B,) i64, q_lo/q_hi (B,) i32, idx (B,) i32,
     # valid (B,) bool, error word, M, B, stream
     "pit_search_i64": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _P),
-    # keys/ev/cr (P, C) i64, values (P, C, D) f32, sorted_q/order/q_ev (P, Q)
-    # i64, q_values (P, Q, D) f32, creation, P, C, Q, D, stream
-    "merge_scan_i64": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+    # keys/ev/cr (P, C) i64, values (P, C, D) f32, q_keys/q_ev (P, Q) i64,
+    # q_values (P, Q, D) f32, scratch i64 and its length, error word,
+    # creation, P, C, Q, D, stream
+    "merge_scan_i64": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _L, _I, _I, _I, _I, _P),
     # q (B, S, H, D), k/v (B, T, KV, D), out (B, S, H, D); B, S, T, H, KV, D,
     # dtype (0 f32, 1 bf16), causal, q strides (b, s, h), k/v strides (b, t, h),
     # stream
@@ -83,7 +86,8 @@ class LaunchCounter:
 
 class ErrorWord:
     """32-bit words in pinned host memory, one per device, that a kernel sets
-    when its input is wrong (``csrc/errors.cu``).  The kernel gets
+    when its input is wrong (``csrc/errors.cu``): bit i of a word stands for
+    ``messages[i]``.  The kernel gets
     ``ptr(device)``, its device's word, allocated at that device's first
     launch; the host reads the word from its own memory, so reading never
     synchronizes.
@@ -94,12 +98,13 @@ class ErrorWord:
     device's word before each launch, as a best-effort safety net for a
     report nobody read: what that read sees depends on which earlier kernels
     have finished by then, so the report may surface there or at a later
-    call.  ``raise_if_set`` raises ``ValueError(message)`` and clears the
-    word; a report that a kernel still running stores into a word already
-    set is merged into that one raise."""
+    call.  ``raise_if_set`` raises ``ValueError`` with the message of the
+    lowest bit set and clears the word; a report that a kernel still running
+    stores into a word already set is merged into that one raise."""
 
-    def __init__(self, message: str) -> None:
-        self.message = message
+    def __init__(self, *messages: str) -> None:
+        self.messages = messages
+        self.message = messages[0]
         self._ptrs: dict[torch.device, int] = {}
 
     def ptr(self, device: torch.device) -> int:
@@ -122,19 +127,24 @@ class ErrorWord:
             if device.type == "cuda" and device.index is None:
                 device = torch.device("cuda", torch.cuda.current_device())
             keys = [device]
-        found = False
+        found = 0
         for key in keys:
             if key in self._ptrs:
                 word = ctypes.c_int32.from_address(self._ptrs[key])
                 if word.value:
+                    found |= word.value
                     word.value = 0
-                    found = True
         if found:
-            raise ValueError(self.message)
+            low = (found & -found).bit_length() - 1
+            raise ValueError(self.messages[min(low, len(self.messages) - 1)])
 
 
 def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def _headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def nvcc() -> str:
@@ -150,7 +160,7 @@ def build() -> Path:
     the library's path.  Raises with the compiler's output on failure."""
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + _headers():
         h.update(s.name.encode())
         h.update(s.read_bytes())
     so = BUILD_DIR / f"repro_torch_kernels_{h.hexdigest()[:16]}.so"

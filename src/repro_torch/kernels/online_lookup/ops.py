@@ -9,11 +9,14 @@
     match the JAX store's.
   * ``lookup`` — the kernel wrapper: int64 keys (P, C) against routed int64
     queries (P, Q) -> (P, Q) int32 slots.  A CUDA tensor launches
-    ``csrc/online_lookup.cu``; a CPU tensor runs the plain version in
-    ``ref.py``.  With the key plane resident on the card, only the routed
-    queries go up and the slots come back: O(batch), never O(P*C).
+    ``csrc/online_lookup.cu`` once, into an output it does not zero, and
+    does not synchronize; a CPU tensor runs the plain version in ``ref.py``.
+    With the key plane resident on the card, only the routed queries go up
+    and the slots come back: O(batch), never O(P*C).
   * ``gather_rows`` — the resident GET's second half: feature rows and
     creation_ts at resolved (part, slot) coords, on the table's device.
+  * ``route_and_lookup`` — the flat numpy-in / numpy-out GET: route, look
+    up and gather on ``device``, un-permute.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import native
 from repro_torch.kernels.online_lookup.ref import lookup_ref
 
@@ -31,6 +35,7 @@ __all__ = [
     "lookup",
     "partition_of",
     "pow2_bucket",
+    "route_and_lookup",
     "route_flat",
     "route_queries",
     "route_queries_i64",
@@ -169,20 +174,26 @@ def lookup(keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
         return lookup_ref(keys, queries)
     if keys.device.type != "cuda":
         raise ValueError(f"lookup runs on cuda or cpu, not {keys.device}")
+    with torch.cuda.device(keys.device):
+        out = torch.empty(queries.shape, dtype=torch.int32, device=keys.device)
+        _launch(keys, queries, out)
+    return out
+
+
+def _launch(keys: torch.Tensor, queries: torch.Tensor, out: torch.Tensor) -> None:
+    """Launch the kernel on checked CUDA tensors into ``out`` (every entry
+    written) on the current stream, and count the launch.  No queries, no
+    launch: nothing is counted."""
     p, c = keys.shape
     q = queries.shape[1]
-    if p * q == 0:  # nothing to launch, nothing to count
-        return torch.empty((p, q), dtype=torch.int32, device=keys.device)
-    lib = native.library()
-    with torch.cuda.device(keys.device):
-        out = torch.zeros((p, q), dtype=torch.int32, device=keys.device)
-        stream = torch.cuda.current_stream(keys.device).cuda_stream
-        err = lib.online_lookup_i64(
-            keys.data_ptr(), queries.data_ptr(), out.data_ptr(), p, c, q, stream
-        )
+    if p * q == 0:
+        return
+    err = native.library().online_lookup_i64(
+        keys.data_ptr(), queries.data_ptr(), out.data_ptr(), p, c, q,
+        torch.cuda.current_stream().cuda_stream,
+    )
     native.check(err, "online_lookup_i64")
     counter.add()
-    return out
 
 
 def gather_rows(
@@ -197,3 +208,31 @@ def gather_rows(
     never needs the host timestamp mirror."""
     part, slot = part.long(), slot.long()
     return values[part, slot], creation_ts[part, slot]
+
+
+def route_and_lookup(
+    keys: np.ndarray,
+    values: np.ndarray,
+    ids: np.ndarray,
+    *,
+    device: str | torch.device = "cuda",
+) -> tuple[np.ndarray, np.ndarray]:
+    """Flat GET: ids (B,) int64 against a table of int64 keys (P, C) (-1
+    empty) and float32 values (P, C, D), looked up and gathered on
+    ``device``.
+
+    Returns (values (B, D) float32, zeros where missing; found (B,) bool),
+    in batch order."""
+    ids = np.asarray(ids, np.int64)
+    if len(ids) == 0:
+        return np.zeros((0, values.shape[-1]), np.float32), np.zeros((0,), bool)
+    dev = resolve_device(device)
+    up = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+    routed, part, pos = route_queries_i64(keys.shape[0], ids)
+    slots = lookup(up(keys, np.int64), up(routed, np.int64))
+    t_part = up(part, np.int64)
+    got = slots[t_part, up(pos, np.int64)].long()
+    found = got >= 0
+    rows = up(values, np.float32)[t_part, got.clamp_min(0)]
+    out = torch.where(found[:, None], rows, torch.zeros((), device=dev))
+    return out.cpu().numpy(), found.cpu().numpy()

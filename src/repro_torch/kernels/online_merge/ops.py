@@ -17,6 +17,15 @@
     version in ``ref.py``); ``route_and_merge`` is its numpy-in / numpy-out
     form with value semantics.
 
+The winner keys are data, so on the card they are checked by the kernel,
+not by a synchronizing reduction here: a batch with a key that is neither
+live nor ``PAD``, or with a live key twice in one partition, changes no slot
+and sets its device's word in ``errors``.  The reliable read is after a
+synchronization: ``route_and_merge`` after its download, ``check_error`` for
+a direct caller after ``torch.cuda.synchronize()``.  The next launch on the
+device reads the word too, as a best-effort net whose timing is not fixed
+(``native.ErrorWord``).  The CPU path checks eagerly and reads no word.
+
 The JAX package computes the first two in XLA, not Pallas; they stay plain
 PyTorch.
 """
@@ -32,7 +41,9 @@ from repro_torch.kernels.online_lookup.ops import pow2_bucket, route_flat
 from repro_torch.kernels.online_merge.ref import merge_scan_ref
 
 __all__ = [
+    "check_error",
     "counter",
+    "errors",
     "gather_slot_ts",
     "merge",
     "merge_at_slots",
@@ -41,8 +52,48 @@ __all__ = [
 ]
 
 PAD = -2  # routed pad key: matches neither a live key (>= 0) nor an empty slot (-1)
+BAD_KEY_MESSAGE = f"winner keys must be live (>= 0) or the pad {PAD}"
+DUPLICATE_MESSAGE = "winner keys must be distinct within a partition"
+# a partition's hash of winner keys is used in shared memory up to this size
+# (kMaxSharedHash in csrc/merge_scan.cu), and in the scratch past it
+HASH_SHARED_BYTES = 96 * 1024
+HASH_ENTRY_BYTES = 12  # an int64 key and an int32 owner
 
 counter = native.LaunchCounter("merge_scan")
+# bit 0: a bad winner key, bit 1: a duplicate, as the kernel reports them
+errors = native.ErrorWord(BAD_KEY_MESSAGE, DUPLICATE_MESSAGE)
+
+
+def check_error(device: torch.device | str | None = None) -> None:
+    """Raise ``ValueError`` if a merge on ``device`` (on any device where
+    None) since the last check was refused for its winner keys, and clear
+    the report.  Reliable after a synchronization of the device: it sees the
+    launches that finished before it."""
+    errors.raise_if_set(device)
+
+
+def hash_entries(q: int) -> int:
+    """Entries of one partition's hash of q winner keys: a power of two of
+    at least 2q (at most half full), and at least 4."""
+    return pow2_bucket(2 * q, floor=4)
+
+
+def hash_in_shared(q: int) -> bool:
+    """Whether the kernel keeps the hash of q winner keys in shared memory."""
+    return HASH_ENTRY_BYTES * hash_entries(q) <= HASH_SHARED_BYTES
+
+
+def filter_size(q: int) -> int:
+    """Bits of the filter in front of the hash of q winner keys: a power of
+    two of at least 64q, between 2**10 and 2**20."""
+    return min(pow2_bucket(64 * q, floor=1 << 10), 1 << 20)
+
+
+def scratch_len(p: int, q: int) -> int:
+    """int64 words of the kernel's scratch for P partitions of Q winners:
+    the verdict word (padded to 16 bytes), and every partition's hash and
+    filter, which the check kernel builds and the update kernel reads."""
+    return 2 + p * (HASH_ENTRY_BYTES * hash_entries(q) + filter_size(q) // 8) // 8
 
 
 def merge_at_slots(
@@ -118,22 +169,19 @@ def _check_merge_args(keys, event_ts, creation_ts, values, q_keys, q_ev, q_value
         raise ValueError("merge takes tensors on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("merge takes contiguous tensors")
-    if p > 65535 or max(c, q, d) >= 2**31:
-        raise ValueError("merge takes at most 65,535 partitions and int32-sized C, Q, D")
+    if max(p, c, q, d) >= 2**31:
+        raise ValueError("merge takes int32-sized P, C, Q and D")
 
 
 def _check_winner_keys(q_keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Sort each partition's winner keys; raise unless every key is a pad
-    or live (>= 0) and the live ones are distinct.  Returns (sorted, order)."""
+    """The CPU path's eager check: sort each partition's winner keys; raise
+    unless every key is a pad or live (>= 0) and the live ones are distinct.
+    Returns (sorted, order)."""
     sorted_q, order = torch.sort(q_keys, dim=1)
-    bad_key, dup = torch.stack([
-        ((q_keys < 0) & (q_keys != PAD)).any(),
-        ((sorted_q[:, 1:] == sorted_q[:, :-1]) & (sorted_q[:, 1:] >= 0)).any(),
-    ]).tolist()
-    if bad_key:
-        raise ValueError(f"winner keys must be live (>= 0) or the pad {PAD}")
-    if dup:
-        raise ValueError("winner keys must be distinct within a partition")
+    if bool(((q_keys < 0) & (q_keys != PAD)).any()):
+        raise ValueError(BAD_KEY_MESSAGE)
+    if bool(((sorted_q[:, 1:] == sorted_q[:, :-1]) & (sorted_q[:, 1:] >= 0)).any()):
+        raise ValueError(DUPLICATE_MESSAGE)
     return sorted_q, order
 
 
@@ -159,7 +207,10 @@ def merge(
     lexicographically greater than the slot's (event_ts, creation_ts).
     Callers routing fresh inserts this way stamp their slots with INT64_MIN
     timestamps first, so any real record wins them.  Runs where the tensors
-    lie: CUDA launches the kernel, CPU runs the plain version."""
+    lie: CUDA launches the kernel, CPU runs the plain version.  Bad winner
+    keys raise ``ValueError`` here on the CPU; on the card the batch changes
+    nothing and raises at a later read of ``errors`` (see the module's
+    docstring).  An empty table or batch checks nothing on the card."""
     _check_merge_args(keys, event_ts, creation_ts, values, q_keys, q_ev, q_values)
     if keys.device.type == "cpu":
         sorted_q, order = _check_winner_keys(q_keys)
@@ -168,26 +219,29 @@ def merge(
         return
     if keys.device.type != "cuda":
         raise ValueError(f"merge runs on cuda or cpu, not {keys.device}")
+    p, q = q_keys.shape
     with torch.cuda.device(keys.device):
-        sorted_q, order = _check_winner_keys(q_keys)
-        _launch(keys, event_ts, creation_ts, values, sorted_q, order, q_ev, q_values,
+        scratch = torch.empty(scratch_len(p, q), dtype=torch.int64, device=keys.device)
+        _launch(keys, event_ts, creation_ts, values, q_keys, q_ev, q_values, scratch,
                 int(batch_creation_ts))
 
 
-def _launch(keys, event_ts, creation_ts, values, sorted_q, order, q_ev, q_values,
+def _launch(keys, event_ts, creation_ts, values, q_keys, q_ev, q_values, scratch,
             creation: int) -> None:
-    """Launch the kernel on checked CUDA tensors, with each partition's
-    winner keys sorted (``sorted_q``, and ``order`` their columns in
-    ``q_keys``), on the current stream, and count the launch.  An empty
-    table or batch launches nothing and counts nothing."""
+    """Launch the kernel on checked CUDA tensors, with ``scratch``
+    (``scratch_len`` int64 words), on the current stream, and count the
+    launch; first raise an unread report of the device.  An empty table or
+    batch launches nothing and counts nothing."""
     p, c = keys.shape
-    q, d = sorted_q.shape[1], values.shape[2]
+    q, d = q_keys.shape[1], values.shape[2]
     if p * c * q == 0:
         return
+    errors.raise_if_set(keys.device)
     err = native.library().merge_scan_i64(
         keys.data_ptr(), event_ts.data_ptr(), creation_ts.data_ptr(), values.data_ptr(),
-        sorted_q.data_ptr(), order.data_ptr(), q_ev.data_ptr(), q_values.data_ptr(),
-        creation, p, c, q, d, torch.cuda.current_stream().cuda_stream,
+        q_keys.data_ptr(), q_ev.data_ptr(), q_values.data_ptr(), scratch.data_ptr(),
+        scratch.numel(), errors.ptr(keys.device), creation, p, c, q, d,
+        torch.cuda.current_stream().cuda_stream,
     )
     native.check(err, "merge_scan_i64")
     counter.add()
@@ -228,7 +282,8 @@ def route_and_merge(
     event_ts/creation_ts and f32 values (P, C, D), merged on ``device``.
 
     Returns new host-side (event_ts, creation_ts, values); the inputs are
-    left untouched."""
+    left untouched.  Bad winner ids raise ``ValueError`` (on the card after
+    the download, from ``errors``)."""
     ids = np.asarray(ids, np.int64)
     if len(ids) == 0:
         return event_ts.copy(), creation_ts.copy(), values.copy()
@@ -239,4 +294,7 @@ def route_and_merge(
     t_vals = up(values, np.float32)
     merge(up(keys, np.int64), t_ev, t_cr, t_vals, up(q_ids, np.int64), up(q_ev, np.int64),
           up(q_vals, np.float32), batch_creation_ts)
-    return t_ev.cpu().numpy(), t_cr.cpu().numpy(), t_vals.cpu().numpy()
+    out = t_ev.cpu().numpy(), t_cr.cpu().numpy(), t_vals.cpu().numpy()
+    if dev.type == "cuda":
+        check_error(dev)
+    return out

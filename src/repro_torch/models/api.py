@@ -4,8 +4,8 @@
 Everything downstream (steps, the serving driver, tests) talks to these
 functions.  Each one that allocates takes ``device=`` (default ``"cuda"``,
 resolved by ``device.resolve_device``: no card, no silent CPU).  The
-encoder/decoder assembly is not ported yet (ROADMAP §2.2): its entry points
-raise ``NotImplementedError``.
+encoder/decoder assembly is not ported yet (ROADMAP queue 1, item 4): its
+entry points raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -54,12 +54,16 @@ def decode_step(params: lm.LM, cache: dict, tokens_new, cfg: ModelConfig):
 
 def encode_memory(params, frames, cfg: ModelConfig):
     """Enc-dec only: run the encoder over (stub) frame embeddings."""
-    raise NotImplementedError("the encoder/decoder assembly is not ported yet (ROADMAP §2.2)")
+    raise NotImplementedError(
+        "the encoder/decoder assembly is not ported yet (ROADMAP queue 1, item 4)"
+    )
 
 
 def attach_memory(cache: dict, memory, params, cfg: ModelConfig) -> dict:
     """Enc-dec only: precompute cross-attention K/V into the decode cache."""
-    raise NotImplementedError("the encoder/decoder assembly is not ported yet (ROADMAP §2.2)")
+    raise NotImplementedError(
+        "the encoder/decoder assembly is not ported yet (ROADMAP queue 1, item 4)"
+    )
 
 
 def make_dummy_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0,

@@ -100,8 +100,11 @@ class ModelConfig:
     # -- attention implementation ------------------------------------------------------
     #: The same values as the JAX package's, so one config means one path in
     #: both.  In this port: "xla" — einsum attention in plain PyTorch.
-    #: "pallas_flash" — the hand-written CUDA kernel csrc/flash_attn.cu for
-    #: plain causal attention (its plain PyTorch version on CPU tensors).
+    #: "pallas_flash" — the hand-written CUDA kernels for plain causal
+    #: attention: bf16 at head dims 64/128/256 on csrc/flash_attn_tc.cu
+    #: (tensor cores), anything else on csrc/flash_attn.cu
+    #: (kernels/flash_attn/ops.py ``route``); the plain PyTorch version on
+    #: CPU tensors.
     #: Windowed/softcapped/cross/decode paths take the einsum path.
     attn_impl: str = "xla"
 

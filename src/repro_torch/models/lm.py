@@ -11,7 +11,8 @@ in serving, which runs no backward.  Local/global layer flags are plain
 bools per layer.
 
 MoE, MLA, SSM, hybrid, encoder/decoder, vision-prefix and MTP configs raise
-``NotImplementedError``: those families are not ported yet (ROADMAP §2.2).
+``NotImplementedError``: those families are not ported yet (ROADMAP queue 1,
+item 4).
 """
 
 from __future__ import annotations
@@ -45,8 +46,8 @@ def check_supported(cfg: ModelConfig) -> None:
     on = [f for f in _UNPORTED if getattr(cfg, f)]
     if on:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(on)} not ported yet (ROADMAP §2.2); the port "
-            "runs dense decoder-only configs"
+            f"{cfg.name}: {', '.join(on)} not ported yet (ROADMAP queue 1, item 4); "
+            "the port runs dense decoder-only configs"
         )
 
 

@@ -1,6 +1,9 @@
 """Port's resident Algorithm-2 merge (``merge_at_slots``, ``gather_slot_ts``)
 against the JAX package's, byte-identical on the same seeded inputs."""
 
+import ctypes
+import re
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -10,6 +13,7 @@ import numpy as np  # noqa: E402
 
 from repro.kernels.online_lookup.ops import combine_i64, split_i64  # noqa: E402
 from repro.kernels.online_merge import ops as jops  # noqa: E402
+from repro_torch.kernels import native  # noqa: E402
 from repro_torch.kernels.online_lookup.ops import partition_of  # noqa: E402
 from repro_torch.kernels.online_merge import ops as tops  # noqa: E402
 
@@ -258,21 +262,141 @@ def test_merge_validates_winner_keys():
     assert values.flatten().tolist() == [0.0, 1.0]
 
 
+def _fake_library(monkeypatch, **entries):
+    """A kernel library without a card: ``entries`` stand in for the C
+    entries, and the error word is a ctypes int the test owns."""
+    word = ctypes.c_int32(0)
+    lib = type("Lib", (), {"repro_error_word_alloc": staticmethod(lambda: ctypes.addressof(word)),
+                           **{k: staticmethod(v) for k, v in entries.items()}})
+    monkeypatch.setattr(tops.native, "library", lambda: lib)
+    monkeypatch.setattr(tops, "errors", native.ErrorWord(*tops.errors.messages))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: type("S", (), {"cuda_stream": 0}))
+    return word
+
+
+def _fake_launch(p, c, q, d=2):
+    """``_launch`` on CPU tensors of the given sizes (a fake library stands
+    in for the kernel)."""
+    table = torch.zeros((p, c), dtype=torch.int64)
+    batch = torch.zeros((p, q), dtype=torch.int64)
+    scratch = torch.empty(tops.scratch_len(p, q), dtype=torch.int64)
+    tops._launch(table, table, table, torch.zeros((p, c, d)), batch, batch,
+                 torch.zeros((p, q, d)), scratch, 7)
+    return scratch
+
+
 @pytest.mark.parametrize("p,c,q", [(2, 3, 4), (0, 3, 4), (2, 0, 4), (2, 3, 0)])
 def test_merge_launch_counts_only_a_launch(monkeypatch, p, c, q):
     """The launch counter moves where the kernel launches and nowhere else:
     an empty table or batch launches nothing and counts nothing."""
     calls = []
-    fake = type("Lib", (), {"merge_scan_i64": staticmethod(lambda *a: calls.append(a) or 0)})
-    monkeypatch.setattr(tops.native, "library", lambda: fake)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: type("S", (), {"cuda_stream": 0}))
-    table = torch.zeros((p, c), dtype=torch.int64)
-    batch = torch.zeros((p, q), dtype=torch.int64)
+    _fake_library(monkeypatch, merge_scan_i64=lambda *a: calls.append(a) or 0)
     before = tops.counter.launches
-    tops._launch(table, table, table, torch.zeros((p, c, 2)), batch, batch, batch,
-                 torch.zeros((p, q, 2)), 7)
+    _fake_launch(p, c, q)
     launched = p * c * q > 0
     assert len(calls) == launched and tops.counter.launches == before + launched
+
+
+def test_merge_entry_takes_the_error_word(monkeypatch):
+    """The C entry's signature carries the winners (no sorted copy), the
+    scratch and its length, and the error word's pointer; the launch passes
+    the word it reads and a scratch of ``scratch_len`` words."""
+    sig = native._SIGNATURES["merge_scan_i64"]
+    assert len(sig) == 16
+    assert sig[7] is ctypes.c_void_p and sig[8] is ctypes.c_longlong  # scratch, length
+    assert sig[9] is ctypes.c_void_p and sig[10] is ctypes.c_longlong  # word, creation
+    calls = []
+    word = _fake_library(monkeypatch, merge_scan_i64=lambda *a: calls.append(a) or 0)
+    scratch = _fake_launch(3, 5, 4, d=6)
+    (args,) = calls
+    assert len(args) == len(sig)
+    assert args[7] == scratch.data_ptr() and args[8] == scratch.numel() == tops.scratch_len(3, 4)
+    assert args[9] == tops.errors.ptr(torch.device("cpu")) == ctypes.addressof(word)
+    assert args[10:15] == (7, 3, 5, 4, 6)  # creation, P, C, Q, D
+
+
+@pytest.mark.parametrize("q", [1, 2048, 4096, 4097, 20_000, 70_000])
+def test_merge_scratch_holds_every_partitions_hash(q):
+    """The scratch holds the verdict word, padded to 16 bytes, and each
+    partition's hash (2q entries or more, and 4 or more, 12 bytes each) and
+    filter (64 bits a key or more, at most 2**20), every one 16-byte
+    aligned; up to 4,096 winners a partition the hash also fits in the 96 KiB
+    of shared memory the update kernel copies it into."""
+    entries, fbits = tops.hash_entries(q), tops.filter_size(q)
+    assert entries >= max(2 * q, 4) and entries & (entries - 1) == 0 and entries < 4 * q + 4
+    assert fbits & (fbits - 1) == 0 and 1 << 10 <= fbits <= 1 << 20
+    assert fbits >= min(64 * q, 1 << 20) and (fbits == 1 << 10 or fbits < 128 * q)
+    assert tops.hash_in_shared(q) == (q <= 4096)
+    assert (12 * entries + fbits // 8) % 16 == 0
+    assert tops.scratch_len(3, q) == 2 + 3 * (12 * entries + fbits // 8) // 8
+
+
+@pytest.mark.parametrize("word", [1, 2, 3])
+def test_merge_error_word_raises_at_check_and_the_next_call(monkeypatch, word):
+    """A refused batch (bit 0: a bad key, bit 1: a duplicate) raises the CPU
+    path's own message at ``check_error``, the bad key's where both are set,
+    or at the next launch if nobody read it; then the word is clear."""
+    def kernel(*args):
+        ctypes.c_int32.from_address(args[9]).value = word
+        return 0
+
+    _fake_library(monkeypatch, merge_scan_i64=kernel)
+    msg = tops.BAD_KEY_MESSAGE if word & 1 else tops.DUPLICATE_MESSAGE
+    _fake_launch(2, 3, 4)
+    with pytest.raises(ValueError, match=re.escape(msg)):
+        tops.check_error()
+    tops.check_error()  # cleared
+    _fake_launch(2, 3, 4)  # a report nobody read ...
+    with pytest.raises(ValueError, match=re.escape(msg)):  # ... raises at the next launch
+        _fake_launch(2, 3, 4)
+    tops.check_error()  # which did not launch, and cleared the word
+
+
+def _many_partitions(rng, p):
+    """P partitions of 2 slots: each of 3,000 random ids in slot 0 of its
+    hash partition (some partitions stay empty), random stamps, and winners
+    for 2/3 of the held ids plus ids the table does not hold."""
+    ids = np.unique(rng.integers(0, 2**40, 3000))
+    home = partition_of(ids, p)
+    _, first = np.unique(home, return_index=True)
+    held = ids[first]
+    keys = np.full((p, 2), -1, np.int64)
+    keys[home[first], 0] = held
+    ev = rng.integers(0, 4, (p, 2)).astype(np.int64)
+    cr = rng.integers(0, 4, (p, 2)).astype(np.int64)
+    values = rng.standard_normal((p, 2, 3)).astype(np.float32)
+    win = np.concatenate([held[: len(held) * 2 // 3], 2**41 + np.arange(50)])
+    q_ev = rng.integers(0, 4, len(win)).astype(np.int64)
+    q_vals = rng.standard_normal((len(win), 3)).astype(np.float32)
+    return keys, ev, cr, values, win, q_ev, q_vals
+
+
+def _numpy_merge(keys, ev, cr, values, win, q_ev, q_vals, creation):
+    ev, cr, values = ev.copy(), cr.copy(), values.copy()
+    for i, k in enumerate(win):
+        pp, cc = np.nonzero(keys == k)
+        take = (q_ev[i] > ev[pp, cc]) | ((q_ev[i] == ev[pp, cc]) & (creation > cr[pp, cc]))
+        pp, cc = pp[take], cc[take]
+        ev[pp, cc], cr[pp, cc], values[pp, cc] = q_ev[i], creation, q_vals[i]
+    return ev, cr, values
+
+
+def test_merge_takes_more_than_65535_partitions():
+    """``merge`` and ``route_and_merge`` take P = 65,537 (grid y stopped at
+    65,535 on the card), against a numpy expectation."""
+    p = 65_537
+    rng = np.random.default_rng(65537)
+    case = _many_partitions(rng, p)
+    want = _numpy_merge(*case, 2)
+    got = tops.route_and_merge(*case, 2, device="cpu")
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+    assert (got[0] != case[1]).any() and (got[0] == case[1])[case[0] >= 0].any()
+    routed = tops.route_winners(p, *case[4:])
+    table = [torch.from_numpy(a.copy()) for a in case[:4]]
+    tops.merge(*table, *map(torch.from_numpy, routed), 2)
+    for w, t in zip(want, table[1:]):
+        np.testing.assert_array_equal(t.numpy(), w)
 
 
 @pytest.fixture
@@ -299,3 +423,98 @@ def test_merge_scan_kernel_matches_plain_on_card(cuda_device):
     no_winners = (torch.zeros((8, 0), dtype=torch.int64, device=cuda_device),) * 2
     tops.merge(*on_card, *no_winners, torch.zeros((8, 0, 5), device=cuda_device), 2**31)
     assert tops.counter.launches == before + 1  # an empty batch launches nothing
+
+
+def _on_card(arrays, device):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,c,d,g", [(5, 1001, 3, 2000), (2, 3001, 4, 20_000)])
+def test_merge_scan_kernel_shared_and_global_hash_on_card(cuda_device, p, c, d, g):
+    """Byte-identical to the plain version with the winners' hash in shared
+    memory (Q = 512) and in the scratch (Q = 16,384), D odd and a multiple
+    of 4 (the 16-byte row copy)."""
+    rng = np.random.default_rng(p * c)
+    keys, ev, cr, values, ids, q_ev, vals = _scan_case(rng, p, c, d, g, boundary=True)
+    routed = tops.route_winners(p, ids, q_ev, vals)
+    assert tops.hash_in_shared(routed[0].shape[1]) == (g == 2000)
+    table = [torch.from_numpy(a.copy()) for a in (keys, ev, cr, values)]
+    on_card = [t.to(cuda_device) for t in table]
+    tops.merge(*on_card, *_on_card(routed, cuda_device), 2**31)
+    torch.cuda.synchronize()
+    tops.check_error()
+    tops.merge(*table, *map(torch.from_numpy, routed), 2**31)
+    for a, b in zip(on_card, table):
+        assert torch.equal(a.cpu(), b)
+    assert not torch.equal(table[1], torch.from_numpy(ev))  # the batch changed slots
+
+
+@pytest.mark.gpu
+def test_merge_scan_kernel_at_65536_partitions_on_card(cuda_device):
+    p = 65_536
+    case = _many_partitions(np.random.default_rng(4), p)
+    want = _numpy_merge(*case, 2)
+    table = _on_card(case[:4], cuda_device)
+    before = tops.counter.launches
+    tops.merge(*table, *_on_card(tops.route_winners(p, *case[4:]), cuda_device), 2)
+    torch.cuda.synchronize()
+    tops.check_error()
+    assert tops.counter.launches == before + 1
+    for w, t in zip(want, table[1:]):
+        np.testing.assert_array_equal(t.cpu().numpy(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,g,q", [(4, 1200, 512), (2, 18_000, 16_384)])
+def test_merge_scan_refused_batch_changes_nothing_on_card(cuda_device, p, g, q):
+    """A duplicate key, a bad key, or both in one batch: the wrapper returns
+    without raising, every tensor stays byte-identical, the CPU path's
+    message raises at ``check_error`` after a synchronization (the bad key's
+    where both), and the next good call succeeds."""
+    rng = np.random.default_rng(q)
+    keys, ev, cr, values, ids, q_ev, vals = _scan_case(rng, p, 700, 4, g, boundary=False)
+    good = tops.route_winners(p, ids, q_ev + 5, vals)
+    assert good[0].shape == (p, q)
+    table = _on_card((keys, ev, cr, values), cuda_device)
+    start = [t.clone() for t in table]
+    live = np.flatnonzero(good[0][0] >= 0)
+    for bad, msg in (("dup", tops.DUPLICATE_MESSAGE), ("neg", tops.BAD_KEY_MESSAGE),
+                     ("both", tops.BAD_KEY_MESSAGE)):
+        q_keys = good[0].copy()
+        if bad in ("dup", "both"):
+            q_keys[p - 1, 0] = q_keys[p - 1, 1] = 12345  # twice in the last partition
+        if bad in ("neg", "both"):
+            q_keys[0, live[0]] = -7
+        tops.merge(*table, *_on_card((q_keys, *good[1:]), cuda_device), 9)  # no raise
+        torch.cuda.synchronize()
+        for a, b in zip(table, start):
+            assert torch.equal(a, b), bad
+        with pytest.raises(ValueError, match=re.escape(msg)):
+            tops.check_error()
+    tops.merge(*table, *_on_card(good, cuda_device), 9)
+    torch.cuda.synchronize()
+    tops.check_error()
+    cpu = [t.cpu() for t in start]
+    tops.merge(*cpu, *map(torch.from_numpy, good), 9)
+    for a, b in zip(table, cpu):
+        assert torch.equal(a.cpu(), b)
+    assert not torch.equal(table[1], start[1])
+
+
+@pytest.mark.gpu
+def test_merge_does_not_synchronize_on_card(cuda_device):
+    rng = np.random.default_rng(8)
+    keys, ev, cr, values, ids, q_ev, vals = _scan_case(rng, 8, 3000, 5, 6000, boundary=True)
+    table = _on_card((keys, ev, cr, values), cuda_device)
+    routed = _on_card(tops.route_winners(8, ids, q_ev, vals), cuda_device)
+    tops.merge(*table, *routed, 2**31)  # the first call builds and allocates
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tops.merge(*table, *routed, 2**31 + 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    tops.check_error()
