@@ -36,25 +36,40 @@ port's paths on the card through the entry points a user calls:
      ``txn_rolling`` offline history through
      ``FeatureStore.get_offline_features``, held against the plain search
      on the card, the same call on the CPU and an independent numpy search;
-  6. ``flash_attn`` against its plain version at phi3-medium-14b's prefill
+  6. ``geo``: both store planes replicated across westus2, eastus and
+     westeurope (one-way links of 32, 70 and 40 ms, 1 Gbps).  The main
+     path's feature set homed in westus2 with replicas in the other two
+     (``GeoFeatureStore``, kernel engine): 12 hourly jobs, each drained;
+     replicas byte-identical to the home; 16 GETs from westeurope served by
+     its replica (one lookup launch each) and equal to the home's.  A
+     replica daemon child on the card takes the state over a socket and its
+     rebuild must equal the in-process replica; the home is lost, eastus is
+     promoted with the un-acked suffix replayed, and a 2**16-row training
+     join on the promoted offline plane equals the one before the failure;
+     the ex-home rejoins.  6 jobs over a seeded faulty channel converge
+     byte-identical to the fault-free run.  A ``MultiHomeGeoStore`` (16
+     shards, ``profile``'s 32 features at 2**22 entities, 6 frames of 2**20
+     rows entering at every region) converges, fails westeurope's ranges
+     over, converges again and answers GETs alike from every region;
+  7. ``flash_attn`` against its plain version at phi3-medium-14b's prefill
      shape (B=4, S=2,048, H=40, KV=10, D=128, bf16), a ragged float32 GQA
      shape, an MQA D=256 shape and a ragged bf16 D=128 shape, beside
      ``scaled_dot_product_attention``; each check asserts its route (bf16 at
      D 64/128/256 on the tensor cores, ``wgmma``; float32 on the CUDA cores);
-  7. ``lm_serve``: the ported LM request path (``launch/serve.py``) at
+  8. ``lm_serve``: the ported LM request path (``launch/serve.py``) at
      phi3-medium-14b's full width (40 layers, d_model 5,120, random bf16
      weights from a seed, 29.3 GB): 8 sessions' contexts fetched through the
      online store (the lookup kernel), a stepped prefill of the 32-token
      contexts, 16 greedy tokens; contexts equal to the offline latest,
      prompts equal to a CPU run of the serving plane;
-  8. ``lm_prefill``: ``make_prefill_step`` with ``attn_impl="pallas_flash"``
+  9. ``lm_prefill``: ``make_prefill_step`` with ``attn_impl="pallas_flash"``
      on the same model, on the served prompts (against the stepped prefill's
      logits) and on a 4 x 2,048 batch from a ``FeatureStoreLoader`` over the
      serving plane (against ``attn_impl="xla"``), 40 flash launches per
      forward, all on the tensor-core route;
-  9. the ``kernels`` line: launches, errors, times and bounds per kernel.
+  10. the ``kernels`` line: launches, errors, times and bounds per kernel.
 
-Each path (``scan_merge``, the main path, ``offline_retrieval``,
+Each path (``scan_merge``, the main path, ``offline_retrieval``, ``geo``,
 ``lm_serve``, ``lm_prefill``) runs with the launch counts zeroed just before
 it and read just after, and must have launched each kernel of its own path.
 
@@ -65,8 +80,11 @@ CUDA device the script exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -86,14 +104,20 @@ from repro_torch.core.assets import (  # noqa: E402
 )
 from repro_torch.core.dsl import DslTransform, RollingAgg, UDFTransform  # noqa: E402
 from repro_torch.core.featurestore import FeatureStore  # noqa: E402
+from repro_torch.core import wire as geo_wire  # noqa: E402
+from repro_torch.core.channel import FaultPlan, FaultyChannel  # noqa: E402
+from repro_torch.core.daemon import SocketChannel, spawn_replica_daemon  # noqa: E402
 from repro_torch.core.keys import encode_keys  # noqa: E402
 from repro_torch.core.merge_engine import plan_online_batch  # noqa: E402
+from repro_torch.core.multihome import MultiHomeGeoStore  # noqa: E402
 from repro_torch.core.pit import (  # noqa: E402
     _prepare_history,
     get_offline_features,
     pit_join_feature_set,
     search_inputs,
 )
+from repro_torch.core.regions import GeoTopology, Region  # noqa: E402
+from repro_torch.core.replication import DeliveryPolicy, GeoFeatureStore  # noqa: E402
 from repro_torch.core.table import Table  # noqa: E402
 from repro_torch.data.sources import SyntheticEventSource  # noqa: E402
 from repro_torch.kernels import native  # noqa: E402
@@ -925,19 +949,26 @@ def txn_aggs() -> list[RollingAgg]:
     return aggs
 
 
-def txn_store(device: str, n_entities: int, events_per_hour: int):
+def txn_parts(device: str, n_entities: int, events_per_hour: int):
+    """The main path's source, DSL transform and feature set."""
     source = SyntheticEventSource("events", seed=0, num_entities=n_entities,
                                   events_per_bucket=events_per_hour, bucket_ms=HOUR)
     transform = DslTransform("entity_id", "ts", txn_aggs(), device=device)
-    fs = FeatureStore("txn", device=device, merge_engine="kernel")
-    fs.register_source(source)
-    fs.create_feature_set(FeatureSetSpec(
+    spec = FeatureSetSpec(
         name="txn_rolling", version=1, entity=Entity("customer", ("entity_id",)),
         features=tuple(Feature(a.output) for a in txn_aggs()), source_name="events",
         transform=transform, timestamp_col="ts", source_lookback=6 * HOUR,
         materialization=MaterializationSettings(
             offline_enabled=True, online_enabled=True, schedule_interval=HOUR),
-    ))
+    )
+    return source, transform, spec
+
+
+def txn_store(device: str, n_entities: int, events_per_hour: int):
+    source, transform, spec = txn_parts(device, n_entities, events_per_hour)
+    fs = FeatureStore("txn", device=device, merge_engine="kernel")
+    fs.register_source(source)
+    fs.create_feature_set(spec)
     return fs, source, transform
 
 
@@ -1093,6 +1124,491 @@ def pit_main_inputs(history: Table, spine: Table, delay: int, device):
     up = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(device)
     return (up(h["event_ts"], np.int64), up(q_ts, np.int64), up(q_lo, np.int32),
             up(q_hi, np.int32), up(row_seg, np.int64), up(q_seg, np.int64))
+
+
+# -- the geo phase: both store planes replicated across three regions -----------
+GEO_REGIONS = ("westus2", "eastus", "westeurope")
+GEO_JOBS, GEO_CHAOS_JOBS = 12, 6
+GEO_SPINE_ROWS = 1 << 16
+GEO_DAEMON = "eastus-daemon"  # the out-of-process replica's name in the replica set
+MH_ENTITIES, MH_FRAME_ROWS, MH_FRAMES, MH_SHARDS = 1 << 22, 1 << 20, 6, 16
+# benchmarks/bench_geo_replication.py: CHAOS_RATES and its chaos delivery policy
+GEO_CHAOS_RATES = dict(drop_rate=0.10, dup_rate=0.05, reorder_rate=0.05, corrupt_rate=0.05,
+                       ack_loss_rate=0.03, spike_rate=0.02)
+GEO_CHAOS_POLICY = dict(suspect_after=2, dead_after=5, backoff_base=1, backoff_cap=4,
+                        probe_interval=2)
+
+
+def geo_topology() -> GeoTopology:
+    """The geo benchmark's three regions: one-way links of 32, 70 and 40 ms,
+    1 Gbps between regions."""
+    return GeoTopology(
+        regions={r: Region(r) for r in GEO_REGIONS}, local_latency_ms=1.0,
+        cross_region_latency_ms=60.0, cross_region_gbps=1.0,
+        link_latency_ms={("westus2", "eastus"): 32.0, ("westus2", "westeurope"): 70.0,
+                         ("eastus", "westeurope"): 40.0},
+    )
+
+
+def geo_txn_store(device: str, n_entities: int, events_per_hour: int,
+                  topology: GeoTopology | None = None, **kw) -> GeoFeatureStore:
+    """The main path's feature set, homed in westus2 and replicated, both
+    planes, to eastus and westeurope."""
+    source, _, spec = txn_parts(device, n_entities, events_per_hour)
+    g = GeoFeatureStore("geo", topology=topology or geo_topology(), home_region="westus2",
+                        replica_regions=GEO_REGIONS[1:], device=device,
+                        merge_engine="kernel", **kw)
+    g.register_source(source)
+    g.create_feature_set(spec)
+    return g
+
+
+class Spans:
+    """Host seconds and calls of named callables, each wrapped in place for
+    the ``with`` block and put back after it: the geo phase's time by layer."""
+
+    def __init__(self) -> None:
+        self.seconds: dict[str, float] = collections.defaultdict(float)
+        self.calls: collections.Counter = collections.Counter()
+        self._undo: list[tuple] = []
+
+    def wrap(self, name: str, owner, attr: str) -> None:
+        fn = getattr(owner, attr)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.add(name, time.perf_counter() - t0)
+
+        self._undo.append((owner, attr, vars(owner).get(attr), attr in vars(owner)))
+        setattr(owner, attr, timed)
+
+    def add(self, name: str, seconds: float) -> None:
+        self.seconds[name] += seconds
+        self.calls[name] += 1
+
+    def __enter__(self) -> "Spans":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for owner, attr, old, had in reversed(self._undo):
+            if had:
+                setattr(owner, attr, old)
+            else:
+                delattr(owner, attr)
+        self._undo.clear()
+
+    def row(self) -> dict:
+        return {k: {"s": v, "calls": self.calls[k]} for k, v in sorted(self.seconds.items())}
+
+
+def plane_state(online, offline, name: str) -> tuple[Table, Table]:
+    """One region's two planes: the online dump (sorted key index) and the
+    canonical offline history (sorted by the full record key)."""
+    return online.dump_all(name, 1), offline.canonical_history(name, 1)
+
+
+def check_same_state(want: tuple, got: tuple, what: str) -> None:
+    """Both planes byte-identical: every column of the online dump and of
+    the canonical offline history, dtype and bytes."""
+    for plane, a, b in zip(("online", "offline"), want, got):
+        check(sorted(a.names) == sorted(b.names) and len(a) == len(b),
+              f"{what}: {plane} columns and rows")
+        for c in a.names:
+            check(a[c].dtype == b[c].dtype and np.array_equal(a[c], b[c]),
+                  f"{what}: {plane} column {c} byte-identical")
+
+
+def converge(g: GeoFeatureStore, rounds: int) -> int:
+    """Drain until every replica's cursor is at the head and nothing is
+    evicted; the drains it took."""
+    rep = g.replicator
+    for n in range(1, rounds + 1):
+        g.drain()
+        if all(rep.log.pending_count(r) == 0 for r in rep.replica_regions()) and not g.evicted:
+            return n
+    raise RuntimeError(f"check failed: replicas converged within {rounds} drains")
+
+
+def geo_single_home(device: str, n_entities: int, events_per_hour: int, jobs: int,
+                    n_batches: int, snapshot_at: int, seed: int = 0) -> dict:
+    """Hourly jobs at the home, each followed by a drain to both replicas;
+    then geo-routed GETs from westeurope."""
+    g = geo_txn_store(device, n_entities, events_per_hour)
+    rep = g.replicator
+    replicas = GEO_REGIONS[1:]
+    applied = dict.fromkeys(replicas, 0)
+    snapshot = None
+    with Spans() as spans:
+        for r in replicas:
+            spans.wrap("replica_apply_online", rep.stores[r], "merge_reduced")
+            spans.wrap("replica_apply_offline", rep.offline_stores[r], "apply_chunks")
+        spans.wrap("log_append", rep, "_publish")
+        spans.wrap("wire_encode", geo_wire, "encode_run")
+        spans.wrap("wire_decode", geo_wire, "decode_frame")
+        for h in range(1, jobs + 1):
+            t0 = time.perf_counter()
+            ran = g.tick(now=h * HOUR)
+            t1 = time.perf_counter()
+            drained = g.drain()
+            spans.add("job", t1 - t0)
+            spans.add("drain", time.perf_counter() - t1)
+            check(ran["succeeded"] == 1 and ran["failed"] == 0, f"geo job {h} succeeded")
+            for r in replicas:
+                applied[r] += drained[r]["applied_rows"]
+            if h == snapshot_at:
+                snapshot = plane_state(g.fs.online, g.fs.offline, "txn_rolling")
+    if g.fs.device.type == "cuda":
+        torch.cuda.synchronize()
+    home = plane_state(g.fs.online, g.fs.offline, "txn_rolling")
+    for r in replicas:
+        check(g.lag(r).batches == 0, f"{r} drained")
+        check_same_state(home, plane_state(rep.stores[r], rep.offline_stores[r], "txn_rolling"),
+                         f"replica {r} == home")
+
+    rng = np.random.default_rng(seed)
+    batches = [rng.integers(0, int(1.1 * n_entities), GET_BATCH).astype(np.int64)
+               for _ in range(n_batches)]
+    before = read_counts()
+    get_ms, served = [], []
+    for ids in batches:
+        t0 = time.perf_counter()
+        served.append(g.get_online_features("txn_rolling", 1, [ids], consumer_region="westeurope"))
+        get_ms.append((time.perf_counter() - t0) * 1e3)
+    get_launches = {k: v - before[k] for k, v in read_counts().items()}
+    on_card = int(g.fs.device.type == "cuda")
+    check(get_launches["online_lookup"] == on_card * n_batches
+          and sum(get_launches.values()) == get_launches["online_lookup"],
+          "one lookup launch per replica GET, and nothing else")
+    for ids, (v, f, route) in zip(batches, served):
+        check(route == {"region": "westeurope", "modeled_ms": 1.0},
+              "the GET was served by the westeurope replica")
+        hv, hf, hroute = g.get_online_features("txn_rolling", 1, [ids], consumer_region="westus2")
+        check(hroute["region"] == "westus2" and np.array_equal(f, hf) and np.array_equal(v, hv),
+              "replica GET byte-identical to the home's")
+    # the replica's keys and one GET's routed queries, for the kernel check
+    replica = rep.stores["westeurope"]
+    lookup_inputs = (replica.device_state("txn_rolling", 1).keys.clone(),
+                     routed_queries(replica, batches[0]))
+    ship = {r: dataclasses.asdict(rep.shipped[r]) for r in replicas}
+    sp = spans.row()
+    apply_s = sum(sp[k]["s"] for k in ("replica_apply_online", "replica_apply_offline"))
+    row = {
+        "jobs": jobs, "entities": n_entities, "events_per_hour": events_per_hour,
+        "job_s": sp["job"]["s"], "drain_s": sp["drain"]["s"], "split": sp,
+        "shipped": ship, "wire_frames": sum(s["frames"] for s in ship.values()),
+        "modeled_wan_ms": {r: s["ms"] for r, s in ship.items()},
+        "replica_apply_rows": applied, "replica_apply_rows_per_s": sum(applied.values()) / apply_s,
+        "replica_get_p50_ms": float(np.percentile(get_ms, 50)),
+        "replica_get_p99_ms": float(np.percentile(get_ms, 99)),
+        "get_batches": n_batches, "get_launches": get_launches,
+        "found_frac": float(np.mean([f.mean() for _, f, _ in served])),
+        "replicas_equal_home": True,
+    }
+    return {"row": row, "store": g, "snapshot": snapshot, "lookup_inputs": lookup_inputs}
+
+
+def geo_daemon(g: GeoFeatureStore, hour: int) -> dict:
+    """One replica out of process: a daemon child on the store's device with
+    the kernel engine, attached with ``add_remote_replica``; the jobs so far
+    stream to it as delta-bootstrap chunks over the socket, one more job's
+    log batches are drained to it with the in-process replicas, and
+    ``_adopt_remote`` rebuilds its state in-process from its dump stream,
+    which must equal the in-process eastus replica."""
+    rep, home = g.replicator, g.fs.online
+    spec = g.registry.get_feature_set("txn_rolling", 1)
+    device = g.fs.device
+    t0 = time.perf_counter()
+    with spawn_replica_daemon(region="eastus", merge_engine="kernel", device=device,
+                              num_partitions=home.num_partitions,
+                              initial_capacity=home.initial_capacity,
+                              idle_timeout=600.0, startup_timeout=300.0) as handle:
+        spawn_s = time.perf_counter() - t0
+        hello = handle.control({"cmd": "hello"}, timeout=60.0)
+        check(hello is not None and hello["device"].startswith(device.type)
+              and hello["engine"] == "kernel", f"the daemon child runs on {device.type}")
+        ch = SocketChannel(handle.connect(timeout=60.0), src="westus2", dst="eastus",
+                           topology=g.topology)
+        rep.add_remote_replica(GEO_DAEMON, ch, offline=True)
+        t1 = time.perf_counter()
+        boot = rep.bootstrap_delta(GEO_DAEMON, spec)
+        boot_s = time.perf_counter() - t1
+        ran = g.tick(now=hour * HOUR)
+        t2 = time.perf_counter()
+        drained = g.drain()
+        drain_s = time.perf_counter() - t2
+        check(ran["succeeded"] == 1 and rep.lag_batches(GEO_DAEMON) == 0
+              and drained[GEO_DAEMON]["applied_batches"] > 0,
+              "the job's log batches drained to the daemon")
+        ledger = ch.ledger()
+        t3 = time.perf_counter()
+        rep._adopt_remote(GEO_DAEMON)
+        adopt_s = time.perf_counter() - t3
+        check_same_state(plane_state(rep.stores["eastus"], rep.offline_stores["eastus"],
+                                     "txn_rolling"),
+                         plane_state(rep.stores[GEO_DAEMON], rep.offline_stores[GEO_DAEMON],
+                                     "txn_rolling"),
+                         "the daemon's state == the in-process eastus replica")
+        ch.close()
+        pid = handle.proc.pid
+    check(handle.proc.poll() is not None, "the daemon child exited")
+    try:
+        os.kill(pid, 0)
+        left = True
+    except ProcessLookupError:
+        left = False
+    check(not left, "no daemon child is left")
+    return {"device": hello["device"], "spawn_s": spawn_s, "bootstrap_s": boot_s,
+            "bootstrap": boot, "drain_s": drain_s, "adopt_s": adopt_s,
+            "ledger": ledger, "shipped": dataclasses.asdict(rep.shipped[GEO_DAEMON]),
+            "daemon_equal_in_process": True, "child_left": left}
+
+
+def geo_failover(g: GeoFeatureStore, hour: int, n_entities: int, spine_rows: int,
+                 seed: int = 0) -> dict:
+    """One more job the replicas have not seen, then the home is lost: the
+    nearest in-sync replica is promoted with the un-acked suffix replayed,
+    a training read joins on the promoted offline plane, and the ex-home
+    rejoins through the delta bootstrap."""
+    spec_name = "txn_rolling"
+    ran = g.tick(now=hour * HOUR)
+    check(ran["succeeded"] == 1 and g.lag("eastus").batches > 0, "an un-drained suffix")
+    before = plane_state(g.fs.online, g.fs.offline, spec_name)
+    rng = np.random.default_rng(seed)
+    spine = Table({"entity_id": rng.integers(0, int(1.1 * n_entities), spine_rows),
+                   "ts": rng.integers(0, (hour + 1) * HOUR + 1, spine_rows)})
+    join_before = g.get_offline_features(spine, [(spec_name, 1)])
+    g.mark_down("westus2")
+    t0 = time.perf_counter()
+    info = g.failover()
+    replay_s = time.perf_counter() - t0
+    check(info is not None and info["promoted"] == "eastus" and info["replayed_batches"] > 0,
+          "eastus promoted with the suffix replayed")
+    check(g.fs.online is g.replicator.stores["eastus"], "writes re-pointed at eastus")
+    check_same_state(before, plane_state(g.fs.online, g.fs.offline, spec_name),
+                     "the promoted stores == the lost home")
+    per_call = int(g.fs.device.type == "cuda")
+    pit0 = pit_ops.counter.launches
+    t1 = time.perf_counter()
+    join_after = g.get_offline_features(spine, [(spec_name, 1)])
+    join_s = time.perf_counter() - t1
+    check(pit_ops.counter.launches == pit0 + per_call, "the promoted plane's join ran pit_search")
+    for c in join_before.columns:
+        check(np.array_equal(join_before[c], join_after[c]),
+              f"offline join column {c}: promoted == before the failure")
+    g.mark_up("westus2")
+    t2 = time.perf_counter()
+    back = g.rejoin("westus2")
+    rejoin_s = time.perf_counter() - t2
+    rounds = converge(g, 8)
+    home = plane_state(g.fs.online, g.fs.offline, spec_name)
+    for r in g.replicator.replica_regions():
+        check_same_state(home, plane_state(g.replicator.stores[r],
+                                           g.replicator.offline_stores[r], spec_name),
+                         f"after rejoin: {r} == the new home")
+    return {"promoted": info["promoted"], "replayed_batches": info["replayed_batches"],
+            "replayed_rows": info["replayed_rows"], "replay_ms": replay_s * 1e3,
+            "replay_rows_per_s": info["replayed_rows"] / replay_s,
+            "spine_rows": spine_rows, "join_s": join_s,
+            "found_frac": float(join_after[f"{spec_name}:v1:__found__"].mean()),
+            "rejoin_s": rejoin_s, "bootstrap_chunks": back["chunks"],
+            "bootstrap_rows": {"online": back["online_rows"], "offline": back["offline_rows"]},
+            "converge_drains": rounds, "promoted_equal_lost_home": True,
+            "join_equal_before": True}
+
+
+def geo_chaos(device: str, n_entities: int, events_per_hour: int, jobs: int,
+              reference: tuple, seed: int = 8) -> dict:
+    """The same jobs over a seeded faulty channel: drops, duplicates,
+    reorders, corruption, lost acks and latency spikes at the geo
+    benchmark's rates; the replicas converge byte-identical to a fault-free
+    run of the same jobs."""
+    topo = geo_topology()
+    channel = FaultyChannel(FaultPlan(seed=seed, **GEO_CHAOS_RATES), topo)
+    g = geo_txn_store(device, n_entities, events_per_hour, topology=topo, channel=channel,
+                      delivery_policy=DeliveryPolicy(**GEO_CHAOS_POLICY))
+    for h in range(1, jobs + 1):
+        ran = g.tick(now=h * HOUR)
+        check(ran["succeeded"] == 1, f"chaos job {h} succeeded")
+        g.drain()
+    rounds = converge(g, 300)
+    check_same_state(reference, plane_state(g.fs.online, g.fs.offline, "txn_rolling"),
+                     "chaos home == the fault-free run's home")
+    for r in GEO_REGIONS[1:]:
+        check_same_state(reference, plane_state(g.replicator.stores[r],
+                                                g.replicator.offline_stores[r], "txn_rolling"),
+                         f"chaos replica {r} == the fault-free run")
+    states = g.replicator.delivery
+    totals = {k: sum(getattr(st, k) for st in states.values())
+              for k in ("retries", "timeouts", "corrupt_frames", "redelivered_batches")}
+    check(sum(v for k, v in channel.counts.items() if k != "transmits") > 0,
+          "the schedule injected faults")
+    return {"seed": seed, "rates": GEO_CHAOS_RATES, "jobs": jobs,
+            "drain_rounds": jobs + rounds, "converge_drains": rounds, **totals,
+            "channel_counts": dict(channel.counts),
+            "transitions": {r: [list(t) for t in st.transitions] for r, st in states.items()},
+            "equal_fault_free": True}
+
+
+def mh_spec() -> FeatureSetSpec:
+    """``profile``'s schema (32 float32 features) with both planes on."""
+    return FeatureSetSpec(
+        name="profile", version=1, entity=Entity("user", ("entity_id",)),
+        features=tuple(Feature(f"f{i}") for i in range(PROFILE_FEATURES)),
+        source_name="profile_src",
+        transform=UDFTransform(lambda df, ctx: df, name="identity"),
+        materialization=MaterializationSettings(offline_enabled=True, online_enabled=True),
+    )
+
+
+def mh_frames(n_entities: int, frame_rows: int, n_frames: int, seed: int):
+    """Frames of inserts (every id once, in random order) until each id is
+    written, then frames of random ids with event_ts below, above or equal
+    to the inserted one; frame k enters at region k mod 3."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n_entities).astype(np.int64)
+    ev0 = rng.integers(1_000_000, 2_000_000, n_entities).astype(np.int64)
+    for k in range(n_frames):
+        if (k + 1) * frame_rows <= n_entities:
+            ids = perm[k * frame_rows:(k + 1) * frame_rows]
+            ev = ev0[ids]
+        else:
+            ids = rng.integers(0, n_entities, frame_rows).astype(np.int64)
+            ev = ev0[ids] + rng.integers(-50, 50, frame_rows)
+        cols = {"entity_id": ids, "ts": ev}
+        for i in range(PROFILE_FEATURES):
+            cols[f"f{i}"] = rng.standard_normal(frame_rows).astype(np.float32)
+        # creation_ts past every event_ts, as the offline plane requires
+        yield Table(cols), 3_000_000 + k, GEO_REGIONS[k % len(GEO_REGIONS)]
+
+
+def check_mesh(mh: MultiHomeGeoStore, what: str) -> None:
+    regions = mh.regions()
+    first = plane_state(mh.online[regions[0]], mh.offline[regions[0]], "profile")
+    for r in regions[1:]:
+        check_same_state(first, plane_state(mh.online[r], mh.offline[r], "profile"),
+                         f"{what}: {r} == {regions[0]}")
+
+
+def geo_multihome(device: str, n_entities: int, frame_rows: int, n_frames: int,
+                  n_shards: int, n_batches: int, seed: int = 0) -> dict:
+    """An active-active mesh over the three regions: writes enter anywhere
+    and split by owning shard; the mesh converges, loses westeurope's
+    ranges to failover, converges again, and answers GETs from every
+    region alike."""
+    mh = MultiHomeGeoStore("mh", topology=geo_topology(), regions=list(GEO_REGIONS),
+                           num_shards=n_shards, device=device, merge_engine="kernel",
+                           online_partitions=PROFILE_PARTITIONS)
+    mh.create_feature_set(mh_spec())
+    owners = np.asarray(mh.shard_map.owners)
+    forwarded = 0
+    with Spans() as spans:
+        for r in GEO_REGIONS:
+            spans.wrap("home_merge_online", mh.online[r], "merge")
+            spans.wrap("home_merge_offline", mh.offline[r], "merge_with_stats")
+            spans.wrap("replica_apply_online", mh.online[r], "merge_reduced")
+            spans.wrap("replica_apply_offline", mh.offline[r], "apply_chunks")
+            spans.wrap("log_append", mh.replicators[r], "_publish")
+        spans.wrap("wire_encode", geo_wire, "encode_run")
+        spans.wrap("wire_decode", geo_wire, "decode_frame")
+        t0 = time.perf_counter()
+        for frame, cr, region in mh_frames(n_entities, frame_rows, n_frames, seed):
+            keys = encode_keys([frame["entity_id"]])
+            foreign = int((owners[mh.shard_map.shard_of(keys)] != region).sum())
+            info = mh.write_batch("profile", 1, frame, region=region, creation_ts=cr)
+            check(info["forwarded_rows"] == foreign
+                  and sum(info["slices"].values()) == len(frame),
+                  "each write splits by the shard map")
+            forwarded += foreign
+        write_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        rounds = mh.converge()
+        converge_s = time.perf_counter() - t1
+    check(mh.pending_batches() == 0, "the mesh converged")
+    check_mesh(mh, "converged mesh")
+    wl = dict(mh.write_log)
+    check(wl["rows"] == n_frames * frame_rows and wl["forwarded_rows"] == forwarded
+          and wl["local_rows"] == wl["rows"] - forwarded,
+          "the write log's forwarded rows match the shard map")
+    lost = mh.shard_map.owned_shards("westeurope")
+    mh.mark_down("westeurope")
+    t2 = time.perf_counter()
+    info = mh.failover()
+    failover_s = time.perf_counter() - t2
+    check(info is not None and info["shards"] == lost, "westeurope's ranges failed over")
+    rounds_after = mh.converge()
+    check_mesh(mh, "after failover")
+    rng = np.random.default_rng(seed + 1)
+    on_card = int(mh.online[mh.regions()[0]].device.type == "cuda")
+    get_ms, legs = [], set()
+    for _ in range(n_batches):
+        ids = rng.integers(0, n_entities, GET_BATCH).astype(np.int64)
+        answers = []
+        for consumer in GEO_REGIONS:
+            before = lookup_ops.counter.launches
+            t3 = time.perf_counter()
+            v, f, route = mh.get_online_features("profile", 1, [ids], consumer_region=consumer)
+            get_ms.append((time.perf_counter() - t3) * 1e3)
+            n_legs = len(route["per_range"])
+            legs.add(n_legs)
+            check(lookup_ops.counter.launches - before == on_card * n_legs,
+                  "one lookup launch per key range the GET reads")
+            answers.append((v, f))
+        check(answers[0][1].all(), "every id is found")
+        for v, f in answers[1:]:
+            check(np.array_equal(v, answers[0][0]) and np.array_equal(f, answers[0][1]),
+                  "multi-home GETs equal from every region")
+    return {"entities": n_entities, "features": PROFILE_FEATURES, "shards": n_shards,
+            "frames": n_frames, "frame_rows": frame_rows, "write_s": write_s,
+            "converge_s": converge_s, "converge_drains": rounds, "split": spans.row(),
+            "shipped": {h: {r: dataclasses.asdict(led) for r, led in rep.shipped.items()}
+                        for h, rep in mh.replicators.items()},
+            "write_log": wl,
+            "forwarded_frac": forwarded / wl["rows"], "failover_shards": lost,
+            "failover_promoted": info["promoted"], "failover_s": failover_s,
+            "converge_drains_after_failover": rounds_after,
+            "get_p50_ms": float(np.percentile(get_ms, 50)),
+            "get_p99_ms": float(np.percentile(get_ms, 99)),
+            "gets": len(get_ms), "lookup_launches_per_get": sorted(legs),
+            "regions_equal": True}
+
+
+def phase_geo(device: str, n_entities: int, events_per_hour: int, jobs: int, chaos_jobs: int,
+              n_batches: int, spine_rows: int, mh_entities: int, mh_frame_rows: int,
+              mh_frames_n: int, mh_shards: int) -> dict:
+    """Geo-replication of both planes on the port: single home with two
+    replicas, a daemon replica, failover and rejoin, chaos, multi-home.
+    Each step prints its own line as it ends; the phase's line sums up."""
+    t0 = time.perf_counter()
+    reset_counts()
+    seconds = {}
+
+    def step(name: str, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        emit({"phase": f"geo.{name}", **(out["row"] if "row" in out else out),
+              "seconds": seconds[name]})
+        return out
+
+    single = step("single_home", geo_single_home, device, n_entities, events_per_hour, jobs,
+                  n_batches, chaos_jobs)
+    g = single.pop("store")
+    step("daemon", geo_daemon, g, jobs + 1)
+    step("failover", geo_failover, g, jobs + 2, n_entities, spine_rows)
+    del g
+    step("chaos", geo_chaos, device, n_entities, events_per_hour, chaos_jobs,
+         single.pop("snapshot"))
+    step("multihome", geo_multihome, device, mh_entities, mh_frame_rows, mh_frames_n,
+         mh_shards, n_batches)
+    launches = read_counts()
+    row = {"phase": "geo", "device": device, "regions": list(GEO_REGIONS),
+           "step_seconds": seconds, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    return {"row": row, "lookup_inputs": single["lookup_inputs"]}
 
 
 # -- phases 6-7: the LM serving path ------------------------------------------------
@@ -1379,6 +1895,18 @@ def main() -> int:
     del txn, ostore, off
     torch.cuda.empty_cache()
 
+    geo = phase_geo("cuda", TXN_ENTITIES, TXN_EVENTS_PER_HOUR, GEO_JOBS, GEO_CHAOS_JOBS, 16,
+                    GEO_SPINE_ROWS, MH_ENTITIES, MH_FRAME_ROWS, MH_FRAMES, MH_SHARDS)
+    geo_launches = geo["row"]["launches"]
+    check(all(geo_launches[k] > 0 for k in ("online_lookup", "rolling_sum", "pit_search")),
+          "the geo path launched the GET, the DSL and the as-of search kernels")
+    checks["online_lookup"].append(check_lookup(
+        *geo["lookup_inputs"], "geo: westeurope replica table, one 4,096-id GET"))
+    geo_s = geo["row"]["seconds"]
+    del geo
+    gc.collect()  # the geo stores hold their replicators in reference cycles
+    torch.cuda.empty_cache()
+
     checks["flash_attn"] = [
         check_flash(PREFILL_BATCH, PREFILL_SEQ, 40, 10, 128, torch.bfloat16, "wgmma",
                     "main path: B=4 S=T=2,048 H=40 KV=10 D=128 bf16 (phi3-medium-14b)", rng),
@@ -1425,7 +1953,7 @@ def main() -> int:
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     emit({"card": card, "get_batch": GET_BATCH, "get_p50_ms": prof_row["get_p50_ms"],
-          "get_p99_ms": prof_row["get_p99_ms"], "lm": lm_row,
+          "get_p99_ms": prof_row["get_p99_ms"], "lm": lm_row, "geo_s": geo_s,
           "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

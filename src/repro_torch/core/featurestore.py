@@ -2,11 +2,9 @@
 
 Wires every subsystem together behind the operations the paper lists:
 feature store management, asset management, feature engineering (scheduled +
-backfill materialization, online retrieval), monitoring/lineage, and
-geo-distributed placement.
-
-Not ported yet: the replication surface (``lag``, ``drain``, ``failover``,
-``rejoin``, ``attach_replication``).
+backfill materialization, offline PIT retrieval, online retrieval),
+monitoring/lineage, and geo-distributed access.  This is also the object the
+serving launcher consumes as its data plane.
 """
 
 from __future__ import annotations
@@ -85,6 +83,8 @@ class FeatureStore:
         # The default config is a pure passthrough (no cache, no admission
         # control) so a plain store keeps exact OnlineStore.lookup semantics;
         # pass a ServingConfig to turn on micro-batching/caching/shedding.
+        # Binding through a callable makes failover re-pointing self.online
+        # at a promoted replica transparent to the front.
         self.serving = ServingFront(
             lambda: self.online,
             config=serving or ServingConfig(),
@@ -92,6 +92,9 @@ class FeatureStore:
             monitor=self.monitor,
         )
         self._sources: dict[str, SourceProtocol] = {}
+        # set by attach_replication when a GeoReplicator streams this store's
+        # online merges cross-region (core/replication.py)
+        self.replicator = None
         self.device = self.online.device
 
         from repro_torch.runtime.supervisor import Supervisor  # avoid cycle
@@ -189,6 +192,31 @@ class FeatureStore:
             out["online"] = self.online.merge(spec, frame, creation)
         return out
 
+    # -- facade degenerates (StoreFacade surface on a single-region store) ------
+    def lag(self, region: str):
+        """Replication lag toward ``region`` — all-zeros ``LagStats``
+        unless a GeoReplicator is attached."""
+        if self.replicator is not None:
+            return self.replicator.lag(region)
+        from repro_torch.core.replication import LagStats  # import cycle: late
+
+        return LagStats()
+
+    def drain(self, region: Optional[str] = None) -> dict:
+        if self.replicator is not None:
+            return self.replicator.drain(region)
+        return {}
+
+    def failover(self, region: Optional[str] = None):
+        """A single-region store has nothing to promote — always None."""
+        return None
+
+    def rejoin(self, region: str, **kwargs) -> dict:
+        raise ValueError(
+            "single-region FeatureStore has no replica set to rejoin; "
+            "use GeoFeatureStore/MultiHomeGeoStore"
+        )
+
     def get_offline_features(
         self,
         spine: Table,
@@ -264,6 +292,13 @@ class FeatureStore:
             refs.extend(spec.full_feature_names())
         self.lineage.register_model(model, refs)
 
+    # -- geo-replication ---------------------------------------------------------
+    def attach_replication(self, replicator) -> None:
+        """Hook a GeoReplicator up to monitoring: per-replica lag/staleness
+        gauges refresh alongside the §2.1 staleness SLA metric.  The
+        replicator itself subscribes to ``online.merge_listeners``."""
+        self.replicator = replicator
+
     # -- internals ------------------------------------------------------------------
     def _refresh_staleness(self) -> None:
         now = self.clock()
@@ -274,6 +309,11 @@ class FeatureStore:
         # transfer regression on the serving path shows up in monitoring
         for k, v in self.online.transfer_stats().items():
             self.monitor.system.set_gauge(f"online_store/{k}", v)
+        if self.replicator is not None:
+            for region in self.replicator.replica_regions():
+                self.monitor.record_replication_lag(
+                    region, self.replicator.lag(region)
+                )
 
     # -- state checkpoint (resume without data loss) ----------------------------------
     def scheduler_state(self) -> str:

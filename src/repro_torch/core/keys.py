@@ -83,21 +83,22 @@ def encode_full_keys(ids: np.ndarray, event_ts: np.ndarray, creation_ts) -> np.n
     """Mix the offline store's FULL record key (id, event_ts, creation_ts)
     into one int64 — the §4.5 idempotence check key.
 
-    Same splitmix64 composition (and the same documented ~2^-64 collision
-    assumption) as composite entity keys above; collapsing the triple to a
+    Each field folds into its own splitmix64 round,
+    ``mix(mix(mix(id) ^ event_ts) ^ creation_ts)``: a round is a bijection
+    of its input, so two distinct triples collide only when one
+    pseudo-random 64-bit mix lands on one given value, the same documented
+    ~2^-64 per pair as composite entity keys; collapsing the triple to a
     fixed-width integer is what lets full-key dedup run as a single sorted
-    int64 ``searchsorted`` instead of tuple-set membership.
+    int64 ``searchsorted`` instead of tuple-set membership.  Folding two raw
+    fields into one round (``mix(id ^ (event_ts << 1))``) would not keep
+    that bound: small ids and timestamps then collide by their structure
+    (``id ^ (ev << 1)`` repeats across distinct pairs), and a collision
+    drops a distinct record as a duplicate.
     """
     with np.errstate(over="ignore"):
-        ev = np.asarray(event_ts, np.int64).view(np.uint64)
-        cr = np.asarray(creation_ts, np.int64).view(np.uint64)
-        # two mix rounds: ids and event_ts are decorrelated by the first,
-        # creation_ts (constant per batch) folds into the second — one
-        # fewer full-array pass than mixing each field separately
-        h = _splitmix64(
-            np.asarray(ids, np.int64).view(np.uint64) ^ (ev << np.uint64(1))
-        )
-        h = _splitmix64(h ^ ev ^ cr)
+        h = _splitmix64(np.asarray(ids, np.int64).view(np.uint64))
+        h = _splitmix64(h ^ np.asarray(event_ts, np.int64).view(np.uint64))
+        h = _splitmix64(h ^ np.asarray(creation_ts, np.int64).view(np.uint64))
     # non-negative so signed and unsigned sort orders coincide (radix sort)
     return (h >> np.uint64(1)).view(np.int64)
 

@@ -13,6 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import numpy as np  # noqa: E402
+
 ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = r"""
@@ -50,6 +52,9 @@ def test_port_imports_without_jax_or_repro():
         "repro_torch.models.lm", "repro_torch.models.attention",
         "repro_torch.kernels.flash_attn.ops", "repro_torch.launch.serve",
         "repro_torch.data.loader",
+        "repro_torch.core.channel", "repro_torch.core.wire",
+        "repro_torch.core.replication", "repro_torch.core.facade",
+        "repro_torch.core.multihome", "repro_torch.core.daemon",
     }
     assert expected <= set(res["modules"])
 
@@ -99,3 +104,55 @@ def test_chip_smoke_refuses_without_card(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the replica's GET runs the lookup kernel")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_geo_drain_and_replica_get_on_card(cuda_device):
+    """A small GeoFeatureStore on the card: two write_batch frames drained to
+    one replica, whose dump equals the home's; a GET routed to the replica
+    launches the lookup kernel once and answers as the home does."""
+    from repro_torch.core.assets import (
+        Entity, Feature, FeatureSetSpec, MaterializationSettings)
+    from repro_torch.core.dsl import UDFTransform
+    from repro_torch.core.regions import GeoTopology, Region
+    from repro_torch.core.replication import GeoFeatureStore
+    from repro_torch.core.table import Table
+    from repro_torch.data.sources import SyntheticEventSource
+    from repro_torch.kernels.online_lookup import ops as lookup_ops
+
+    topo = GeoTopology(regions={"home": Region("home"), "near": Region("near")},
+                       link_latency_ms={("home", "near"): 30.0})
+    g = GeoFeatureStore("geo", topology=topo, home_region="home",
+                        replica_regions=("near",), device=cuda_device,
+                        merge_engine="kernel", online_partitions=4)
+    g.register_source(SyntheticEventSource("src"))
+    g.create_feature_set(FeatureSetSpec(
+        name="fs", version=1, entity=Entity("cust", ("entity_id",)),
+        features=(Feature("f0"), Feature("f1")), source_name="src",
+        transform=UDFTransform(lambda df, ctx: df, name="id"),
+        materialization=MaterializationSettings(True, True)))
+    rng = np.random.default_rng(0)
+    for cr in (10**7, 10**7 + 1):
+        g.write_batch("fs", 1, Table({
+            "entity_id": rng.integers(0, 500, 800).astype(np.int64),
+            "ts": rng.integers(0, 10**6, 800).astype(np.int64),
+            "f0": rng.random(800).astype(np.float32),
+            "f1": rng.random(800).astype(np.float32)}), creation_ts=cr)
+    g.drain()
+    home, near = g.fs.online.dump_all("fs", 1), g.replicator.stores["near"].dump_all("fs", 1)
+    for c in home.names:
+        np.testing.assert_array_equal(near[c], home[c], err_msg=c)
+    ids = [np.arange(600, dtype=np.int64)]
+    before = lookup_ops.counter.launches
+    vals, found, route = g.get_online_features("fs", 1, ids, consumer_region="near")
+    assert route["region"] == "near" and lookup_ops.counter.launches == before + 1
+    hv, hf, _ = g.get_online_features("fs", 1, ids, consumer_region="home", use_kernel=False)
+    np.testing.assert_array_equal(found, hf)
+    np.testing.assert_array_equal(vals, hv)
