@@ -12,8 +12,11 @@ device's busy share of that window and its kernel time by name.  Last, the
 LM serving slice at phi3-medium-14b's full width (seeded bf16 weights):
 8 decode steps of 8 requests and one flash prefill forward at 4 x 2,048,
 each under ``torch.profiler``, with the host time per step, the device's
-busy share and its time by kernel.  The untraced times are those
-``chip_smoke.py`` prints.  Exits non-zero without a CUDA device.
+busy share and its time by kernel.  Then the train step at gemma-2b's full
+width (seeded bf16 weights, ``attn_impl="pallas_flash"``, a 4 x 2,048
+batch): after one warm-up step, its forward + backward and its AdamW update
+each under ``torch.profiler`` (``lm_train_trace``).  The untraced times are
+those ``chip_smoke.py`` prints.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -127,6 +130,30 @@ def lm_traces(card: str, steps: int = 8) -> None:
                        flash_device_ms=flash_ms, flash_share_of_device=flash_ms / busy)})
 
 
+def train_trace(card: str) -> None:
+    """One train step of ``chip_smoke.py``'s ``lm_train`` shape, split into
+    its forward + backward (``loss_and_grads``) and its optimizer update,
+    each traced on its own after a warm-up step."""
+    cfg = dataclasses.replace(cs.get_config(cs.TRAIN_ARCH), attn_impl="pallas_flash")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    optimizer = cs.lm_train.train_optimizer(cs.TRAIN_LR, cs.TRAIN_STEPS)
+    state = cs.TrainState.create(cs.api.init_params(0, cfg, device=dev), optimizer)
+    batch = cs.api.make_dummy_batch(cfg, cs.TRAIN_BATCH, cs.TRAIN_SEQ, seed=3, device=dev)
+    state, _ = cs.make_train_step(cfg, optimizer)(state, batch)  # warm-up
+    grads = {}
+    wall, ops = traced(lambda: grads.update(cs.loss_and_grads(state.params, batch, cfg)[1]), dev)
+    flash_ms = sum(v["device_ms"] for k, v in ops.items() if "flash_fwd" in k)
+    cs.emit({"phase": "lm_train_trace", "card": card, "arch": cfg.name, "part": "fwd_bwd",
+             **summary(f"loss_and_grads at {cs.TRAIN_BATCH} x {cs.TRAIN_SEQ}", wall, ops,
+                       flash_fwd_device_ms=flash_ms,
+                       device_launches=sum(v["count"] for v in ops.values()))})
+    named = dict(state.params.named_parameters())
+    wall, ops = traced(lambda: optimizer.update(grads, state.opt, named), dev)
+    cs.emit({"phase": "lm_train_trace", "card": card, "arch": cfg.name, "part": "optimizer",
+             **summary("one AdamW update (float32 moments)", wall, ops,
+                       device_launches=sum(v["count"] for v in ops.values()))})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device visible; this run needs one GPU", file=sys.stderr)
@@ -168,6 +195,8 @@ def main() -> int:
     del txn, fs
     torch.cuda.empty_cache()
     lm_traces(card)
+    torch.cuda.empty_cache()
+    train_trace(card)
     print(card, flush=True)
     return 0
 

@@ -48,8 +48,8 @@ port's paths on the card through the entry points a user calls:
      join on the promoted offline plane equals the one before the failure;
      the ex-home rejoins.  6 jobs over a seeded faulty channel converge
      byte-identical to the fault-free run.  A ``MultiHomeGeoStore`` (16
-     shards, ``profile``'s 32 features at 2**22 entities, 6 frames of 2**20
-     rows entering at every region) converges, fails westeurope's ranges
+     shards, ``profile``'s 32 features at 2**21 entities, 3 frames of 2**20
+     rows, one entering at each region) converges, fails westeurope's ranges
      over, converges again and answers GETs alike from every region;
   7. ``flash_attn`` against its plain version at phi3-medium-14b's prefill
      shape (B=4, S=2,048, H=40, KV=10, D=128, bf16), a ragged float32 GQA
@@ -67,10 +67,24 @@ port's paths on the card through the entry points a user calls:
      logits) and on a 4 x 2,048 batch from a ``FeatureStoreLoader`` over the
      serving plane (against ``attn_impl="xla"``), 40 flash launches per
      forward, all on the tensor-core route;
-  10. the ``kernels`` line: launches, errors, times and bounds per kernel.
+  10. ``lm_train``: the ported train path (``launch/train.py``'s data plane
+     and optimizer, ``make_train_step``) at gemma-2b's full width (18
+     layers, d_model 2,048, MQA 8/1, head_dim 256, vocab 256,000; 2.51 B
+     random bf16 weights from a seed), ``attn_impl="pallas_flash"``: 8 AdamW
+     steps (float32 moments) on 4 x 2,048 loader batches from the feature
+     store on the card, advanced until no row is left-padded; finite losses,
+     no token after the loader clock, 36 tensor-core flash launches a step
+     (18 forward, 18 recomputed in the backward), peak memory under the
+     card's.  Then, from the same state and batch, the loss and every
+     gradient leaf against ``attn_impl="xla"``; the flash backward alone at
+     the training shape against autograd through the plain forward, beside
+     ``scaled_dot_product_attention``'s forward and backward; and the
+     driver's kill at step 9 and resume (``train.main``, reduced gemma-2b, the
+     JAX driver test's arguments), bit-identical to an uninterrupted run;
+  11. the ``kernels`` line: launches, errors, times and bounds per kernel.
 
 Each path (``scan_merge``, the main path, ``offline_retrieval``, ``geo``,
-``lm_serve``, ``lm_prefill``) runs with the launch counts zeroed just before
+``lm_serve``, ``lm_prefill``, ``lm_train``) runs with the launch counts zeroed just before
 it and read just after, and must have launched each kernel of its own path.
 
 Each phase prints one JSON line; any failed check raises, so the run exits
@@ -86,6 +100,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -94,7 +109,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core.assets import (  # noqa: E402
     Entity,
@@ -135,7 +151,14 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.offline_store import CREATION_TS  # noqa: E402
 from repro_torch.data.loader import FeatureStoreLoader  # noqa: E402
 from repro_torch.launch.serve import build_serving_plane, serve  # noqa: E402
-from repro_torch.launch.steps import make_prefill_step  # noqa: E402
+from repro_torch.kernels.flash_attn.ref import attention_bwd_ref  # noqa: E402
+from repro_torch.launch import train as lm_train  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    TrainState,
+    loss_and_grads,
+    make_prefill_step,
+    make_train_step,
+)
 from repro_torch.models import api  # noqa: E402
 
 HOUR = 3_600_000
@@ -173,6 +196,19 @@ LOGITS_REL_RMS, LOGITS_TOP1 = 0.1, 0.8
 # scaled_dot_product_attention does, and rounds the output once to bfloat16:
 # 2e-2, the JAX package's own bfloat16 flash tolerance
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+TRAIN_ARCH = "gemma-2b"  # full width: 18 layers, d_model 2,048, MQA 8/1, D 256, vocab 256,000
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 2048, 8, 3e-3
+# the JAX driver test's arguments (tests/integration/test_train_driver.py)
+TRAIN_KILL_ARGS = ["--arch", "gemma-2b", "--steps", "12", "--batch", "2", "--seq", "32",
+                   "--ckpt-every", "4", "--log-every", "100"]
+# lm_train, the flash step against the xla step from one state and batch:
+# the forwards differ in one bfloat16 rounding of P before P.V (the kernel's,
+# as the TPU kernel's DEFAULT-precision dot) and in summation order, over 18
+# layers; the backward is the same float32 code.  The first full-width run
+# (H100, after 8 steps) measured a loss 4.9e-6 apart (relative) and gradient
+# leaves at most 0.0225 apart in relative RMS (a query projection, tail.10's
+# wq; median 5.4e-4): bounds of about 200x and 2x those
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL_RMS = 1e-3, 0.05
 L2_FLUSH_BYTES = 128 << 20  # written before a launch to empty the 50 MB L2
 SLEEP_CYCLES = 50_000_000  # a sleep kernel of about 25 ms on an H100
 COUNTERS = (lookup_ops.counter, rolling_ops.counter, pit_ops.counter, merge_ops.counter,
@@ -1131,7 +1167,9 @@ GEO_REGIONS = ("westus2", "eastus", "westeurope")
 GEO_JOBS, GEO_CHAOS_JOBS = 12, 6
 GEO_SPINE_ROWS = 1 << 16
 GEO_DAEMON = "eastus-daemon"  # the out-of-process replica's name in the replica set
-MH_ENTITIES, MH_FRAME_ROWS, MH_FRAMES, MH_SHARDS = 1 << 22, 1 << 20, 6, 16
+# multi-home at 2**21 entities in 3 frames (two of inserts, one of updates,
+# one entering at each region): cut from 2**22 and 6 for the run's time
+MH_ENTITIES, MH_FRAME_ROWS, MH_FRAMES, MH_SHARDS = 1 << 21, 1 << 20, 3, 16
 # benchmarks/bench_geo_replication.py: CHAOS_RATES and its chaos delivery policy
 GEO_CHAOS_RATES = dict(drop_rate=0.10, dup_rate=0.05, reorder_rate=0.05, corrupt_rate=0.05,
                        ack_loss_rate=0.03, spike_rate=0.02)
@@ -1767,6 +1805,198 @@ def phase_lm_prefill(cfg, served: dict, kernel_ms: float) -> dict:
     return {"row": row}
 
 
+# -- phase 8: the LM train path -------------------------------------------------------
+def fill_history(loader: FeatureStoreLoader, hours: int) -> None:
+    """Advance ``loader`` hour by hour from ``hours`` until every document in
+    the offline history holds ``seq_len`` tokens, so no sampled row is
+    left-padded."""
+    need = -(-loader.seq_len // loader.chunk_len)
+    while True:
+        loader.advance(hours * HOUR)
+        docs = loader.store.offline.read(loader.spec.name, loader.spec.version)["doc_id"]
+        if np.unique(docs, return_counts=True)[1].min() >= need:
+            return
+        hours += 1
+
+
+def check_flash_backward(b: int, s: int, h: int, kv: int, d: int, rng, device: str = "cuda",
+                         reps: int = 3) -> dict:
+    """The flash ``Function``'s backward at one shape on the card: its dq, dk,
+    dv against autograd through the plain forward (within FLASH_TOL of each
+    gradient's largest entry), its time, and the library yardstick's
+    forward + backward (``scaled_dot_product_attention``).  The bound is a
+    flash backward's least work: five products (QKᵀ again, dV, dP, dQ, dK)
+    of 2·D operations per (query head, visible key) pair on the bfloat16
+    tensor cores; bytes: q, k, v, dO read and dq, dk, dv written once.  The
+    plain backward does more (the whole S x T square, in float32)."""
+    up = lambda shape: torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        device).bfloat16()
+    q, k, v, do = up((b, s, h, d)), up((b, s, kv, d)), up((b, s, kv, d)), up((b, s, h, d))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    got = torch.autograd.grad(flash_ops.flash_attention(*leaves), leaves, do)
+    ref_leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*ref_leaves), ref_leaves, do.float())
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, w in zip("qkv", got, want):
+        errs[f"d{name}_max_abs_err"] = float((g.float() - w.float()).abs().max())
+        errs[f"d{name}_max_abs"] = float(w.float().abs().max())
+        check(errs[f"d{name}_max_abs_err"] <= FLASH_TOL[torch.bfloat16] * errs[f"d{name}_max_abs"],
+              f"flash backward d{name} within {FLASH_TOL[torch.bfloat16]} of plain")
+    del got, want, leaves, ref_leaves
+    sdpa_leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    pairs = s * (s + 1) // 2
+    b_ms, b_by = bound(q.element_size() * (3 * q.numel() + 4 * k.numel()),
+                       5 * 2 * d * b * h * pairs, BF16_OPS_PER_S)
+    row = {
+        "phase": "flash_backward", "B": b, "S": s, "H": h, "KV": kv, "D": d, "dtype": "bfloat16",
+        **errs,
+        "ms": cuda_ms(lambda: attention_bwd_ref(q, k, v, do), reps),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "forward_ms": cuda_ms(lambda: flash_ops.flash_attention(q, k, v), reps),
+        "library_fwd_bwd_ms": cuda_ms(
+            lambda: torch.autograd.grad(sdpa(*sdpa_leaves), sdpa_leaves, do), reps),
+    }
+    emit(row)
+    return row
+
+
+def leaf_agreement(got: dict, want: dict) -> dict:
+    """Per gradient leaf, ||got - want|| / ||want||: the largest, and its leaf."""
+    rel = {n: float((got[n].float() - want[n].float()).norm() / want[n].float().norm())
+           for n in want}
+    worst = max(rel, key=rel.get)
+    return {"max_rel_rms": rel[worst], "worst_leaf": worst,
+            "median_rel_rms": float(np.median(list(rel.values())))}
+
+
+def kill_and_resume(root: Path, device: str = "cuda") -> dict:
+    """``train.main`` on the card with the JAX driver test's arguments: an
+    uninterrupted run, a run killed at step 9 (exit 17) and its resume from
+    step 8's checkpoint, whose losses must equal the uninterrupted ones bit
+    for bit."""
+    if root.exists():
+        shutil.rmtree(root)
+    try:
+        ref = lm_train.main(TRAIN_KILL_ARGS + ["--ckpt-dir", str(root / "uninterrupted")],
+                            device=device)
+        code = None
+        try:
+            lm_train.main(TRAIN_KILL_ARGS + ["--ckpt-dir", str(root / "killed"), "--kill-at", "9"],
+                          device=device)
+        except SystemExit as e:
+            code = e.code
+        check(code == 17, "the killed run exits 17 at step 9")
+        resumed = lm_train.main(TRAIN_KILL_ARGS + ["--ckpt-dir", str(root / "killed")],
+                                device=device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(resumed["start_step"] == 9 and ref["steps_run"] == 12, "the resume starts at step 9")
+    check(resumed["losses"] == ref["losses"][9:],
+          "losses 9-11 of the resumed run are bit-identical to the uninterrupted run's")
+    return {"losses": ref["losses"], "resumed_losses": resumed["losses"]}
+
+
+def phase_lm_train(cfg, rng, device: str = "cuda") -> dict:
+    """The train path at full width on the card with the flash kernel, then
+    the flash/xla gradient check, the flash backward alone, and the
+    driver's kill and resume."""
+    cfg = dataclasses.replace(cfg, attn_impl="pallas_flash")
+    t0 = time.perf_counter()
+    fs, loader = lm_train.build_data_plane(cfg, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0,
+                                           device=device)
+    fill_history(loader, 6)
+    batches = [loader.sample_batch(step) for step in range(TRAIN_STEPS)]
+    plane_s = time.perf_counter() - t0
+    for b in batches:
+        check(b["tokens"].shape == (TRAIN_BATCH, TRAIN_SEQ), "the loader batch is 4 x 2,048")
+        check(bool((b["__max_event_ts__"] <= b["__observation_ts__"]).all()),
+              "no token from after the loader's clock")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(0, cfg, device=device)
+    optimizer = lm_train.train_optimizer(TRAIN_LR, TRAIN_STEPS)
+    state = TrainState.create(params, optimizer)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    train_step = make_train_step(cfg, optimizer)
+
+    reset_counts()
+    losses, step_s = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, {"tokens": torch.as_tensor(b["tokens"], device=device)})
+        losses.append(float(metrics["lm_loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    check(all(np.isfinite(losses)), "the training losses are finite")
+    want = 2 * cfg.num_layers * TRAIN_STEPS
+    check(launches["flash_attn"] == launches["flash_attn_wgmma"] == want,
+          f"{2 * cfg.num_layers} flash launches a step (forward and recompute), all on the "
+          f"tensor cores ({TRAIN_STEPS} steps)")
+    check(peak_gb < card_gb, "peak memory under the card's")
+
+    # one state and batch: the optimizer alone, then flash against xla.  The
+    # cache is emptied first: the loop leaves its blocks cut to its own sizes,
+    # and the 7.8 GiB float32 logits need a fresh one
+    torch.cuda.empty_cache()
+    batch = {"tokens": torch.as_tensor(batches[0]["tokens"], device=device)}
+    flash_m, flash_g = loss_and_grads(state.params, batch, cfg)
+    named = dict(state.params.named_parameters())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    update = optimizer.update(flash_g, state.opt, named)
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t0
+    del update
+    torch.cuda.empty_cache()
+    before = read_counts()["flash_attn"]
+    xla_m, xla_g = loss_and_grads(state.params, batch, dataclasses.replace(cfg, attn_impl="xla"))
+    torch.cuda.synchronize()
+    check(read_counts()["flash_attn"] == before, "the xla step launches no flash")
+    lf, lx = float(flash_m["lm_loss"]), float(xla_m["lm_loss"])
+    grads = leaf_agreement(flash_g, xla_g)
+    check(np.isfinite(lf) and abs(lf - lx) <= TRAIN_LOSS_RTOL * abs(lx),
+          f"flash loss within {TRAIN_LOSS_RTOL} of the xla loss")
+    check(grads["max_rel_rms"] <= TRAIN_GRAD_REL_RMS,
+          f"every flash gradient leaf within {TRAIN_GRAD_REL_RMS} relative RMS of xla's")
+    del flash_g, xla_g, state, params, named
+    torch.cuda.empty_cache()
+
+    bwd = check_flash_backward(TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads,
+                               cfg.head_dim, rng, device)
+    t0 = time.perf_counter()
+    resume = kill_and_resume(ROOT / "build" / "lm_train_ckpt", device)
+    resume_s = time.perf_counter() - t0
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = float(np.median(step_s[1:]))
+    row = {
+        "phase": "lm_train", "arch": cfg.name, "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+        "head_dim": cfg.head_dim, "vocab": cfg.vocab_size, "params": n_params,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "loader_clock_h": loader.clock / HOUR, "plane_s": plane_s, "init_s": init_s,
+        "losses": losses, "first_step_s": step_s[0], "step_s": steady, "step_s_all": step_s,
+        "train_tokens_per_s": tokens / steady,
+        "mfu": 6 * n_params * tokens / steady / BF16_OPS_PER_S,
+        "mfu_formula": "6 * params * tokens / step_s / 989e12",
+        "bound_s": 8 * n_params * tokens / BF16_OPS_PER_S,
+        "optimizer_s": opt_s, "optimizer_share": opt_s / steady,
+        "peak_gb": peak_gb, "card_gb": card_gb, "launches": launches,
+        "vs_xla": {"loss": lf, "xla_loss": lx, **grads},
+        "flash_backward_ms": bwd["ms"], "sdpa_fwd_bwd_ms": bwd["library_fwd_bwd_ms"],
+        "kill_resume": {**resume, "seconds": resume_s},
+    }
+    emit(row)
+    return {"row": row}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this run needs one GPU", file=sys.stderr)
@@ -1926,6 +2156,13 @@ def main() -> int:
     lm_row = {k: served["row"][k] for k in ("weight_gb", "online_lookup_ms", "decode_ms_per_step")}
     lm_row["prefill_tokens_per_s"] = prefill["row"]["prefill_tokens_per_s"]
     del served, prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    trained = phase_lm_train(get_config(TRAIN_ARCH), rng)
+    launches["flash_attn"] += trained["row"]["launches"]["flash_attn"]
+    lm_row.update({k: trained["row"][k] for k in ("train_tokens_per_s", "mfu")})
+    del trained
     torch.cuda.empty_cache()
 
     sources = {"online_lookup": ("src/repro_torch/csrc/online_lookup.cu",

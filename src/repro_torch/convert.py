@@ -16,6 +16,13 @@ arrays, unstacked here into one block per layer), and
 ``lm_params_to_numpy`` gives the tree back; ``kv_cache_to_numpy`` gives a
 decode cache in the JAX package's layout.  bfloat16 leaves come back as
 float32 (exact), since numpy has no bfloat16 of its own.
+
+``train_state_from_numpy`` and ``train_state_to_numpy`` do the same for a
+whole ``TrainState``: the tree of the JAX package's ``TrainState``
+(``params``, ``opt`` with ``count`` and the moments ``m`` and ``v``, float32
+or quantized ``{"q", "scale"}``, laid out like ``params``, and ``step``).
+``train_state_tree`` gives that tree as CPU tensors in their true dtypes,
+for the checkpoint manager.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from repro_torch.core.online_store import OnlineStore, _PartitionedTable
 from repro_torch.core.table import Table
 from repro_torch.device import resolve_device
 from repro_torch.kernels.online_lookup.ops import partition_of
+from repro_torch.launch.steps import TrainState
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.lm import LM
@@ -50,6 +58,9 @@ __all__ = [
     "offline_history_from_numpy",
     "offline_history_to_numpy",
     "online_table_from_numpy",
+    "train_state_from_numpy",
+    "train_state_to_numpy",
+    "train_state_tree",
 ]
 
 STATE_FIELDS = (
@@ -134,17 +145,24 @@ def offline_history_to_numpy(store: OfflineStore, name: str, version: int) -> di
     return {k: np.array(v, copy=True) for k, v in store.read(name, version).columns.items()}
 
 
-# -- the LM's weights and decode cache ----------------------------------------
+# -- the LM's weights, its train state and decode cache -------------------------
+def _is_leaf(v) -> bool:
+    """An array, or a quantized moment ``{"q", "scale"}`` (one leaf here)."""
+    return not isinstance(v, dict) or "q" in v
+
+
 def _leaves(tree: dict, prefix: str = ""):
-    """(dotted path, leaf) over a nested dict of arrays."""
+    """(dotted path, leaf) over a nested dict of leaves."""
     for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _leaves(v, f"{prefix}{k}.")
-        else:
+        if _is_leaf(v):
             yield f"{prefix}{k}", v
+        else:
+            yield from _leaves(v, f"{prefix}{k}.")
 
 
 def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype, copy=True)
     a = np.array(a, copy=True)  # writable and contiguous: JAX's arrays are read-only
     if a.dtype.name == "bfloat16":  # JAX hands bfloat16 out as an ml_dtypes array
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
@@ -158,6 +176,14 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
 
 
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
 def _nest(flat: dict) -> dict:
     out: dict = {}
     for path, v in flat.items():
@@ -169,19 +195,59 @@ def _nest(flat: dict) -> dict:
     return out
 
 
+def _stack_leaf(xs: list, stack):
+    if isinstance(xs[0], dict):
+        return {k: stack([x[k] for x in xs]) for k in xs[0]}
+    return stack(xs)
+
+
+def _jax_tree(named, stack) -> dict:
+    """The JAX package's tree of port-named leaves (``(name, leaf)`` pairs):
+    ``prefix`` a list of blocks, the per-layer leaves of ``tail`` stacked
+    layer-leading with ``stack``."""
+    top, prefix, tail = {}, {}, {}
+    for name, x in named:
+        head, _, rest = name.partition(".")
+        if head == "prefix":
+            i, _, path = rest.partition(".")
+            prefix.setdefault(int(i), {})[path] = x
+        elif head == "tail":
+            j, _, path = rest.partition(".")
+            tail.setdefault(path, {})[int(j)] = x
+        else:
+            top[name] = x
+    if prefix:
+        top["prefix"] = [_nest(prefix[i]) for i in sorted(prefix)]
+    if tail:
+        top["tail"] = _nest({k: _stack_leaf([v[j] for j in sorted(v)], stack)
+                             for k, v in tail.items()})
+    return top
+
+
+def _port_named(tree: dict) -> dict:
+    """The inverse of ``_jax_tree``: port parameter name -> leaf, the tail's
+    stacked leaves split into one per layer."""
+    flat = {k: v for k, v in tree.items() if k not in ("prefix", "tail")}
+    for i, bp in enumerate(tree.get("prefix", [])):
+        flat.update((f"prefix.{i}.{k}", v) for k, v in _leaves(bp))
+    for k, v in _leaves(tree.get("tail", {})):
+        if isinstance(v, dict):
+            flat.update((f"tail.{j}.{k}", {n: x[j] for n, x in v.items()})
+                        for j in range(np.shape(v["q"])[0]))
+        else:
+            flat.update((f"tail.{j}.{k}", v[j]) for j in range(np.shape(v)[0]))
+    return flat
+
+
 def lm_params_from_numpy(cfg: ModelConfig, tree: dict, *,
                          device: str | torch.device = "cuda") -> LM:
     """A port ``LM`` holding the JAX package's weights ``tree`` (the dict
-    ``lm.init_params`` returns, leaves as numpy arrays), cast to
+    ``lm.init_params`` returns, leaves as numpy arrays or tensors), cast to
     ``cfg.param_dtype`` on ``device``.  Raises if the tree's names or shapes
     are not the model's."""
     dev = resolve_device(device)
     model = LM(cfg, None, device=dev)
-    flat = {k: tree[k] for k in ("embed", "final_norm", "lm_head") if k in tree}
-    for i, bp in enumerate(tree.get("prefix", [])):
-        flat.update((f"prefix.{i}.{k}", v) for k, v in _leaves(bp))
-    for k, v in _leaves(tree.get("tail", {})):
-        flat.update((f"tail.{j}.{k}", v[j]) for j in range(np.shape(v)[0]))
+    flat = _port_named(tree)
     state = dict(model.named_parameters())
     if set(flat) != set(state):
         raise ValueError(f"parameter names differ: tree only {sorted(set(flat) - set(state))}, "
@@ -199,22 +265,68 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict, *,
 def lm_params_to_numpy(model: LM) -> dict:
     """The JAX package's parameter tree of ``model``: per-layer blocks of
     ``tail`` stacked into layer-leading arrays, ``prefix`` a list."""
-    top, prefix, tail = {}, {}, {}
-    for name, p in model.named_parameters():
-        head, _, rest = name.partition(".")
-        if head == "prefix":
-            i, _, path = rest.partition(".")
-            prefix.setdefault(int(i), {})[path] = _numpy(p)
-        elif head == "tail":
-            j, _, path = rest.partition(".")
-            tail.setdefault(path, {})[int(j)] = _numpy(p)
-        else:
-            top[name] = _numpy(p)
-    if prefix:
-        top["prefix"] = [_nest(prefix[i]) for i in sorted(prefix)]
-    if tail:
-        top["tail"] = _nest({k: np.stack([v[j] for j in sorted(v)]) for k, v in tail.items()})
-    return top
+    return _jax_tree(((n, _numpy(p)) for n, p in model.named_parameters()), np.stack)
+
+
+def _state_tree(state: TrainState, leaf) -> dict:
+    """``state`` in the JAX ``TrainState``'s tree, each tensor through ``leaf``
+    and the tail stacked with ``torch.stack``."""
+    def moments(tree: dict) -> dict:
+        return _jax_tree(((n, _map(leaf, x)) for n, x in tree.items()), torch.stack)
+
+    return {
+        "params": _jax_tree(((n, leaf(p.detach())) for n, p in state.params.named_parameters()),
+                            torch.stack),
+        "opt": {"count": leaf(state.opt["count"]), "m": moments(state.opt["m"]),
+                "v": moments(state.opt["v"])},
+        "step": leaf(state.step),
+    }
+
+
+def train_state_tree(state: TrainState) -> dict:
+    """The JAX ``TrainState``'s tree of ``state`` as CPU tensors in their own
+    dtypes (bfloat16 stays bfloat16)."""
+    return _state_tree(state, lambda t: t.detach().cpu())
+
+
+def train_state_to_numpy(state: TrainState) -> dict:
+    """The JAX ``TrainState``'s tree of ``state`` as numpy arrays (bfloat16
+    as float32, exact)."""
+    return _map(_numpy, train_state_tree(state))
+
+
+def train_state_from_numpy(cfg: ModelConfig, tree: dict, *,
+                           device: str | torch.device = "cuda") -> TrainState:
+    """A port ``TrainState`` from the JAX ``TrainState``'s tree (leaves numpy
+    arrays or tensors): weights as ``lm_params_from_numpy`` builds them,
+    moments float32 or quantized as the tree holds them, counters int32.
+    Raises if a moment's names or shapes are not the model's."""
+    model = lm_params_from_numpy(cfg, tree["params"], device=device)
+    dev = model.device
+    shapes = {n: p.shape for n, p in model.named_parameters()}
+
+    def moments(t: dict) -> dict:
+        flat = _port_named(t)
+        if set(flat) != set(shapes):
+            raise ValueError(
+                f"moment names differ from the model's: {sorted(set(flat) ^ set(shapes))}")
+        out = {}
+        for n, x in flat.items():
+            if isinstance(x, dict):
+                out[n] = {"q": _tensor(x["q"], torch.int8, dev),
+                          "scale": _tensor(x["scale"], torch.float32, dev)}
+                got = out[n]["q"].shape
+            else:
+                out[n] = _tensor(x, torch.float32, dev)
+                got = out[n].shape
+            if got != shapes[n]:
+                raise ValueError(f"moment {n}: tree {tuple(got)}, model {tuple(shapes[n])}")
+        return out
+
+    opt = tree["opt"]
+    return TrainState(model, {"count": _tensor(opt["count"], torch.int32, dev),
+                              "m": moments(opt["m"]), "v": moments(opt["v"])},
+                      _tensor(tree["step"], torch.int32, dev))
 
 
 def kv_cache_to_numpy(cache: dict) -> dict:

@@ -8,7 +8,13 @@ P.V as the TPU kernel's DEFAULT-precision dot does); float32, and bf16 at D
 16 or 32, on the CUDA cores (``csrc/flash_attn.cu``, exact float32).  Both
 read kv head h // (H / KV) for query head h in place and mask ragged S and T
 themselves: no GQA expansion, no transpose, no padding copy.  A CPU tensor
-runs the plain version in ``ref.py``.  ``flash_bytes`` is the JAX
+runs the plain version in ``ref.py``.
+
+``flash_attention`` is differentiable (``FlashAttention``, a
+``torch.autograd.Function``): the forward is the kernel (or the plain
+version on the CPU), the backward ``ref.attention_bwd_ref``, plain PyTorch
+by recompute on both devices, the gradient of the einsum path.  The TPU
+package has no backward kernel to port.  ``flash_bytes`` is the JAX
 package's analytic HBM-traffic model, verbatim.
 """
 
@@ -17,10 +23,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import native
-from repro_torch.kernels.flash_attn.ref import attention_ref
+from repro_torch.kernels.flash_attn.ref import attention_bwd_ref, attention_ref
 
-__all__ = ["ENTRIES", "HEAD_DIMS", "TC_HEAD_DIMS", "counter", "flash_attention", "flash_bytes",
-           "route", "tc_counter"]
+__all__ = ["ENTRIES", "HEAD_DIMS", "TC_HEAD_DIMS", "FlashAttention", "counter", "flash_attention",
+           "flash_bytes", "route", "tc_counter"]
 
 #: head dims the kernels are built for (phi3/qwen 128, gemma 256, small checks)
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -83,17 +89,42 @@ def flash_attention(
     ``causal``), float32 inside, returned in q's dtype.  Runs where the
     tensors lie: CUDA launches the kernel, CPU runs the plain version.
     ``causal=False`` is refused where the JAX wrapper refuses it (a T that
-    its blocks would pad), so both packages take the same calls."""
+    its blocks would pad), so both packages take the same calls.
+    Differentiable in q, k and v (``FlashAttention``)."""
     _check_args(q, k, v)
     t = k.shape[1]
     bk = min(_JAX_BLOCK, _round_up(t, 8))
     if not causal and _round_up(t, bk) != t:
         raise NotImplementedError("non-causal padding path unused")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    return FlashAttention.apply(q, k, v, causal)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward: ``_forward`` (the kernel on CUDA, the plain version on the
+    CPU).  Backward: ``attention_bwd_ref`` from the saved inputs, on either
+    device.  ``flash_attention`` checks the arguments first; called
+    directly (as ``gradcheck`` does, in float64 on the CPU) it checks none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_bwd_ref(q, k, v, do, causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal).to(q.dtype)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     b, s, h, d = q.shape
+    t = k.shape[1]
     if b * s * h == 0:  # nothing to launch, nothing to count
         return torch.empty_like(q)
     if s > 65535 * 64 or b * h >= 2**31:

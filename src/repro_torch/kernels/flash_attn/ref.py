@@ -1,8 +1,16 @@
-"""Plain PyTorch causal GQA attention: the flash kernel's ground truth.
+"""Plain PyTorch causal GQA attention: the flash kernel's ground truth, and
+the flash attention's backward.
 
-Mirrors the JAX package's ``attention_ref``: query heads grouped onto their
-kv head, float32 scores scaled by 1/sqrt(D), masked with -1e30 where the key
-lies after the query, softmax, float32 output.
+``attention_ref`` mirrors the JAX package's ``attention_ref``: query heads
+grouped onto their kv head, float32 scores scaled by 1/sqrt(D), masked with
+-1e30 where the key lies after the query, softmax, float32 output.
+
+``attention_bwd_ref`` is the gradient of that function, by recompute: it
+rebuilds P from q and k and takes the softmax's backward as autograd does
+through the einsum (``xla``) path.  The TPU package has no backward kernel
+(XLA differentiates its einsum path), so this is plain PyTorch on both
+devices.  Both take float64 inputs in float64 (for ``gradcheck``), anything
+else in float32.
 """
 
 from __future__ import annotations
@@ -11,7 +19,25 @@ import math
 
 import torch
 
-__all__ = ["attention_ref"]
+__all__ = ["attention_bwd_ref", "attention_ref"]
+
+
+def _acc(*xs: torch.Tensor) -> torch.dtype:
+    return torch.float64 if any(x.dtype == torch.float64 for x in xs) else torch.float32
+
+
+def _probs(q: torch.Tensor, k: torch.Tensor, causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """(qg (B, S, KV, G, D), P (B, KV, G, S, T)) in the accumulation dtype."""
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    acc = _acc(q, k)
+    qg = q.reshape(b, s, kv, h // kv, d).to(acc)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.to(acc)) / math.sqrt(d)
+    if causal:
+        pos = torch.arange(max(s, t), device=q.device)
+        mask = pos[None, :t] <= pos[:s, None]
+        scores = scores.masked_fill(~mask, -1e30)
+    return qg, torch.softmax(scores, dim=-1)
 
 
 def attention_ref(
@@ -21,14 +47,33 @@ def attention_ref(
     *,
     causal: bool = True,
 ) -> torch.Tensor:
+    _, w = _probs(q, k, causal)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v.to(w.dtype))
+    return out.reshape(q.shape)
+
+
+def attention_bwd_ref(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, T, KV, D)
+    v: torch.Tensor,  # (B, T, KV, D)
+    do: torch.Tensor,  # (B, S, H, D): the gradient of the output
+    *,
+    causal: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``attention_ref`` at (q, k, v) for output gradient
+    ``do``, each in its input's dtype.  With P = softmax(QKᵀ/√D):
+    dV = Pᵀ·dO, dP = dO·Vᵀ, dS = P∘(dP − rowsum(P∘dP)), dQ = dS·K/√D,
+    dK = dSᵀ·Q/√D; rowsum(P∘dP) is rowsum(dO∘O).  dK and dV sum over each
+    GQA group onto its kv head."""
     b, s, h, d = q.shape
-    t, kv = k.shape[1], k.shape[2]
-    g = h // kv
-    qg = q.reshape(b, s, kv, g, d).float()
-    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) / math.sqrt(d)
-    if causal:
-        mask = torch.arange(t, device=q.device)[None, :] <= torch.arange(s, device=q.device)[:, None]
-        scores = scores.masked_fill(~mask, -1e30)
-    w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", w, v.float())
-    return out.reshape(b, s, h, d)
+    kv = k.shape[2]
+    qg, p = _probs(q, k, causal)
+    dog = do.reshape(b, s, kv, h // kv, d).to(p.dtype)
+    dv = torch.einsum("bkgst,bskgd->btkd", p, dog)
+    dp = torch.einsum("bskgd,btkd->bkgst", dog, v.to(p.dtype))
+    dp -= (p * dp).sum(-1, keepdim=True)
+    ds = dp.mul_(p)
+    scale = 1.0 / math.sqrt(d)
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, k.to(p.dtype)) * scale
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qg) * scale
+    return dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

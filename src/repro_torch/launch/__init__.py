@@ -1,1 +1,1 @@
-"""Serving drivers and the step functions they run."""
+"""Serving and training drivers and the step functions they run."""

@@ -1,22 +1,89 @@
-"""Step functions: the units the serving drivers execute.
+"""Step functions: the units the drivers execute.
 
+  * train_step — fwd + bwd + optimizer update
   * serve_step — one decode token against a KV cache (updated in place)
   * prefill_step — full-sequence logits (the prefill-throughput unit)
-
-The JAX package's ``TrainState`` and ``make_train_step`` wait for the
-optimizer's port (ROADMAP §2.3).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
+from typing import Any, Callable
 
 import torch
 
 from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.lm import LM
+from repro_torch.optim.adamw import Optimizer
 
-__all__ = ["make_serve_step", "make_prefill_step"]
+__all__ = ["TrainState", "loss_and_grads", "make_prefill_step", "make_serve_step",
+           "make_train_step"]
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (its weights made trainable), the optimizer state over its
+    named parameters, and the step count (an int32 0-d tensor)."""
+
+    params: LM
+    opt: Any
+    step: torch.Tensor
+
+    def __post_init__(self) -> None:
+        self.params.requires_grad_(True)
+
+    @staticmethod
+    def create(params: LM, optimizer: Optimizer) -> "TrainState":
+        return TrainState(params, optimizer.init(dict(params.named_parameters())),
+                          torch.zeros((), dtype=torch.int32, device=params.device))
+
+
+def loss_and_grads(params: LM, batch: dict, cfg: ModelConfig) -> tuple[dict, dict]:
+    """(metrics, gradients by parameter name) of ``api.train_loss`` on one
+    batch: fwd + bwd, no update."""
+    named = dict(params.named_parameters())
+    loss, metrics = api.train_loss(params, batch, cfg)
+    grads = torch.autograd.grad(loss, list(named.values()))
+    return {k: v.detach() for k, v in metrics.items()}, dict(zip(named, grads))
+
+
+def make_train_step(
+    cfg: ModelConfig, optimizer: Optimizer, *, num_microbatches: int = 1
+) -> Callable:
+    """fwd+bwd+update.  ``num_microbatches`` > 1 accumulates float32
+    gradients over batch slices and takes their mean, as the JAX step's
+    ``lax.scan`` does (activation memory 1/µ of the full batch, the same
+    math); the metrics are the last slice's.
+
+    The step consumes its state, as the JAX driver's donated state is
+    consumed: the new weights are written into ``state.params`` in place
+    (one model's worth of weights, not two), and the returned state holds
+    the same model."""
+
+    def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        if num_microbatches == 1:
+            metrics, grads = loss_and_grads(state.params, batch, cfg)
+        else:
+            mb = {k: torch.as_tensor(x).reshape(num_microbatches, -1, *x.shape[1:])
+                  for k, x in batch.items()}
+            grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                     for n, p in state.params.named_parameters()}
+            for i in range(num_microbatches):
+                metrics, g = loss_and_grads(state.params, {k: x[i] for k, x in mb.items()}, cfg)
+                for n, gi in g.items():
+                    grads[n] += gi.float()
+            grads = {n: a / num_microbatches for n, a in grads.items()}
+
+        new_params, new_opt = optimizer.update(grads, state.opt,
+                                               dict(state.params.named_parameters()))
+        del grads
+        with torch.no_grad():
+            for n, p in state.params.named_parameters():
+                p.copy_(new_params.pop(n))
+        return TrainState(state.params, new_opt, state.step + 1), metrics
+
+    return train_step
 
 
 def make_serve_step(cfg: ModelConfig) -> Callable:

@@ -1,1 +1,1 @@
-"""The LM stack that serves from the feature store (dense decoder-only subset)."""
+"""The LM stack that serves from and trains on the feature store (dense decoder-only subset)."""

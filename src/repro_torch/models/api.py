@@ -18,6 +18,7 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = [
     "init_params",
+    "train_loss",
     "forward_logits",
     "init_cache",
     "decode_step",
@@ -35,6 +36,11 @@ def init_params(seed: int, cfg: ModelConfig, *, max_decode_len: int = 4096,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return lm.init_params(gen, cfg)
+
+
+def train_loss(params: lm.LM, batch: dict, cfg: ModelConfig):
+    """(total loss, metrics) of one batch: next-token loss plus aux."""
+    return lm.train_loss(params, batch, cfg)
 
 
 def forward_logits(params: lm.LM, batch: dict, cfg: ModelConfig) -> torch.Tensor:

@@ -5,7 +5,10 @@ The JAX package's ``models/layers.py`` on tensors.  Parameters live in
 (``p["w_up"]``, ``"ffn" in p``), so the functions below read as the JAX
 ones do.  ``reduce_boundary`` is a plain cast here: its optimization barrier
 exists for XLA's tensor-parallel all-reduce and has no counterpart on one
-device.  Serving needs no gradients, so parameters never require them.
+device.  Parameters are created frozen, as serving wants them;
+``model.requires_grad_(True)`` makes every ``ParamModule``'s parameters
+trainable (the train step does so), and ``requires_grad_(False)`` freezes
+them again.
 """
 
 from __future__ import annotations
@@ -41,8 +44,10 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 class ParamModule(nn.Module):
-    """Named tensors held as parameters that need no gradient, indexable by
-    name like the JAX package's parameter dicts; child modules index too."""
+    """Named tensors held as parameters, indexable by name like the JAX
+    package's parameter dicts; child modules index too.  They start frozen
+    (``requires_grad=False``); ``requires_grad_(True)`` on the module or any
+    parent makes them trainable."""
 
     def __init__(self, tensors: Mapping[str, torch.Tensor] = ()) -> None:
         super().__init__()

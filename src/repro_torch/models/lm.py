@@ -6,9 +6,17 @@ The JAX package's ``models/lm.py`` as ``nn.Module``s: an ``LM`` holds
 ``norm1``, ``mixer`` (attention), ``norm2`` and ``ffn``.  Parameter names
 are the JAX dict keys and weights keep JAX's (in, out) layout, so ``x @ w``
 is the same product (``convert.py`` moves weights across).  A Python loop
-over the blocks replaces ``lax.scan``; ``jax.checkpoint`` has no counterpart
-in serving, which runs no backward.  Local/global layer flags are plain
-bools per layer.
+over the blocks replaces ``lax.scan``.  Where JAX wraps the tail's scan body
+in ``jax.checkpoint`` (full rematerialisation of each block), the port runs
+each tail block under ``torch.utils.checkpoint`` whenever a gradient is
+recorded for trainable weights; the prefix is not checkpointed, as in JAX.
+Serving's weights are frozen, so it runs the blocks plainly.  Local/global
+layer flags are plain bools per layer.  The token embedding is
+``F.embedding`` (the same rows as indexing): its backward on CUDA sums each
+row's gradient in a fixed order, where indexing's backward (an accumulating
+``index_put_``) is deterministic on CUDA only under
+``torch.use_deterministic_algorithms``; so a train step is bit-reproducible
+and a resumed run repeats an uninterrupted one.
 
 MoE, MLA, SSM, hybrid, encoder/decoder, vision-prefix and MTP configs raise
 ``NotImplementedError``: those families are not ported yet (ROADMAP queue 1,
@@ -20,11 +28,14 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, ParamModule, dense_init, mlp_apply, rms_norm, torch_dtype
+from repro_torch.models.losses import next_token_loss
 
 __all__ = [
     "Block",
@@ -35,6 +46,7 @@ __all__ = [
     "init_cache",
     "init_params",
     "prefill",
+    "train_loss",
 ]
 
 _UNPORTED = ("moe", "use_mla", "ssm", "hybrid_attn_period", "encoder_decoder",
@@ -117,7 +129,7 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig, *,
 
 
 # =============================================================================
-# forward (prefill body)
+# forward (train / prefill shared body)
 # =============================================================================
 def _block_apply(bp, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, *,
                  is_global=True) -> torch.Tensor:
@@ -136,7 +148,7 @@ def _tokens(params: LM, tokens) -> torch.Tensor:
 def _embed_inputs(params: LM, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """Token embedding.  Returns (x, positions)."""
     cdt = torch_dtype(cfg.compute_dtype)
-    x = params["embed"][_tokens(params, batch["tokens"])].to(cdt)
+    x = F.embedding(_tokens(params, batch["tokens"]), params["embed"]).to(cdt)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     return x, positions
 
@@ -149,14 +161,32 @@ def _layers(params: LM, cfg: ModelConfig):
 
 def forward(params: LM, batch: dict,
             cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (hidden (B,S,D), logits, aux_loss)."""
+    """Full-sequence forward.  Returns (x before the final norm (B,S,D),
+    logits, aux_loss).  While a gradient is recorded, each tail block is
+    recomputed in the backward (``jax.checkpoint`` of the JAX tail scan)."""
     check_supported(cfg)
     x, positions = _embed_inputs(params, cfg, batch)
-    for bp, is_global in _layers(params, cfg):
-        x = _block_apply(bp, x, positions, cfg, is_global=is_global)
+    n_prefix = len(params["prefix"])
+    remat = torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters())
+    for i, (bp, is_global) in enumerate(_layers(params, cfg)):
+        if remat and i >= n_prefix:
+            x = checkpoint(_block_apply, bp, x, positions, cfg, is_global=is_global,
+                           use_reentrant=False)
+        else:
+            x = _block_apply(bp, x, positions, cfg, is_global=is_global)
     hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = hidden @ params.head()
     return x, logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def train_loss(params: LM, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """Next-token loss plus the aux loss (zero for the dense configs; the
+    MTP branch belongs to an unported family and raises in
+    ``check_supported``).  Returns (total, metrics)."""
+    _, logits, aux = forward(params, batch, cfg)
+    loss = next_token_loss(logits, _tokens(params, batch["tokens"]))
+    total = loss + aux
+    return total, {"lm_loss": loss, "aux_loss": aux, "total_loss": total}
 
 
 # =============================================================================

@@ -55,6 +55,9 @@ def test_port_imports_without_jax_or_repro():
         "repro_torch.core.channel", "repro_torch.core.wire",
         "repro_torch.core.replication", "repro_torch.core.facade",
         "repro_torch.core.multihome", "repro_torch.core.daemon",
+        "repro_torch.models.losses", "repro_torch.optim.adamw",
+        "repro_torch.optim.schedules", "repro_torch.checkpoint.manager",
+        "repro_torch.launch.steps", "repro_torch.launch.train",
     }
     assert expected <= set(res["modules"])
 
