@@ -15,8 +15,12 @@ each under ``torch.profiler``, with the host time per step, the device's
 busy share and its time by kernel.  Then the train step at gemma-2b's full
 width (seeded bf16 weights, ``attn_impl="pallas_flash"``, a 4 x 2,048
 batch): after one warm-up step, its forward + backward and its AdamW update
-each under ``torch.profiler`` (``lm_train_trace``).  The untraced times are
-those ``chip_smoke.py`` prints.  Exits non-zero without a CUDA device.
+each under ``torch.profiler`` (``lm_train_trace``).  Between the two, 8
+decode steps of deepseek-v2-lite-16b at full width (8 requests, seeded bf16
+weights) under ``torch.profiler`` (``moe_decode_trace``), their device time
+split into the MoE dispatch, the expert einsums, the shared experts, MLA and
+the rest.  The untraced times are those ``chip_smoke.py`` prints.  Exits
+non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 
 # (label, file suffix, function) of each layer, from the entry point down
 LAYERS = [
@@ -64,12 +70,14 @@ def layer_seconds(stats: pstats.Stats) -> dict:
     return out
 
 
-def device_ops(tp) -> dict:
+def device_ops(tp, ranges=()) -> dict:
     """Device-side activity only (kernels, copies, fills) by name: host ops
-    report their children's device time too, which would count it twice."""
+    report their children's device time too, which would count it twice, and
+    so would the device side of the ``record_function`` ``ranges``."""
     on_device = {}
     for e in tp.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+        if (e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+                and e.key not in ranges):
             row = on_device.setdefault(e.key[:80], {"device_ms": 0.0, "count": 0})
             row["device_ms"] += e.self_device_time_total / 1e3
             row["count"] += e.count
@@ -78,8 +86,8 @@ def device_ops(tp) -> dict:
     return on_device
 
 
-def traced(fn, device: torch.device) -> tuple[float, dict]:
-    """(wall seconds, device ops by name) of ``fn()`` under torch.profiler."""
+def profiled(fn, device: torch.device):
+    """(wall seconds, the profiler) of ``fn()`` under torch.profiler."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize(device)
     with torch.profiler.profile(activities=acts) as tp:
@@ -87,6 +95,12 @@ def traced(fn, device: torch.device) -> tuple[float, dict]:
         fn()
         torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
+    return wall, tp
+
+
+def traced(fn, device: torch.device) -> tuple[float, dict]:
+    """(wall seconds, device ops by name) of ``fn()`` under torch.profiler."""
+    wall, tp = profiled(fn, device)
     return wall, device_ops(tp)
 
 
@@ -128,6 +142,77 @@ def lm_traces(card: str, steps: int = 8) -> None:
     cs.emit({"phase": "lm_prefill_trace", "card": card, "arch": cfg.name,
              **summary(f"one flash forward at {cs.PREFILL_BATCH} x {cs.PREFILL_SEQ}", wall, ops,
                        flash_device_ms=flash_ms, flash_share_of_device=flash_ms / busy)})
+
+
+# (range label, module, function): the parts of a MoE/MLA decode step
+MOE_RANGES = (
+    ("moe_apply", moe_mod, "moe_apply"),
+    ("moe_route", moe_mod, "_route"),
+    ("moe_dispatch_ffn_combine", moe_mod, "_dispatch_ffn_combine_local"),
+    ("moe_expert_ffn", moe_mod, "_expert_ffn"),
+    ("mla_decode", mla_mod, "mla_decode"),
+)
+
+
+def _in_range(label: str, fn):
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+def moe_decode_trace(card: str, steps: int = 8) -> None:
+    """``steps`` decode steps of ``cs.MOE_ARCH`` at full width for
+    ``cs.LM_REQUESTS`` requests against a 32-token cache, traced.  For the
+    trace only, each function of ``MOE_RANGES`` runs inside a
+    ``record_function`` range of its name; a range's device time is that of
+    the kernels launched inside it.  Split: the dispatch (routing, the
+    stable sort and ranks, the scatters, gathers and combine) = route +
+    dispatch_ffn_combine - expert_ffn; the expert einsums = expert_ffn; the
+    shared experts = moe_apply - route - dispatch_ffn_combine; MLA =
+    mla_decode; the rest (norms, the dense first layer's FFN, embedding,
+    head) = busy - moe_apply - mla_decode."""
+    cfg = cs.get_config(cs.MOE_ARCH)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    params = cs.api.init_params(0, cfg, device=dev)
+    toks = cs.api.make_dummy_batch(cfg, cs.LM_REQUESTS, 32 + steps, seed=1, device=dev)["tokens"]
+    cache = cs.api.init_cache(cfg, cs.LM_REQUESTS, 32 + steps, device=dev)
+    for i in range(32):  # fill the cache as the served prompts would
+        cs.api.decode_step(params, cache, toks[:, i:i + 1], cfg)
+
+    def decode():
+        for i in range(32, 32 + steps):
+            cs.api.decode_step(params, cache, toks[:, i:i + 1], cfg)
+
+    real = {label: getattr(mod, name) for label, mod, name in MOE_RANGES}
+    for label, mod, name in MOE_RANGES:
+        setattr(mod, name, _in_range(label, real[label]))
+    try:
+        wall, tp = profiled(decode, dev)
+    finally:
+        for label, mod, name in MOE_RANGES:
+            setattr(mod, name, real[label])
+    ops = device_ops(tp, ranges=real)
+    part = {label: sum(e.device_time_total for e in tp.key_averages()
+                       if e.key == label and e.device_type == torch.autograd.DeviceType.CPU)
+            / 1e3 for label in real}
+    busy = sum(v["device_ms"] for v in ops.values())
+    split = {
+        "dispatch": part["moe_route"] + part["moe_dispatch_ffn_combine"]
+        - part["moe_expert_ffn"],
+        "expert_einsums": part["moe_expert_ffn"],
+        "shared_experts": part["moe_apply"] - part["moe_route"]
+        - part["moe_dispatch_ffn_combine"],
+        "mla": part["mla_decode"],
+        "rest": busy - part["moe_apply"] - part["mla_decode"],
+    }
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    cs.emit({"phase": "moe_decode_trace", "card": card, "arch": cfg.name,
+             **summary(f"{steps} decode steps of {cs.LM_REQUESTS} requests", wall, ops,
+                       ms_per_step=wall / steps * 1e3,
+                       device_launches_per_step=sum(v["count"] for v in ops.values()) / steps,
+                       device_ms_per_step={k: v / steps for k, v in split.items()},
+                       weight_read_bound_ms=weight_bytes / cs.HBM_BYTES_PER_S * 1e3)})
 
 
 def train_trace(card: str) -> None:
@@ -195,6 +280,8 @@ def main() -> int:
     del txn, fs
     torch.cuda.empty_cache()
     lm_traces(card)
+    torch.cuda.empty_cache()
+    moe_decode_trace(card)
     torch.cuda.empty_cache()
     train_trace(card)
     print(card, flush=True)

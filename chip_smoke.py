@@ -67,7 +67,21 @@ port's paths on the card through the entry points a user calls:
      logits) and on a 4 x 2,048 batch from a ``FeatureStoreLoader`` over the
      serving plane (against ``attn_impl="xla"``), 40 flash launches per
      forward, all on the tensor-core route;
-  10. ``lm_train``: the ported train path (``launch/train.py``'s data plane
+  10. ``moe_dispatch``: one MoE layer at deepseek-v2-lite-16b's widths (D
+     2,048, 64 experts top-6, F 1,408, two shared experts; seeded bf16
+     weights) on 4 x 2,048 tokens in groups of 2,048 at capacity factor
+     1.25 (capacity 240): ``moe_apply`` against its GShard einsum oracle,
+     the share of assignments dropped (above 0), ``_dispatch_indices`` on
+     the card byte-identical to the CPU, and ``moe_apply`` sync-free;
+  11. ``lm_moe_serve``: ``lm_serve``'s request path and checks at
+     deepseek-v2-lite-16b's full width (27 layers, MLA, 64 experts; random
+     bf16 weights from a seed, 31.4 GB) on a serving plane of its own:
+     absorbed-MLA decode and no-drop MoE, no flash launch;
+  12. ``lm_moe_prefill``: ``make_prefill_step`` on that model, no-drop on
+     the served prompts against the stepped prefill's logits, then at
+     capacity factor 1.25 on a 4 x 2,048 loader batch with each MoE layer's
+     dropped share;
+  13. ``lm_train``: the ported train path (``launch/train.py``'s data plane
      and optimizer, ``make_train_step``) at gemma-2b's full width (18
      layers, d_model 2,048, MQA 8/1, head_dim 256, vocab 256,000; 2.51 B
      random bf16 weights from a seed), ``attn_impl="pallas_flash"``: 8 AdamW
@@ -81,11 +95,12 @@ port's paths on the card through the entry points a user calls:
      ``scaled_dot_product_attention``'s forward and backward; and the
      driver's kill at step 9 and resume (``train.main``, reduced gemma-2b, the
      JAX driver test's arguments), bit-identical to an uninterrupted run;
-  11. the ``kernels`` line: launches, errors, times and bounds per kernel.
+  14. the ``kernels`` line: launches, errors, times and bounds per kernel.
 
 Each path (``scan_merge``, the main path, ``offline_retrieval``, ``geo``,
-``lm_serve``, ``lm_prefill``, ``lm_train``) runs with the launch counts zeroed just before
-it and read just after, and must have launched each kernel of its own path.
+``lm_serve``, ``lm_prefill``, ``lm_moe_serve``, ``lm_moe_prefill``,
+``lm_train``) runs with the launch counts zeroed just before it and read
+just after, and must have launched each kernel of its own path.
 
 Each phase prints one JSON line; any failed check raises, so the run exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -160,6 +175,7 @@ from repro_torch.launch.steps import (  # noqa: E402
     make_train_step,
 )
 from repro_torch.models import api  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 
 HOUR = 3_600_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -209,6 +225,16 @@ TRAIN_KILL_ARGS = ["--arch", "gemma-2b", "--steps", "12", "--batch", "2", "--seq
 # leaves at most 0.0225 apart in relative RMS (a query projection, tail.10's
 # wq; median 5.4e-4): bounds of about 200x and 2x those
 TRAIN_LOSS_RTOL, TRAIN_GRAD_REL_RMS = 1e-3, 0.05
+MOE_ARCH = "deepseek-v2-lite-16b"  # full width: 27 layers, d_model 2,048, MLA R 512, 64 experts
+MOE_CF = 1.25  # the config's train-time capacity factor: 4 groups of 2,048 tokens, capacity 240
+# moe_dispatch, moe_apply against its einsum oracle in bfloat16: both run the
+# same routing and the same expert products; they differ in the combine.
+# moe_apply adds the k weighted terms one at a time in bfloat16 (a rounding
+# per product and per sum), the oracle rounds each gate to bfloat16 and sums
+# in one product accumulated in float32, then both add the shared experts
+# (one more rounding).  About 2k + 2 roundings of at most half a bfloat16
+# step (2**-9 relative) each: 2**-5 of the output's largest magnitude
+MOE_TOL = 2**-5
 L2_FLUSH_BYTES = 128 << 20  # written before a launch to empty the 50 MB L2
 SLEEP_CYCLES = 50_000_000  # a sleep kernel of about 25 ms on an H100
 COUNTERS = (lookup_ops.counter, rolling_ops.counter, pit_ops.counter, merge_ops.counter,
@@ -1674,9 +1700,11 @@ def logits_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
             "top1_agree": float((g.argmax(-1) == w.argmax(-1)).float().mean())}
 
 
-def phase_lm_serve(cfg, device: str) -> dict:
+def phase_lm_serve(cfg, device: str, phase: str = "lm_serve") -> dict:
     """The ported request path at full width: the context GET through the
-    online store, stepped prefill of the 32-token contexts, greedy decode."""
+    online store, stepped prefill of the 32-token contexts, greedy decode.
+    A decode step's bound is one read of every weight (the MoE decode reads
+    every expert's, as the JAX formulation does)."""
     t0 = time.perf_counter()
     plane = build_serving_plane(cfg, seed=0, device=device)
     plane_s = time.perf_counter() - t0
@@ -1708,7 +1736,7 @@ def phase_lm_serve(cfg, device: str) -> dict:
     check(bool(torch.isfinite(out["prompt_logits"]).all()), "prefill logits are finite")
     decode_ms = out["decode_ms_total"] - out["prefill_ms"]
     row = {
-        "phase": "lm_serve", "arch": cfg.name, "device": str(params.device),
+        "phase": phase, "arch": cfg.name, "device": str(params.device),
         "layers": cfg.num_layers, "d_model": cfg.d_model, "heads": cfg.num_heads,
         "kv_heads": cfg.num_kv_heads, "vocab": cfg.vocab_size, "weight_gb": weight_gb,
         "init_s": init_s, "plane_s": plane_s, "requests": LM_REQUESTS,
@@ -1716,6 +1744,7 @@ def phase_lm_serve(cfg, device: str) -> dict:
         "new_tokens": LM_NEW_TOKENS, "online_lookup_ms": out["online_lookup_ms"],
         "stepped_prefill_ms": out["prefill_ms"],
         "decode_ms_per_step": decode_ms / LM_NEW_TOKENS,
+        "decode_bound_ms": weight_gb * 1e9 / HBM_BYTES_PER_S * 1e3,
         "decode_tokens_per_s": LM_REQUESTS * LM_NEW_TOKENS / decode_ms * 1e3,
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
     }
@@ -1800,6 +1829,149 @@ def phase_lm_prefill(cfg, served: dict, kernel_ms: float) -> dict:
         "xla_prefill_tokens_per_s": n_tok / xla_s,
         "flash_share_of_forward": cfg.num_layers * kernel_ms / (forward_s * 1e3),
         "xla_peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
+    }
+    emit(row)
+    return {"row": row}
+
+
+# -- the MLA + MoE family ------------------------------------------------------------
+def moe_drop_shares(fn) -> list:
+    """The share of assignments each MoE call drops while ``fn()`` runs,
+    in call order: ``moe._dispatch_indices`` is observed for the call and
+    put back after it."""
+    real, kept = moe_mod._dispatch_indices, []
+
+    def observed(idx_k, e, cap):
+        dst, keep = real(idx_k, e, cap)
+        kept.append(keep.float().mean())
+        return dst, keep
+
+    moe_mod._dispatch_indices = observed
+    try:
+        fn()
+    finally:
+        moe_mod._dispatch_indices = real
+    return [1.0 - float(k) for k in kept]
+
+
+def phase_moe_dispatch(cfg, device: str) -> dict:
+    """One MoE layer at the config's widths with seeded bf16 weights, on
+    PREFILL_BATCH x PREFILL_SEQ tokens in groups of 2,048 at ``MOE_CF``:
+    ``moe_apply`` against ``moe_apply_einsum`` (within ``MOE_TOL`` of the
+    output's scale); the share of assignments dropped, which must be above 0
+    (the capacity binds); ``_dispatch_indices`` on the card's ``idx_k``
+    byte-identical to the same call on the CPU; ``moe_apply`` once with
+    synchronizing ops made errors; the times of both.  The tokens are normal
+    draws plus one normal offset shared by all of them, as hidden states
+    share a mean direction: it skews the router's load.  The bound counts
+    the products the kept assignments and the shared experts need on the
+    bf16 tensor cores, and one read of the weights and the tokens and one
+    write of the output."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = moe_mod.MoE(gen, cfg, dtype=torch.bfloat16)
+    b, s, d = PREFILL_BATCH, PREFILL_SEQ, cfg.d_model
+    x = torch.randn((b, s, d), generator=gen, device=device)
+    x = (x + torch.randn((d,), generator=gen, device=device)).bfloat16()
+    e, k = cfg.num_experts, cfg.top_k
+    group = 2048
+    apply = lambda: moe_mod.moe_apply(params, x, cfg, group_size=group,  # noqa: E731
+                                      capacity_factor=MOE_CF)
+    y, aux = apply()
+    y_ref, aux_ref = moe_mod.moe_apply_einsum(params, x, cfg, group_size=group,
+                                              capacity_factor=MOE_CF)
+    err = float((y.float() - y_ref.float()).abs().max())
+    scale = float(y_ref.float().abs().max())
+    check(y.shape == x.shape and bool(torch.isfinite(y).all()), "moe_apply's output is finite")
+    check(err <= MOE_TOL * scale, f"moe_apply within {MOE_TOL} of the oracle's scale")
+    check(abs(float(aux) - float(aux_ref)) <= 1e-6 * abs(float(aux_ref)), "the aux losses agree")
+
+    xg = moe_mod._group(x, group)
+    cap = moe_mod._capacity(cfg, xg.shape[1], MOE_CF)
+    _, idx_k, _ = moe_mod._route(params, xg, cfg)
+    dst, keep = moe_mod._dispatch_indices(idx_k, e, cap)
+    cdst, ckeep = moe_mod._dispatch_indices(idx_k.cpu(), e, cap)
+    identical = (dst.cpu().numpy().tobytes() == cdst.numpy().tobytes()
+                 and keep.cpu().numpy().tobytes() == ckeep.numpy().tobytes())
+    check(identical, "the card's dispatch is byte-identical to the CPU's")
+    kept = int(ckeep.sum())
+    dropped = 1.0 - kept / ckeep.numel()
+    check(cap == 240 and dropped > 0, "the capacity (240) binds: some assignments drop")
+    check_sync_free("moe_apply", apply, f"{MOE_ARCH} MoE layer, {b} x {s} tokens, cf {MOE_CF}")
+
+    f, fs = cfg.moe_d_ff, cfg.moe_d_ff * cfg.num_shared_experts
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    b_ms, b_by = bound(weight_bytes + 2 * x.numel() * x.element_size(),
+                       6 * d * (f * kept + fs * b * s), BF16_OPS_PER_S)
+    row = {
+        "phase": "moe_dispatch", "arch": cfg.name, "d_model": d, "experts": e, "top_k": k,
+        "moe_d_ff": f, "shared_experts": cfg.num_shared_experts, "tokens": b * s,
+        "groups": xg.shape[0], "group_size": xg.shape[1], "capacity_factor": MOE_CF,
+        "capacity": cap, "dropped_share": dropped, "max_abs_err": err, "max_abs": scale,
+        "tol": MOE_TOL * scale, "aux": float(aux), "dispatch_identical_to_cpu": identical,
+        "sync_free": True,
+        "ms": cuda_ms(apply, 10), "bound_ms": b_ms, "bound_by": b_by,
+        "oracle_ms": cuda_ms(lambda: moe_mod.moe_apply_einsum(
+            params, x, cfg, group_size=group, capacity_factor=MOE_CF), 3),
+    }
+    emit(row)
+    return row
+
+
+def phase_lm_moe_prefill(cfg, served: dict) -> dict:
+    """``make_prefill_step`` on the served MLA + MoE model: (i) no-drop
+    (capacity factor E/k) on the served prompts against the stepped
+    prefill's logits (expanded MLA against absorbed, no-drop dispatch
+    against no-drop); (ii) at the config's capacity factor on a 4 x 2,048
+    loader batch, timed, with the share of assignments each MoE layer drops
+    (from one more forward)."""
+    params, out = served["params"], served["out"]
+    no_drop = make_prefill_step(dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.top_k))
+    step = make_prefill_step(cfg)
+    t0 = time.perf_counter()
+    batch, loader = prefill_batch(served["plane"], PREFILL_SEQ, PREFILL_BATCH)
+    batch_s = time.perf_counter() - t0
+    tokens = torch.as_tensor(batch["tokens"], device=params.device)
+    check(tokens.shape == (PREFILL_BATCH, PREFILL_SEQ), "the loader batch is 4 x 2,048")
+    check(bool((batch["__max_event_ts__"] <= batch["__observation_ts__"]).all()),
+          "no token from after the loader's clock")
+
+    reset_counts()
+    short = no_drop(params, {"tokens": out["prompts"]})
+    vs_stepped = logits_agreement(short, out["prompt_logits"])
+    check(short.shape == out["prompt_logits"].shape, "logits of the stepped prefill's shape")
+    check(vs_stepped["rel_rms_err"] <= LOGITS_REL_RMS and vs_stepped["top1_agree"] >= LOGITS_TOP1,
+          f"no-drop prefill within {LOGITS_REL_RMS} relative RMS and {LOGITS_TOP1} top-1 "
+          "agreement of the stepped prefill")
+    del short
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    long = step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    check(long.shape == (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab_size)
+          and bool(torch.isfinite(long).all()), "finite logits of the expected shape")
+    del long
+    reps, t0 = 2, time.perf_counter()
+    for _ in range(reps):
+        step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    forward_s = (time.perf_counter() - t0) / reps
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = read_counts()
+    check(launches["flash_attn"] == 0, "MLA takes the einsum path, not the flash kernel")
+    drops = moe_drop_shares(lambda: step(params, {"tokens": tokens}))
+    check(len(drops) == cfg.num_layers - cfg.first_dense_layers, "one dispatch per MoE layer")
+    n_tok = PREFILL_BATCH * PREFILL_SEQ
+    row = {
+        "phase": "lm_moe_prefill", "arch": cfg.name, "batch": PREFILL_BATCH,
+        "seq": PREFILL_SEQ, "capacity_factor": cfg.capacity_factor,
+        "loader_clock_h": loader.clock / HOUR, "batch_s": batch_s,
+        "no_drop_vs_stepped_prefill": vs_stepped, "first_forward_s": first_s,
+        "forward_s": forward_s, "prefill_tokens_per_s": n_tok / forward_s,
+        "peak_gb": peak_gb, "dropped_share_per_moe_layer": drops,
+        "dropped_share_mean": float(np.mean(drops)), "launches": launches,
     }
     emit(row)
     return {"row": row}
@@ -2156,6 +2328,22 @@ def main() -> int:
     lm_row = {k: served["row"][k] for k in ("weight_gb", "online_lookup_ms", "decode_ms_per_step")}
     lm_row["prefill_tokens_per_s"] = prefill["row"]["prefill_tokens_per_s"]
     del served, prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    moe_cfg = get_config(MOE_ARCH)
+    moe_row = phase_moe_dispatch(moe_cfg, "cuda")
+    torch.cuda.empty_cache()
+    moe_served = phase_lm_serve(moe_cfg, "cuda", phase="lm_moe_serve")
+    launches["online_lookup"] += moe_served["row"]["launches"]["online_lookup"]
+    moe_prefill = phase_lm_moe_prefill(moe_cfg, moe_served)
+    lm_row["moe"] = {"weight_gb": moe_served["row"]["weight_gb"],
+                     "decode_ms_per_step": moe_served["row"]["decode_ms_per_step"],
+                     "decode_bound_ms": moe_served["row"]["decode_bound_ms"],
+                     "prefill_tokens_per_s": moe_prefill["row"]["prefill_tokens_per_s"],
+                     "dispatch_dropped_share": moe_row["dropped_share"],
+                     "moe_apply_ms": moe_row["ms"]}
+    del moe_served, moe_prefill
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -47,7 +47,6 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.online_lookup.ops import partition_of
 from repro_torch.launch.steps import TrainState
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import torch_dtype
 from repro_torch.models.lm import LM
 
 __all__ = [
@@ -216,6 +215,7 @@ def _jax_tree(named, stack) -> dict:
             tail.setdefault(path, {})[int(j)] = x
         else:
             top[name] = x
+    top = _nest(top)  # top-level subtrees (``mtp``) nest like a block
     if prefix:
         top["prefix"] = [_nest(prefix[i]) for i in sorted(prefix)]
     if tail:
@@ -227,7 +227,7 @@ def _jax_tree(named, stack) -> dict:
 def _port_named(tree: dict) -> dict:
     """The inverse of ``_jax_tree``: port parameter name -> leaf, the tail's
     stacked leaves split into one per layer."""
-    flat = {k: v for k, v in tree.items() if k not in ("prefix", "tail")}
+    flat = dict(_leaves({k: v for k, v in tree.items() if k not in ("prefix", "tail")}))
     for i, bp in enumerate(tree.get("prefix", [])):
         flat.update((f"prefix.{i}.{k}", v) for k, v in _leaves(bp))
     for k, v in _leaves(tree.get("tail", {})):
@@ -242,9 +242,10 @@ def _port_named(tree: dict) -> dict:
 def lm_params_from_numpy(cfg: ModelConfig, tree: dict, *,
                          device: str | torch.device = "cuda") -> LM:
     """A port ``LM`` holding the JAX package's weights ``tree`` (the dict
-    ``lm.init_params`` returns, leaves as numpy arrays or tensors), cast to
-    ``cfg.param_dtype`` on ``device``.  Raises if the tree's names or shapes
-    are not the model's."""
+    ``lm.init_params`` returns, leaves as numpy arrays or tensors), each
+    cast to its parameter's dtype (``cfg.param_dtype``; an MoE router stays
+    float32) on ``device``.  Raises if the tree's names or shapes are not
+    the model's."""
     dev = resolve_device(device)
     model = LM(cfg, None, device=dev)
     flat = _port_named(tree)
@@ -252,10 +253,9 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict, *,
     if set(flat) != set(state):
         raise ValueError(f"parameter names differ: tree only {sorted(set(flat) - set(state))}, "
                          f"model only {sorted(set(state) - set(flat))}")
-    dtype = torch_dtype(cfg.param_dtype)
     with torch.no_grad():
         for name, p in state.items():
-            src = _tensor(flat[name], dtype, dev)
+            src = _tensor(flat[name], p.dtype, dev)
             if src.shape != p.shape:
                 raise ValueError(f"{name}: tree {tuple(src.shape)}, model {tuple(p.shape)}")
             p.copy_(src)

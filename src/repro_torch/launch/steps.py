@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import LM
+from repro_torch.models.lm import LM, check_trainable
 from repro_torch.optim.adamw import Optimizer
 
 __all__ = ["TrainState", "loss_and_grads", "make_prefill_step", "make_serve_step",
@@ -54,12 +54,14 @@ def make_train_step(
     """fwd+bwd+update.  ``num_microbatches`` > 1 accumulates float32
     gradients over batch slices and takes their mean, as the JAX step's
     ``lax.scan`` does (activation memory 1/µ of the full batch, the same
-    math); the metrics are the last slice's.
+    math); the metrics are the last slice's.  Raises ``NotImplementedError``
+    for the MoE and MTP configs, whose training is not ported yet.
 
     The step consumes its state, as the JAX driver's donated state is
     consumed: the new weights are written into ``state.params`` in place
     (one model's worth of weights, not two), and the returned state holds
     the same model."""
+    check_trainable(cfg)
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         if num_microbatches == 1:

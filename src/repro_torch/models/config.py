@@ -6,8 +6,9 @@ local:global sliding-window attention, plus the enc-dec (whisper) and
 vision-prefix (pixtral) assemblies.  Param-count helpers feed the roofline's
 MODEL_FLOPS = 6·N(active)·D term.
 
-Copied from the JAX package.  The port's models/lm.py runs the dense
-decoder-only subset; the other families raise NotImplementedError there.
+Copied from the JAX package.  The port's models/lm.py runs the dense and the
+MLA + MoE (+MTP) decoder-only configs; the other families raise
+NotImplementedError there.
 """
 
 from __future__ import annotations

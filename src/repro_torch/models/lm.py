@@ -1,9 +1,12 @@
-"""Decoder-only LM, dense subset: phi3, gemma-2b, qwen1.5, gemma3.
+"""Decoder-only LM: the dense configs (phi3, gemma-2b, qwen1.5, gemma3) and
+the MLA + MoE family (deepseek-v2-lite, deepseek-v3).
 
 The JAX package's ``models/lm.py`` as ``nn.Module``s: an ``LM`` holds
-``embed``, ``final_norm``, ``lm_head`` (unless tied) and the layer plan's
+``embed``, ``final_norm``, ``lm_head`` (unless tied), the layer plan's
 ``prefix`` and ``tail`` as ``ModuleList``s of ``Block``s, each with
-``norm1``, ``mixer`` (attention), ``norm2`` and ``ffn``.  Parameter names
+``norm1``, ``mixer`` (attention, or ``MLA``), ``norm2`` and ``ffn`` (an
+``MLP``, or an ``MoE`` outside the leading dense layers), and with MTP the
+``mtp`` subtree (``proj``, an MoE ``block``, ``norm``).  Parameter names
 are the JAX dict keys and weights keep JAX's (in, out) layout, so ``x @ w``
 is the same product (``convert.py`` moves weights across).  A Python loop
 over the blocks replaces ``lax.scan``.  Where JAX wraps the tail's scan body
@@ -18,9 +21,13 @@ row's gradient in a fixed order, where indexing's backward (an accumulating
 ``torch.use_deterministic_algorithms``; so a train step is bit-reproducible
 and a resumed run repeats an uninterrupted one.
 
-MoE, MLA, SSM, hybrid, encoder/decoder, vision-prefix and MTP configs raise
-``NotImplementedError``: those families are not ported yet (ROADMAP queue 1,
-item 4).
+``forward`` sums the MoE blocks' aux losses over the stack.  Decode runs
+MoE no-drop (one group of the batch, capacity factor E/k) and MLA absorbed
+against its compressed cache.  Serving ignores the ``mtp`` subtree, as the
+JAX package does.  Training the MoE/MTP family is not ported yet:
+``train_loss`` raises for it (ROADMAP queue 1, item 4).  SSM, hybrid,
+encoder/decoder and vision-prefix configs raise ``NotImplementedError``
+(same item).
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, ParamModule, dense_init, mlp_apply, rms_norm, torch_dtype
 from repro_torch.models.losses import next_token_loss
@@ -41,6 +50,7 @@ __all__ = [
     "Block",
     "LM",
     "check_supported",
+    "check_trainable",
     "decode_step",
     "forward",
     "init_cache",
@@ -49,8 +59,8 @@ __all__ = [
     "train_loss",
 ]
 
-_UNPORTED = ("moe", "use_mla", "ssm", "hybrid_attn_period", "encoder_decoder",
-             "vision_prefix", "mtp_depth")
+_UNPORTED = ("ssm", "hybrid_attn_period", "encoder_decoder", "vision_prefix")
+_UNTRAINED = ("moe", "mtp_depth")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -59,7 +69,18 @@ def check_supported(cfg: ModelConfig) -> None:
     if on:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(on)} not ported yet (ROADMAP queue 1, item 4); "
-            "the port runs dense decoder-only configs"
+            "the port runs the dense and MLA + MoE decoder-only configs"
+        )
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for a config family the port does not train yet."""
+    check_supported(cfg)
+    on = [f for f in _UNTRAINED if getattr(cfg, f)]
+    if on:
+        raise NotImplementedError(
+            f"{cfg.name}: training with {', '.join(on)} is not ported yet "
+            "(ROADMAP queue 1, item 4: MoE/MLA training)"
         )
 
 
@@ -67,17 +88,23 @@ def check_supported(cfg: ModelConfig) -> None:
 # init
 # =============================================================================
 class Block(ParamModule):
-    """One transformer block: ``norm1``, ``mixer``, and (with a dense FFN)
-    ``norm2`` and ``ffn``."""
+    """One transformer block: ``norm1``, ``mixer`` (``MLA`` when
+    ``cfg.use_mla``), and ``norm2`` and ``ffn``: an ``MoE`` when ``cfg.moe``
+    and not ``dense_ffn``, else a dense ``MLP`` (when ``cfg.d_ff``)."""
 
     def __init__(self, gen, cfg: ModelConfig, *, dtype: torch.dtype,
-                 device: Optional[torch.device] = None) -> None:
+                 device: Optional[torch.device] = None, dense_ffn: bool = False) -> None:
         dev = gen.device if gen is not None else device
         super().__init__({"norm1": torch.zeros((cfg.d_model,), dtype=dtype, device=dev)})
-        self.mixer = attn.Attention(gen, cfg, dtype=dtype, device=device)
-        if cfg.d_ff:
+        mixer = mla_mod.MLA if cfg.use_mla else attn.Attention
+        self.mixer = mixer(gen, cfg, dtype=dtype, device=device)
+        moe = cfg.moe and not dense_ffn
+        if moe or cfg.d_ff:
             self.register_parameter("norm2", nn.Parameter(
                 torch.zeros((cfg.d_model,), dtype=dtype, device=dev), requires_grad=False))
+        if moe:
+            self.ffn = moe_mod.MoE(gen, cfg, dtype=dtype, device=device)
+        elif cfg.d_ff:
             self.ffn = MLP(gen, cfg.d_model, cfg.d_ff, cfg.mlp_variant, dtype=dtype,
                            device=device)
 
@@ -89,7 +116,7 @@ def _layer_plan(cfg: ModelConfig) -> dict:
 
 
 class LM(ParamModule):
-    """The dense decoder-only LM.  ``gen`` draws every weight in a fixed
+    """The decoder-only LM.  ``gen`` draws every weight in a fixed
     order (the JAX package draws from split keys, so the two packages give
     different weights from one seed); with ``gen=None`` the weights are left
     uninitialised on ``device`` for loading."""
@@ -111,9 +138,18 @@ class LM(ParamModule):
         super().__init__(tensors)
         self.cfg = cfg
         self.prefix = nn.ModuleList(
-            Block(gen, cfg, dtype=dtype, device=dev) for _ in range(plan["prefix"]))
+            Block(gen, cfg, dtype=dtype, device=dev, dense_ffn=True)
+            for _ in range(plan["prefix"]))
         self.tail = nn.ModuleList(
             Block(gen, cfg, dtype=dtype, device=dev) for _ in range(plan["tail"]))
+        if cfg.mtp_depth:
+            # MTP depth-1 (deepseek-v3): built so that JAX weights convert;
+            # serving does not run it
+            self.mtp = ParamModule({
+                "proj": dense_init(gen, (2 * cfg.d_model, cfg.d_model), dtype=dtype, device=dev),
+                "norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+            })
+            self.mtp.block = Block(gen, cfg, dtype=dtype, device=dev, dense_ffn=not cfg.moe)
 
     @property
     def device(self) -> torch.device:
@@ -132,13 +168,22 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig, *,
 # forward (train / prefill shared body)
 # =============================================================================
 def _block_apply(bp, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, *,
-                 is_global=True) -> torch.Tensor:
+                 is_global=True, dense_ffn: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y, aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, bp["norm1"], cfg.norm_eps)
-    x = x + attn.attention(bp["mixer"], h, positions, cfg, is_global=is_global)
+    if cfg.use_mla:
+        x = x + mla_mod.mla_attention(bp["mixer"], h, positions, cfg)
+    else:
+        x = x + attn.attention(bp["mixer"], h, positions, cfg, is_global=is_global)
     if "ffn" in bp:
         h = rms_norm(x, bp["norm2"], cfg.norm_eps)
-        x = x + mlp_apply(bp["ffn"], h, cfg.mlp_variant)
-    return x
+        if cfg.moe and not dense_ffn:
+            y, aux = moe_mod.moe_apply(bp["ffn"], h, cfg)
+            x = x + y
+        else:
+            x = x + mlp_apply(bp["ffn"], h, cfg.mlp_variant)
+    return x, aux
 
 
 def _tokens(params: LM, tokens) -> torch.Tensor:
@@ -154,35 +199,40 @@ def _embed_inputs(params: LM, cfg: ModelConfig, batch: dict) -> tuple[torch.Tens
 
 
 def _layers(params: LM, cfg: ModelConfig):
-    """(block, is_global) over the whole stack, prefix then tail."""
+    """(block, is_global, dense_ffn) over the whole stack, prefix then tail."""
+    n_prefix = len(params["prefix"])
     blocks = [*params["prefix"], *params["tail"]]
-    return [(bp, cfg.is_global_layer(i)) for i, bp in enumerate(blocks)]
+    return [(bp, cfg.is_global_layer(i), i < n_prefix) for i, bp in enumerate(blocks)]
 
 
 def forward(params: LM, batch: dict,
             cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (x before the final norm (B,S,D),
-    logits, aux_loss).  While a gradient is recorded, each tail block is
-    recomputed in the backward (``jax.checkpoint`` of the JAX tail scan)."""
+    logits, aux_loss summed over the stack).  While a gradient is recorded,
+    each tail block is recomputed in the backward (``jax.checkpoint`` of the
+    JAX tail scan)."""
     check_supported(cfg)
     x, positions = _embed_inputs(params, cfg, batch)
-    n_prefix = len(params["prefix"])
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters())
-    for i, (bp, is_global) in enumerate(_layers(params, cfg)):
-        if remat and i >= n_prefix:
-            x = checkpoint(_block_apply, bp, x, positions, cfg, is_global=is_global,
-                           use_reentrant=False)
+    for bp, is_global, dense_ffn in _layers(params, cfg):
+        if remat and not dense_ffn:
+            x, aux = checkpoint(_block_apply, bp, x, positions, cfg, is_global=is_global,
+                                use_reentrant=False)
         else:
-            x = _block_apply(bp, x, positions, cfg, is_global=is_global)
+            x, aux = _block_apply(bp, x, positions, cfg, is_global=is_global,
+                                  dense_ffn=dense_ffn)
+        aux_total = aux_total + aux
     hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = hidden @ params.head()
-    return x, logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, logits, aux_total
 
 
 def train_loss(params: LM, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
-    """Next-token loss plus the aux loss (zero for the dense configs; the
-    MTP branch belongs to an unported family and raises in
-    ``check_supported``).  Returns (total, metrics)."""
+    """Next-token loss plus the aux loss (zero for the dense configs).  The
+    MoE and MTP configs raise in ``check_trainable``: their training is not
+    ported yet.  Returns (total, metrics)."""
+    check_trainable(cfg)
     _, logits, aux = forward(params, batch, cfg)
     loss = next_token_loss(logits, _tokens(params, batch["tokens"]))
     total = loss + aux
@@ -196,12 +246,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: Optional[torch.device] = None) -> dict:
     """Decode state organized like the layer plan: ``t`` (the next
     position, a Python int) and one cache dict per layer of ``prefix`` and
-    ``tail``.  As in the JAX package, the tail keeps full-length caches when
-    any of its layers is global, and ring buffers only when all are local."""
+    ``tail`` (compressed MLA caches when ``cfg.use_mla``).  As in the JAX
+    package, the tail keeps full-length caches when any of its layers is
+    global, and ring buffers only when all are local."""
     check_supported(cfg)
     dtype = torch_dtype(cfg.compute_dtype)
     plan = _layer_plan(cfg)
     cache: dict[str, Any] = {"t": 0}
+    if cfg.use_mla:
+        for part in ("prefix", "tail"):
+            if plan[part]:
+                cache[part] = [mla_mod.init_mla_cache(cfg, batch, max_len, dtype=dtype,
+                                                      device=device)
+                               for _ in range(plan[part])]
+        return cache
     if plan["prefix"]:
         cache["prefix"] = [
             attn.init_kv_cache(
@@ -223,13 +281,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def _block_decode(bp, x: torch.Tensor, lcache: dict, t: int, cfg: ModelConfig, *,
-                  is_global=True) -> torch.Tensor:
+                  is_global=True, dense_ffn: bool = False) -> torch.Tensor:
     h = rms_norm(x, bp["norm1"], cfg.norm_eps)
-    y, _ = attn.attention_decode(bp["mixer"], h, lcache, t, cfg, is_global=is_global)
+    if cfg.use_mla:
+        y, _ = mla_mod.mla_decode(bp["mixer"], h, lcache, t, cfg)
+    else:
+        y, _ = attn.attention_decode(bp["mixer"], h, lcache, t, cfg, is_global=is_global)
     x = x + y
     if "ffn" in bp:
         h = rms_norm(x, bp["norm2"], cfg.norm_eps)
-        x = x + mlp_apply(bp["ffn"], h, cfg.mlp_variant)
+        if cfg.moe and not dense_ffn:
+            # serving runs NO-DROP (cf = E/k caps capacity at the group size):
+            # inference must not silently drop tokens from experts
+            y, _ = moe_mod.moe_apply(bp["ffn"], h, cfg, group_size=h.shape[0],
+                                     capacity_factor=cfg.num_experts / cfg.top_k)
+            x = x + y
+        else:
+            x = x + mlp_apply(bp["ffn"], h, cfg.mlp_variant)
     return x
 
 
@@ -242,8 +310,8 @@ def decode_step(params: LM, cache: dict, tokens_new,
     t = cache["t"]
     x = params["embed"][_tokens(params, tokens_new)].to(cdt)
     layer_caches = [*cache.get("prefix", []), *cache.get("tail", [])]
-    for (bp, is_global), lc in zip(_layers(params, cfg), layer_caches):
-        x = _block_decode(bp, x, lc, t, cfg, is_global=is_global)
+    for (bp, is_global, dense_ffn), lc in zip(_layers(params, cfg), layer_caches):
+        x = _block_decode(bp, x, lc, t, cfg, is_global=is_global, dense_ffn=dense_ffn)
     cache["t"] = t + 1
     hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return hidden @ params.head(), cache

@@ -1,7 +1,9 @@
-"""Port's dense LM against the JAX package, on the reduced phi3, qwen1.5,
-gemma-2b and gemma3 configs: the JAX weights (``init_params`` from a PRNG
-key) are carried over as numpy (``convert.lm_params_from_numpy``) and both
-packages run the same numpy-seeded tokens.
+"""Port's LM against the JAX package, on the reduced phi3, qwen1.5,
+gemma-2b and gemma3 configs and the reduced MLA + MoE configs
+(deepseek-v2-lite, deepseek-v3 with its query LoRA and MTP subtree): the JAX
+weights (``init_params`` from a PRNG key) are carried over as numpy
+(``convert.lm_params_from_numpy``) and both packages run the same
+numpy-seeded tokens.  Integer results (the MLA caches' ``pos``) are exact.
 
 Tolerances: in float32 both packages do the same arithmetic and differ in
 summation order only (matmul blocking, einsum order), so logits and caches
@@ -41,8 +43,10 @@ TOL = 1e-4
 # forward measures 0.051 on the CPU
 BF16_TOL = 0.1
 ARCHS = ["phi3-medium-14b", "qwen1.5-4b", "gemma-2b", "gemma3-1b"]
-UNPORTED = ["deepseek-v2-lite-16b", "deepseek-v3-671b", "mamba2-2.7b", "zamba2-7b",
-            "pixtral-12b", "whisper-tiny"]
+MOE_ARCHS = ["deepseek-v2-lite-16b", "deepseek-v3-671b"]
+UNPORTED = ["mamba2-2.7b", "zamba2-7b", "pixtral-12b", "whisper-tiny"]
+# jitted: JAX's op-by-op dispatch compiles every op of the MoE/MLA stacks
+_jax_init = jax.jit(japi.init_params, static_argnames=("cfg",))
 
 
 def _configs(arch, dtype="float32", impl="xla"):
@@ -58,7 +62,7 @@ def _models(arch, dtype="float32", impl="xla"):
     """(jax cfg, port cfg, jax params, port LM) with the same weights."""
     jc, tc = _configs(arch, dtype, impl)
     if (arch, dtype) not in _PARAMS:
-        jp = japi.init_params(jax.random.PRNGKey(7), jc)
+        jp = _jax_init(jax.random.PRNGKey(7), cfg=jc)
         tree = jax.tree.map(np.asarray, jp)
         _PARAMS[arch, dtype] = (jp, lm_params_from_numpy(tc, tree, device="cpu"))
     return (jc, tc, *_PARAMS[arch, dtype])
@@ -283,3 +287,125 @@ def test_full_config_sizes():
     n = sum(p.numel() for p in model.parameters())
     assert n == cfg.param_counts()["total"] + cfg.d_model and 14.5e9 < n < 14.8e9
     assert len(model.tail) == 40 and model.tail[0].mixer.wk.shape == (5120, 1280)
+
+
+# -- the MLA + MoE family --------------------------------------------------------
+def _no_drop(cfg):
+    return dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_params_round_trip(arch):
+    """The JAX tree (the ``mtp`` subtree included) converts into the port
+    and back; the MoE routers stay float32 in a bfloat16 model."""
+    jc, tc, jp, model = _models(arch, "bfloat16")
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32), jp)
+    back = lm_params_to_numpy(model)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
+        assert a.shape == b.shape and np.array_equal(a, b)
+    params = dict(model.named_parameters())
+    assert params["tail.0.ffn.router"].dtype == torch.float32
+    assert params["tail.0.ffn.w_gate"].dtype == torch.bfloat16
+    assert params["prefix.0.ffn.w_gate"].ndim == 2  # the leading dense layer
+    assert ("mtp.block.ffn.router" in params) == bool(tc.mtp_depth)
+    assert ("tail.0.mixer.wq_a" in params) == bool(tc.q_lora_rank)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forward_logits_and_aux_match_jax(arch):
+    jc, tc, jp, model = _models(arch)
+    toks = _tokens(jc, 2, 40, seed=1)
+    _, want, want_aux = jax.jit(jlm.forward, static_argnames=("cfg",))(
+        jp, {"tokens": jnp.asarray(toks)}, cfg=jc)
+    _, got, aux = lm.forward(model, {"tokens": torch.from_numpy(toks)}, tc)
+    assert got.shape == (2, 40, tc.vocab_size) and float(aux) > 0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decode_steps_and_caches_match_jax(arch):
+    jc, tc, jp, model = _models(arch)
+    toks = _tokens(jc, 2, 8, seed=2)
+    jcache = japi.init_cache(jc, 2, 12)
+    tcache = api.init_cache(tc, 2, 12, device="cpu")
+    jstep = jax.jit(lambda p, c, t: japi.decode_step(p, c, t, jc))
+    for i in range(8):
+        jl, jcache = jstep(jp, jcache, jnp.asarray(toks[:, i:i + 1]))
+        tl, tcache = api.decode_step(model, tcache, torch.from_numpy(toks[:, i:i + 1]), tc)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
+    mine, theirs = kv_cache_to_numpy(tcache), jax.tree.map(np.asarray, jcache)
+    assert jax.tree.structure(mine) == jax.tree.structure(theirs)
+    assert sorted(mine["tail"]) == ["c_kv", "k_pe", "pos"] and int(mine["t"]) == 8
+    for la, lb in zip(jax.tree.leaves(mine), jax.tree.leaves(theirs)):
+        assert la.shape == lb.shape and la.dtype == lb.dtype
+        np.testing.assert_allclose(la, lb, rtol=TOL, atol=TOL)
+    np.testing.assert_array_equal(mine["tail"]["pos"], theirs["tail"]["pos"])
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_prefill_matches_jax_and_no_drop_forward(arch):
+    """The stepped prefill (absorbed MLA, no-drop MoE per step) equals JAX's,
+    and its argmax equals a no-drop full-sequence forward's at every
+    position (JAX's ``test_decode_steps_match_prefill``)."""
+    jc, tc, jp, model = _models(arch)
+    toks = _tokens(jc, 2, 10, seed=4)
+    jl, _ = jax.jit(jlm.prefill, static_argnames=("cfg", "max_len"))(
+        jp, jnp.asarray(toks), cfg=jc, max_len=16)
+    tl, tcache = lm.prefill(model, torch.from_numpy(toks), tc, max_len=16)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
+    assert tcache["t"] == 10
+    full = steps.make_prefill_step(_no_drop(tc))(model, {"tokens": toks})
+    np.testing.assert_array_equal(tl.argmax(-1).numpy(), full.argmax(-1).numpy())
+    np.testing.assert_allclose(tl.numpy(), full.numpy(), rtol=TOL, atol=TOL)
+    tnext, _ = steps.make_serve_step(tc)(model, api.init_cache(tc, 2, 4, device="cpu"),
+                                         toks[:, :1])
+    np.testing.assert_array_equal(tnext.numpy(), tl[:, 0].argmax(-1).numpy())
+
+
+def test_moe_bf16_close_to_jax():
+    jc, tc, jp, model = _models("deepseek-v2-lite-16b", "bfloat16")
+    toks = _tokens(jc, 2, 32, seed=5)
+    # op by op, as the dense bf16 test runs it: under jit XLA fuses and
+    # rounds at other places than PyTorch does
+    want = _f32(japi.forward_logits(jp, {"tokens": jnp.asarray(toks)}, jc))
+    got = api.forward_logits(model, {"tokens": toks}, tc)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(got), want, rtol=0, atol=BF16_TOL)
+    jcache, tcache = japi.init_cache(jc, 2, 8), api.init_cache(tc, 2, 8, device="cpu")
+    assert tcache["tail"][0]["c_kv"].dtype == torch.bfloat16
+    for i in range(4):
+        jl, jcache = japi.decode_step(jp, jcache, jnp.asarray(toks[:, i:i + 1]), jc)
+        tl, tcache = api.decode_step(model, tcache, toks[:, i:i + 1], tc)
+        np.testing.assert_allclose(_f32(tl), _f32(jl), rtol=0, atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_training_raises(arch):
+    """Training the MoE/MTP family is not ported yet: the loss and the train
+    step raise, naming the ROADMAP."""
+    jc, tc, jp, model = _models(arch)
+    batch = {"tokens": _tokens(tc, 1, 8)}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        api.train_loss(model, batch, tc)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        steps.make_train_step(tc, None)
+
+
+def test_full_deepseek_v2_lite_size():
+    """deepseek-v2-lite-16b at full width on the meta device: the config's
+    parameter count plus the norms ``param_counts`` leaves out (the final
+    norm and each layer's ``kv_norm``)."""
+    cfg = get_config("deepseek-v2-lite-16b")
+    model = lm.LM(cfg, device="meta")
+    n = sum(p.numel() for p in model.parameters())
+    total = cfg.param_counts()["total"]
+    assert total == 15_706_468_352
+    assert n == total + cfg.d_model + cfg.num_layers * cfg.kv_lora_rank
+    assert len(model.prefix) == 1 and len(model.tail) == 26
+    assert model.tail[0].ffn.w_gate.shape == (64, 2048, 1408)
+    assert model.tail[0].ffn.shared.w_gate.shape == (2048, 2816)
+    assert model.tail[0].ffn.router.dtype == torch.float32
+    assert model.tail[0].mixer.wkv_a.shape == (2048, 576)
+    assert model.prefix[0].ffn.w_gate.shape == (2048, 10_944)
