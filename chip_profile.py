@@ -19,8 +19,14 @@ each under ``torch.profiler`` (``lm_train_trace``).  Between the two, 8
 decode steps of deepseek-v2-lite-16b at full width (8 requests, seeded bf16
 weights) under ``torch.profiler`` (``moe_decode_trace``), their device time
 split into the MoE dispatch, the expert einsums, the shared experts, MLA and
-the rest.  The untraced times are those ``chip_smoke.py`` prints.  Exits
-non-zero without a CUDA device.
+the rest.  Last, one train step of ``chip_smoke.py``'s ``lm_moe_train``
+(deepseek-v2-lite-16b at full width cut to ``MOE_TRAIN_LAYERS`` layers, a
+4 x 2,048 batch): its forward + backward traced with the forward and the
+backward each split into those parts, then its AdamW update
+(``moe_train_trace``).  Before all of these it runs ``lm_moe_train`` at
+the 6 layers (1 dense + 5 MoE) its depth was first cut to, whose peak
+memory decided the cut to 4 (``moe_train_depth``).  The untraced times are
+those ``chip_smoke.py`` prints.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
+from repro_torch.models import lm as lm_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 
@@ -215,6 +222,95 @@ def moe_decode_trace(card: str, steps: int = 8) -> None:
                        weight_read_bound_ms=weight_bytes / cs.HBM_BYTES_PER_S * 1e3)})
 
 
+# the parts of a MoE/MLA train step, by the innermost range an op runs in;
+# a block's own ops (norms, residual adds, the dense layer's FFN) are the rest
+TRAIN_RANGES = (*(r for r in MOE_RANGES if r[0] != "mla_decode"),
+                ("mla_attention", mla_mod, "mla_attention"), ("block", lm_mod, "_block_apply"))
+PART_OF = {"moe_expert_ffn": "expert_einsums", "moe_route": "dispatch",
+           "moe_dispatch_ffn_combine": "dispatch", "moe_apply": "shared_experts",
+           "mla_attention": "mla", "block": "rest"}
+BACKWARD_NODE = "autograd::engine::evaluate_function"
+
+
+def train_split(tp, time_of) -> dict:
+    """Device time of a traced forward + backward by phase and part.  Each
+    host op's own device time (``time_of``) goes to the innermost
+    ``TRAIN_RANGES`` range or backward node above it.  Under a range: that
+    range's part, in the forward, or in the backward when a backward node
+    is above the range (a checkpointed block recomputed).  Under a backward
+    node first: the part of the forward op that created the node (matched
+    by sequence number), else the rest."""
+    def owner(e):
+        """(range label or backward node, whether a backward node is above)."""
+        first, node = None, e
+        while node is not None:
+            if first is None and (node.name in PART_OF or node.name.startswith(BACKWARD_NODE)):
+                first = node
+            elif first is not None and node.name.startswith(BACKWARD_NODE):
+                return first, True
+            node = node.cpu_parent
+        return first, False
+
+    events = [e for e in tp.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    fwd_part = {}
+    for e in events:
+        top, in_bwd = owner(e)
+        if e.sequence_nr >= 0 and not in_bwd and not (
+                top is not None and top.name.startswith(BACKWARD_NODE)):
+            fwd_part[e.sequence_nr] = PART_OF.get(getattr(top, "name", None), "rest")
+    split = {ph: dict.fromkeys(["mla", "dispatch", "expert_einsums", "shared_experts", "rest"],
+                               0.0) for ph in ("forward", "backward")}
+    for e in events:
+        t = time_of(e)
+        if not t:
+            continue
+        top, in_bwd = owner(e)
+        if top is None:
+            split["forward"]["rest"] += t
+        elif top.name.startswith(BACKWARD_NODE):
+            split["backward"][fwd_part.get(top.sequence_nr, "rest")] += t
+        else:
+            split["backward" if in_bwd else "forward"][PART_OF[top.name]] += t
+    return split
+
+
+def moe_train_trace(card: str) -> None:
+    """One train step of ``chip_smoke.py``'s ``lm_moe_train`` (its depth,
+    batch and optimizer) after a warm-up step: ``loss_and_grads`` traced
+    with each function of ``TRAIN_RANGES`` in a ``record_function`` range
+    of its name (for the trace only), its device time split by
+    ``train_split``; then the AdamW update traced alone."""
+    cfg = dataclasses.replace(cs.get_config(cs.MOE_ARCH), num_layers=cs.MOE_TRAIN_LAYERS)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    optimizer = cs.lm_train.train_optimizer(cs.TRAIN_LR, cs.TRAIN_STEPS)
+    state = cs.TrainState.create(cs.api.init_params(0, cfg, device=dev), optimizer)
+    batch = cs.api.make_dummy_batch(cfg, cs.TRAIN_BATCH, cs.TRAIN_SEQ, seed=3, device=dev)
+    state, _ = cs.make_train_step(cfg, optimizer)(state, batch)  # warm-up
+    grads = {}
+    real = {label: getattr(mod, name) for label, mod, name in TRAIN_RANGES}
+    for label, mod, name in TRAIN_RANGES:
+        setattr(mod, name, _in_range(label, real[label]))
+    try:
+        wall, tp = profiled(
+            lambda: grads.update(cs.loss_and_grads(state.params, batch, cfg)[1]), dev)
+    finally:
+        for label, mod, name in TRAIN_RANGES:
+            setattr(mod, name, real[label])
+    ops = device_ops(tp, ranges=real)
+    split = train_split(tp, lambda e: e.self_device_time_total / 1e3)
+    cs.emit({"phase": "moe_train_trace", "card": card, "arch": cfg.name,
+             "layers": cfg.num_layers, "part": "fwd_bwd",
+             **summary(f"loss_and_grads at {cs.TRAIN_BATCH} x {cs.TRAIN_SEQ}", wall, ops,
+                       device_ms=split,
+                       device_launches=sum(v["count"] for v in ops.values()))})
+    named = dict(state.params.named_parameters())
+    wall, ops = traced(lambda: optimizer.update(grads, state.opt, named), dev)
+    cs.emit({"phase": "moe_train_trace", "card": card, "arch": cfg.name,
+             "layers": cfg.num_layers, "part": "optimizer",
+             **summary("one AdamW update (float32 moments)", wall, ops,
+                       device_launches=sum(v["count"] for v in ops.values()))})
+
+
 def train_trace(card: str) -> None:
     """One train step of ``chip_smoke.py``'s ``lm_train`` shape, split into
     its forward + backward (``loss_and_grads``) and its optimizer update,
@@ -245,6 +341,11 @@ def main() -> int:
         return 2
     card = cs.card_line()
     cs.native.library()
+    # moe_train_depth, first: its peak (78.97 GB of 85.02 on an NVIDIA H100
+    # 80GB HBM3, 700.00 W) leaves no room for a cache that other phases left
+    # fragmented (after them it ran out of memory on the same card)
+    cs.phase_lm_moe_train(cs.get_config(cs.MOE_ARCH), cs.MOE_TRAIN_LAYERS_TRIED)
+    torch.cuda.empty_cache()
     prof = cProfile.Profile()
     t0 = time.perf_counter()
     prof.enable()
@@ -284,6 +385,8 @@ def main() -> int:
     moe_decode_trace(card)
     torch.cuda.empty_cache()
     train_trace(card)
+    torch.cuda.empty_cache()
+    moe_train_trace(card)
     print(card, flush=True)
     return 0
 

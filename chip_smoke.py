@@ -95,12 +95,35 @@ port's paths on the card through the entry points a user calls:
      ``scaled_dot_product_attention``'s forward and backward; and the
      driver's kill at step 9 and resume (``train.main``, reduced gemma-2b, the
      JAX driver test's arguments), bit-identical to an uninterrupted run;
-  14. the ``kernels`` line: launches, errors, times and bounds per kernel.
+  14. ``moe_backward``: ``moe_dispatch``'s layer and tokens (gemma-2b freed
+     first), forward + backward: every gradient leaf of the sort dispatch
+     (x, the float32 router, the expert stacks, the shared experts) within
+     2^-5 of the largest entry of the einsum oracle's, the routing of the
+     two identical, no host sync, the time beside three times the forward's
+     bound;
+  15. ``lm_moe_train``: the train path at deepseek-v2-lite-16b's published
+     width (d_model 2,048, MLA R 512, 64 experts top-6 + 2 shared, F 1,408,
+     vocab 102,400) cut to ``MOE_TRAIN_LAYERS`` layers (1 dense + 3 MoE:
+     at 6 the step's peak is above 75 GB), seeded random bf16
+     weights (float32 routers), float32 AdamW moments, 8 steps on 4 x 2,048
+     loader batches at the config's capacity factor: finite losses and aux
+     losses, each MoE layer's dropped share at the first and the last step,
+     every recompute routing as its forward, no kernel launch, peak memory
+     under the card's; then ``train.main``'s kill at step 9 and resume on
+     reduced deepseek-v3 (MLA with query LoRA, MoE, MTP), bit-identical;
+  16. ``moe_train_parity``: reduced deepseek-v2-lite and reduced
+     deepseek-v3 in float32 (TF32 off), 4 train steps on the card against
+     the same 4 on the CPU from the same weights: routing identical at
+     every step, losses, parameters and moments within the CPU tests'
+     bounds;
+  17. the ``kernels`` line: launches, errors, times and bounds per kernel.
 
 Each path (``scan_merge``, the main path, ``offline_retrieval``, ``geo``,
 ``lm_serve``, ``lm_prefill``, ``lm_moe_serve``, ``lm_moe_prefill``,
-``lm_train``) runs with the launch counts zeroed just before it and read
-just after, and must have launched each kernel of its own path.
+``lm_train``, ``lm_moe_train``) runs with the launch counts zeroed just
+before it and read just after, and must have launched each kernel of its
+own path (``lm_moe_train``'s path launches none of them: MLA and the MoE
+dispatch are plain PyTorch, as they are XLA ops in the JAX package).
 
 Each phase prints one JSON line; any failed check raises, so the run exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -164,6 +187,12 @@ from repro_torch.kernels.flash_attn import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import attention_ref  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.offline_store import CREATION_TS  # noqa: E402
+from repro_torch.convert import (  # noqa: E402
+    _port_named,
+    lm_params_from_numpy,
+    lm_params_to_numpy,
+    train_state_to_numpy,
+)
 from repro_torch.data.loader import FeatureStoreLoader  # noqa: E402
 from repro_torch.launch.serve import build_serving_plane, serve  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import attention_bwd_ref  # noqa: E402
@@ -235,6 +264,18 @@ MOE_CF = 1.25  # the config's train-time capacity factor: 4 groups of 2,048 toke
 # (one more rounding).  About 2k + 2 roundings of at most half a bfloat16
 # step (2**-9 relative) each: 2**-5 of the output's largest magnitude
 MOE_TOL = 2**-5
+# lm_moe_train: deepseek-v2-lite's depth cut from 27 layers to 1 dense + 3 MoE.
+# At 1 dense + 5 MoE the step peaked at 78.97 GB (NVIDIA H100 80GB HBM3,
+# 700.00 W; chip_profile.py's moe_train_depth runs that depth), above the
+# 75 GB the cut allows: AdamW's update is out of place, so the old and the
+# new float32 moments are alive together, 22 bytes a parameter in all
+MOE_TRAIN_LAYERS, MOE_TRAIN_LAYERS_TRIED = 4, 6
+MOE_KILL_ARGS = ["--arch", "deepseek-v3-671b", *TRAIN_KILL_ARGS[2:]]
+# moe_train_parity: the CPU tests' bounds (tests/test_torch_train.py): in
+# float32 the card and the CPU differ in summation order only
+TRAJ_TOL, PARAM_REL_RMS = 1e-4, 1e-3
+PARITY_ARCHS = ("deepseek-v2-lite-16b", "deepseek-v3-671b")
+PARITY_STEPS, PARITY_BATCH, PARITY_SEQ = 4, 4, 64
 L2_FLUSH_BYTES = 128 << 20  # written before a launch to empty the 50 MB L2
 SLEEP_CYCLES = 50_000_000  # a sleep kernel of about 25 ms on an H100
 COUNTERS = (lookup_ops.counter, rolling_ops.counter, pit_ops.counter, merge_ops.counter,
@@ -1835,23 +1876,38 @@ def phase_lm_prefill(cfg, served: dict, kernel_ms: float) -> dict:
 
 
 # -- the MLA + MoE family ------------------------------------------------------------
-def moe_drop_shares(fn) -> list:
-    """The share of assignments each MoE call drops while ``fn()`` runs,
-    in call order: ``moe._dispatch_indices`` is observed for the call and
-    put back after it."""
-    real, kept = moe_mod._dispatch_indices, []
+def observe(name: str, fn) -> tuple:
+    """``fn()``'s result and each call it made to ``moe.<name>``, as
+    (arguments, result) in call order; the function is put back after."""
+    real, calls = getattr(moe_mod, name), []
 
-    def observed(idx_k, e, cap):
-        dst, keep = real(idx_k, e, cap)
-        kept.append(keep.float().mean())
-        return dst, keep
+    def observed(*args):
+        out = real(*args)
+        calls.append((args, out))
+        return out
 
-    moe_mod._dispatch_indices = observed
+    setattr(moe_mod, name, observed)
     try:
-        fn()
+        return fn(), calls
     finally:
-        moe_mod._dispatch_indices = real
-    return [1.0 - float(k) for k in kept]
+        setattr(moe_mod, name, real)
+
+
+def drop_shares(dispatches: list) -> list:
+    """The share of assignments each observed ``_dispatch_indices`` call
+    dropped."""
+    return [1.0 - float(keep.float().mean()) for _, (_, keep) in dispatches]
+
+
+def moe_layer_and_tokens(cfg, device: str):
+    """``moe_dispatch``'s MoE layer (seeded bf16 weights, float32 router) and
+    its PREFILL_BATCH x PREFILL_SEQ tokens: normal draws plus one normal
+    offset shared by all of them, which skews the router's load."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = moe_mod.MoE(gen, cfg, dtype=torch.bfloat16)
+    b, s, d = PREFILL_BATCH, PREFILL_SEQ, cfg.d_model
+    x = torch.randn((b, s, d), generator=gen, device=device)
+    return params, (x + torch.randn((d,), generator=gen, device=device)).bfloat16()
 
 
 def phase_moe_dispatch(cfg, device: str) -> dict:
@@ -1861,17 +1917,14 @@ def phase_moe_dispatch(cfg, device: str) -> dict:
     output's scale); the share of assignments dropped, which must be above 0
     (the capacity binds); ``_dispatch_indices`` on the card's ``idx_k``
     byte-identical to the same call on the CPU; ``moe_apply`` once with
-    synchronizing ops made errors; the times of both.  The tokens are normal
-    draws plus one normal offset shared by all of them, as hidden states
-    share a mean direction: it skews the router's load.  The bound counts
+    synchronizing ops made errors; the times of both.  The tokens share a
+    mean direction, as hidden states do (``moe_layer_and_tokens``).  The
+    bound counts
     the products the kept assignments and the shared experts need on the
     bf16 tensor cores, and one read of the weights and the tokens and one
     write of the output."""
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = moe_mod.MoE(gen, cfg, dtype=torch.bfloat16)
-    b, s, d = PREFILL_BATCH, PREFILL_SEQ, cfg.d_model
-    x = torch.randn((b, s, d), generator=gen, device=device)
-    x = (x + torch.randn((d,), generator=gen, device=device)).bfloat16()
+    params, x = moe_layer_and_tokens(cfg, device)
+    b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     group = 2048
     apply = lambda: moe_mod.moe_apply(params, x, cfg, group_size=group,  # noqa: E731
@@ -1961,7 +2014,7 @@ def phase_lm_moe_prefill(cfg, served: dict) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = read_counts()
     check(launches["flash_attn"] == 0, "MLA takes the einsum path, not the flash kernel")
-    drops = moe_drop_shares(lambda: step(params, {"tokens": tokens}))
+    drops = drop_shares(observe("_dispatch_indices", lambda: step(params, {"tokens": tokens}))[1])
     check(len(drops) == cfg.num_layers - cfg.first_dense_layers, "one dispatch per MoE layer")
     n_tok = PREFILL_BATCH * PREFILL_SEQ
     row = {
@@ -2042,25 +2095,23 @@ def leaf_agreement(got: dict, want: dict) -> dict:
             "median_rel_rms": float(np.median(list(rel.values())))}
 
 
-def kill_and_resume(root: Path, device: str = "cuda") -> dict:
-    """``train.main`` on the card with the JAX driver test's arguments: an
-    uninterrupted run, a run killed at step 9 (exit 17) and its resume from
-    step 8's checkpoint, whose losses must equal the uninterrupted ones bit
-    for bit."""
+def kill_and_resume(root: Path, device: str = "cuda", args=TRAIN_KILL_ARGS) -> dict:
+    """``train.main`` on the card with ``args`` (by default the JAX driver
+    test's): an uninterrupted run, a run killed at step 9 (exit 17) and its
+    resume from step 8's checkpoint, whose losses must equal the
+    uninterrupted ones bit for bit."""
     if root.exists():
         shutil.rmtree(root)
     try:
-        ref = lm_train.main(TRAIN_KILL_ARGS + ["--ckpt-dir", str(root / "uninterrupted")],
-                            device=device)
+        ref = lm_train.main(args + ["--ckpt-dir", str(root / "uninterrupted")], device=device)
         code = None
         try:
-            lm_train.main(TRAIN_KILL_ARGS + ["--ckpt-dir", str(root / "killed"), "--kill-at", "9"],
+            lm_train.main(args + ["--ckpt-dir", str(root / "killed"), "--kill-at", "9"],
                           device=device)
         except SystemExit as e:
             code = e.code
         check(code == 17, "the killed run exits 17 at step 9")
-        resumed = lm_train.main(TRAIN_KILL_ARGS + ["--ckpt-dir", str(root / "killed")],
-                                device=device)
+        resumed = lm_train.main(args + ["--ckpt-dir", str(root / "killed")], device=device)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     check(resumed["start_step"] == 9 and ref["steps_run"] == 12, "the resume starts at step 9")
@@ -2167,6 +2218,239 @@ def phase_lm_train(cfg, rng, device: str = "cuda") -> dict:
     }
     emit(row)
     return {"row": row}
+
+
+def phase_moe_backward(cfg, device: str, forward: dict) -> dict:
+    """``moe_dispatch``'s layer and tokens, forward + backward of
+    sum(y · ct) + aux under a seeded bf16 cotangent ``ct``: each gradient
+    leaf of the sort dispatch within ``MOE_TOL`` of the largest entry of
+    the einsum oracle's (the forward's bound: the backward's roundings are
+    those of the forward's products, transposed); both routed alike (each
+    ``_route`` call's ``idx_k``); the sort path's forward + backward with
+    synchronizing ops made errors; its time beside three times the
+    forward's bound (a backward does twice a forward's products).
+    ``forward`` is ``moe_dispatch``'s row."""
+    params, x = moe_layer_and_tokens(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    ct = torch.randn(x.shape, generator=gen, device=device).bfloat16()
+    params.requires_grad_(True)
+    leaves = dict(params.named_parameters())
+    xl = x.clone().requires_grad_(True)
+    names, wrt = ["x", *leaves], [xl, *leaves.values()]
+
+    def grads(apply):
+        y, aux = apply(params, xl, cfg, group_size=2048, capacity_factor=MOE_CF)
+        return torch.autograd.grad((y.float() * ct.float()).sum() + aux, wrt)
+
+    sort = lambda: grads(moe_mod.moe_apply)  # noqa: E731
+    got, sort_routes = observe("_route", sort)
+    want, oracle_routes = observe("_route", lambda: grads(moe_mod.moe_apply_einsum))
+    check(len(sort_routes) == len(oracle_routes) == 1, "one routing a call")
+    flipped = int((sort_routes[0][1][1] != oracle_routes[0][1][1]).sum())
+    check(flipped == 0, "the sort dispatch and the oracle route alike")
+    errs = {}
+    for name, g, w in zip(names, got, want):
+        err, scale = float((g.float() - w.float()).abs().max()), float(w.float().abs().max())
+        check(g.dtype == w.dtype == leaves.get(name, xl).dtype and bool(torch.isfinite(g).all())
+              and scale > 0, f"the {name} gradient is finite, nonzero, of its leaf's dtype")
+        check(err <= MOE_TOL * scale, f"the {name} gradient within {MOE_TOL} of the oracle's scale")
+        errs[name] = {"max_abs_err": err, "max_abs": scale}
+    del got, want
+    check_sync_free("moe_backward", sort,
+                    f"{cfg.name} MoE layer, {x.shape[0]} x {x.shape[1]} tokens, cf {MOE_CF}, "
+                    "forward + backward")
+    row = {
+        "phase": "moe_backward", "arch": cfg.name, "tokens": x.shape[0] * x.shape[1],
+        "capacity_factor": MOE_CF, "capacity": forward["capacity"],
+        "dropped_share": forward["dropped_share"], "flipped_assignments": flipped,
+        "tol": MOE_TOL, "grads": errs, "sync_free": True,
+        "ms": cuda_ms(sort, 5), "forward_ms": forward["ms"],
+        "bound_ms": 3 * forward["bound_ms"], "bound_by": forward["bound_by"],
+        "bound": "3 x moe_dispatch's bound",
+        "oracle_ms": cuda_ms(lambda: grads(moe_mod.moe_apply_einsum), 3),
+    }
+    emit(row)
+    return row
+
+
+def routes_of(dispatches: list) -> list:
+    """(idx_k, keep) of each observed ``_dispatch_indices`` call, on the CPU."""
+    return [(args[0].cpu(), out[1].cpu()) for args, out in dispatches]
+
+
+def phase_lm_moe_train(cfg, layers: int, device: str = "cuda") -> dict:
+    """The train path at the config's width cut to ``layers`` layers, then
+    the driver's kill and resume on reduced deepseek-v3.  The first and the
+    last step run with the dispatches observed: each MoE layer dispatches
+    twice a step (forward, then the checkpointed recompute in the
+    backward), the recompute exactly as the forward, and the forward's
+    dropped shares are reported."""
+    cfg = dataclasses.replace(cfg, num_layers=layers)
+    n_moe = layers - cfg.first_dense_layers
+    t0 = time.perf_counter()
+    fs, loader = lm_train.build_data_plane(cfg, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0,
+                                           device=device)
+    fill_history(loader, 6)
+    batches = [loader.sample_batch(step) for step in range(TRAIN_STEPS)]
+    plane_s = time.perf_counter() - t0
+    for b in batches:
+        check(b["tokens"].shape == (TRAIN_BATCH, TRAIN_SEQ), "the loader batch is 4 x 2,048")
+        check(bool((b["__max_event_ts__"] <= b["__observation_ts__"]).all()),
+              "no token from after the loader's clock")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(0, cfg, device=device)
+    optimizer = lm_train.train_optimizer(TRAIN_LR, TRAIN_STEPS)
+    state = TrainState.create(params, optimizer)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    counts = cfg.param_counts()
+    n_params = sum(p.numel() for p in params.parameters())
+    # the config's count leaves out the final and the latent norms' weights
+    uncounted = sum(p.numel() for n, p in params.named_parameters()
+                    if n.endswith(("final_norm", "kv_norm", "q_norm")))
+    check(n_params - uncounted == counts["total"], "the model holds the config's parameters")
+    routers = [p for n, p in params.named_parameters() if n.endswith("ffn.router")]
+    check(len(routers) == n_moe and all(p.dtype == torch.float32 for p in routers),
+          "one float32 router a MoE layer")
+    train_step = make_train_step(cfg, optimizer)
+
+    reset_counts()
+    losses, aux, step_s, drops = [], [], [], {}
+    for i, b in enumerate(batches):
+        tokens = torch.as_tensor(b["tokens"], device=device)
+        t0 = time.perf_counter()
+        if i in (0, TRAIN_STEPS - 1):
+            (state, metrics), seen = observe("_dispatch_indices",
+                                             lambda: train_step(state, {"tokens": tokens}))
+        else:
+            state, metrics = train_step(state, {"tokens": tokens})
+        losses.append(float(metrics["lm_loss"]))
+        aux.append(float(metrics["aux_loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if i in (0, TRAIN_STEPS - 1):
+            check(len(seen) == 2 * n_moe, "each MoE layer dispatches twice a step")
+            fwd, rec = routes_of(seen[:n_moe]), routes_of(seen[n_moe:][::-1])
+            check(all(torch.equal(fi, ri) and torch.equal(fk, rk)
+                      for (fi, fk), (ri, rk) in zip(fwd, rec)),
+                  "each recompute routes exactly as its forward")
+            drops["first" if i == 0 else "last"] = drop_shares(seen[:n_moe])
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    check(all(np.isfinite(losses)) and all(np.isfinite(aux)), "losses and aux losses are finite")
+    check(not any(launches.values()), "the MLA + MoE train path launches none of the kernels")
+    check(peak_gb < card_gb, "peak memory under the card's")
+    check(all(0 <= d < 1 for d in drops["first"] + drops["last"]), "dropped shares in [0, 1)")
+
+    # the optimizer alone, on one state and batch
+    torch.cuda.empty_cache()
+    _, grads = loss_and_grads(state.params, {"tokens": tokens}, cfg)
+    named = dict(state.params.named_parameters())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    update = optimizer.update(grads, state.opt, named)
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t0
+    check(update[0]["tail.0.ffn.router"].dtype == update[1]["m"]["tail.0.ffn.router"].dtype
+          == torch.float32, "the router stays float32 through AdamW")
+    del update, grads, named, state, params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    resume = kill_and_resume(ROOT / "build" / "lm_moe_train_ckpt", device, MOE_KILL_ARGS)
+    resume_s = time.perf_counter() - t0
+
+    tokens_n = TRAIN_BATCH * TRAIN_SEQ
+    steady = float(np.median(step_s[1:]))
+    row = {
+        "phase": "lm_moe_train", "arch": cfg.name, "layers": layers,
+        "published_layers": get_config(cfg.name).num_layers,
+        "depth_cut": (f"{MOE_TRAIN_LAYERS_TRIED} layers peak above 75 GB"
+                      if layers < MOE_TRAIN_LAYERS_TRIED else None),
+        "dense_layers": cfg.first_dense_layers, "moe_layers": n_moe, "d_model": cfg.d_model,
+        "experts": cfg.num_experts, "top_k": cfg.top_k, "moe_d_ff": cfg.moe_d_ff,
+        "shared_experts": cfg.num_shared_experts, "kv_lora_rank": cfg.kv_lora_rank,
+        "vocab": cfg.vocab_size, "params": n_params, "params_formula": counts["total"],
+        "active_params": counts["active"],
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "capacity_factor": cfg.capacity_factor, "loader_clock_h": loader.clock / HOUR,
+        "plane_s": plane_s, "init_s": init_s, "losses": losses, "aux_losses": aux,
+        "first_step_s": step_s[0], "step_s": steady, "step_s_all": step_s,
+        "train_tokens_per_s": tokens_n / steady,
+        "mfu": 6 * counts["active"] * tokens_n / steady / BF16_OPS_PER_S,
+        "mfu_formula": "6 * active params * tokens / step_s / 989e12",
+        "mfu_total_params": 6 * n_params * tokens_n / steady / BF16_OPS_PER_S,
+        "optimizer_s": opt_s, "optimizer_share": opt_s / steady,
+        "peak_gb": peak_gb, "card_gb": card_gb, "launches": launches,
+        "dropped_share_per_moe_layer": drops, "recompute_routes_as_forward": True,
+        "kill_resume": {**resume, "arch": MOE_KILL_ARGS[1], "seconds": resume_s},
+    }
+    emit(row)
+    return {"row": row}
+
+
+def phase_moe_train_parity(device: str = "cuda") -> dict:
+    """``PARITY_STEPS`` train steps of each of ``PARITY_ARCHS``, reduced and in
+    float32, on the card (TF32 off) and on the CPU from the same weights
+    (the card's seeded draw carried over with ``lm_params_from_numpy``) and
+    the same seeded batches: every dispatch of every step routed alike
+    (``idx_k`` and ``keep``), every metric within TRAJ_TOL (relative), each
+    parameter and moment leaf within PARAM_REL_RMS relative RMS."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is off")
+    rows = {}
+    for arch in PARITY_ARCHS:
+        cfg = dataclasses.replace(get_config(arch, reduced=True), param_dtype="float32",
+                                  compute_dtype="float32")
+        tree = lm_params_to_numpy(api.init_params(0, cfg, device=device))
+        rng = np.random.default_rng(7)
+        batches = [rng.integers(0, cfg.vocab_size, (PARITY_BATCH, PARITY_SEQ), dtype=np.int32)
+                   for _ in range(PARITY_STEPS)]
+        optimizer = lm_train.train_optimizer(TRAIN_LR, PARITY_STEPS)
+        runs = []
+        for dev in (device, "cpu"):
+            state = TrainState.create(lm_params_from_numpy(cfg, tree, device=dev), optimizer)
+            step, metrics, routes = make_train_step(cfg, optimizer), [], []
+            for b in batches:
+                tokens = torch.from_numpy(b).to(dev)
+                (state, m), seen = observe("_dispatch_indices",
+                                           lambda: step(state, {"tokens": tokens}))
+                metrics.append({k: float(v) for k, v in m.items()})
+                routes.append(routes_of(seen))
+            runs.append((metrics, routes, train_state_to_numpy(state)))
+        (card_m, card_r, card_s), (cpu_m, cpu_r, cpu_s) = runs
+        check(all(len(a) == len(b) > 0 for a, b in zip(card_r, cpu_r)),
+              "the same dispatches each step")
+        flipped = [sum(int((ci != hi).sum()) for (ci, _), (hi, _) in zip(a, b))
+                   for a, b in zip(card_r, cpu_r)]
+        keep_diff = [sum(int((ck != hk).sum()) for (_, ck), (_, hk) in zip(a, b))
+                     for a, b in zip(card_r, cpu_r)]
+        check(not any(flipped) and not any(keep_diff), "routing identical at every step")
+        loss_rel = max(abs(c[k] - h[k]) / abs(h[k]) for c, h in zip(card_m, cpu_m)
+                       for k in h if k != "aux_loss")
+        aux_abs = max(abs(c["aux_loss"] - h["aux_loss"]) for c, h in zip(card_m, cpu_m))
+        check(loss_rel <= TRAJ_TOL, f"losses within {TRAJ_TOL} of the CPU's")
+        rel = {}
+        for part in ("params", "m", "v"):
+            got = _port_named(card_s[part] if part == "params" else card_s["opt"][part])
+            want = _port_named(cpu_s[part] if part == "params" else cpu_s["opt"][part])
+            for n in want:
+                rel[f"{part} {n}"] = float(np.linalg.norm(got[n] - want[n])
+                                           / max(np.linalg.norm(want[n]), 1e-30))
+        worst = max(rel, key=rel.get)
+        check(rel[worst] <= PARAM_REL_RMS,
+              f"parameters and moments within {PARAM_REL_RMS} relative RMS of the CPU's")
+        rows[arch] = {"metrics_card": card_m, "max_loss_rel_err": loss_rel,
+                      "max_aux_abs_err": aux_abs, "max_leaf_rel_rms": rel[worst],
+                      "worst_leaf": worst, "flipped_assignments_per_step": flipped,
+                      "dispatches_per_step": len(card_r[0])}
+    row = {"phase": "moe_train_parity", "steps": PARITY_STEPS, "batch": PARITY_BATCH,
+           "seq": PARITY_SEQ, "dtype": "float32", "tf32": False, "traj_tol": TRAJ_TOL,
+           "param_rel_rms_tol": PARAM_REL_RMS, "archs": rows}
+    emit(row)
+    return row
 
 
 def main() -> int:
@@ -2352,6 +2636,15 @@ def main() -> int:
     lm_row.update({k: trained["row"][k] for k in ("train_tokens_per_s", "mfu")})
     del trained
     torch.cuda.empty_cache()
+
+    moe_bwd = phase_moe_backward(moe_cfg, "cuda", moe_row)
+    torch.cuda.empty_cache()
+    moe_trained = phase_lm_moe_train(moe_cfg, MOE_TRAIN_LAYERS)["row"]
+    torch.cuda.empty_cache()
+    phase_moe_train_parity("cuda")
+    lm_row["moe"].update({"train_" + k: moe_trained[k] for k in (
+        "layers", "step_s", "train_tokens_per_s", "mfu", "peak_gb")})
+    lm_row["moe"]["backward_ms"] = moe_bwd["ms"]
 
     sources = {"online_lookup": ("src/repro_torch/csrc/online_lookup.cu",
                                  "src/repro/kernels/online_lookup/kernel.py:38"),

@@ -11,8 +11,10 @@ checkpoint (train state + scheduler state + loader clock) and continues to
 the JAX package's, so a run started by either package resumes in the other.
 
 The port trains on one device (the card unless ``main`` is given
-``device="cpu"``): ``--mesh`` takes only ``1x1``.  Encoder/decoder and
-vision-prefix configs are not ported yet and raise.
+``device="cpu"``): ``--mesh`` takes only ``1x1``.  It trains the dense and
+the MLA + MoE configs (``--arch deepseek-v2-lite-16b``, and
+``deepseek-v3-671b`` with its MTP loss); the SSM, hybrid, encoder/decoder
+and vision-prefix configs are not ported yet and raise.
 """
 
 from __future__ import annotations

@@ -24,10 +24,11 @@ and a resumed run repeats an uninterrupted one.
 ``forward`` sums the MoE blocks' aux losses over the stack.  Decode runs
 MoE no-drop (one group of the batch, capacity factor E/k) and MLA absorbed
 against its compressed cache.  Serving ignores the ``mtp`` subtree, as the
-JAX package does.  Training the MoE/MTP family is not ported yet:
-``train_loss`` raises for it (ROADMAP queue 1, item 4).  SSM, hybrid,
-encoder/decoder and vision-prefix configs raise ``NotImplementedError``
-(same item).
+JAX package does; ``train_loss`` runs it (the MTP loss branch, one extra
+block predicting the token after next).  The dense and the MLA + MoE
+configs train; SSM, hybrid, encoder/decoder and vision-prefix configs raise
+``NotImplementedError`` in serving and training alike (ROADMAP queue 1,
+item 4).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, ParamModule, dense_init, mlp_apply, rms_norm, torch_dtype
-from repro_torch.models.losses import next_token_loss
+from repro_torch.models.losses import next_token_loss, softmax_cross_entropy
 
 __all__ = [
     "Block",
@@ -60,7 +61,6 @@ __all__ = [
 ]
 
 _UNPORTED = ("ssm", "hybrid_attn_period", "encoder_decoder", "vision_prefix")
-_UNTRAINED = ("moe", "mtp_depth")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -74,14 +74,9 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a config family the port does not train yet."""
+    """Raise for a config family the port does not train yet: the port
+    trains every family it runs."""
     check_supported(cfg)
-    on = [f for f in _UNTRAINED if getattr(cfg, f)]
-    if on:
-        raise NotImplementedError(
-            f"{cfg.name}: training with {', '.join(on)} is not ported yet "
-            "(ROADMAP queue 1, item 4: MoE/MLA training)"
-        )
 
 
 # =============================================================================
@@ -143,8 +138,8 @@ class LM(ParamModule):
         self.tail = nn.ModuleList(
             Block(gen, cfg, dtype=dtype, device=dev) for _ in range(plan["tail"]))
         if cfg.mtp_depth:
-            # MTP depth-1 (deepseek-v3): built so that JAX weights convert;
-            # serving does not run it
+            # MTP depth-1 (deepseek-v3): the training loss runs it, serving
+            # does not
             self.mtp = ParamModule({
                 "proj": dense_init(gen, (2 * cfg.d_model, cfg.d_model), dtype=dtype, device=dev),
                 "norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
@@ -228,15 +223,43 @@ def forward(params: LM, batch: dict,
     return x, logits, aux_total
 
 
+def _mtp_loss(params: LM, pre_final: torch.Tensor, tokens: torch.Tensor,
+              cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """MTP depth 1 (deepseek-v3): h_t joined with emb(tok_{t+1}) predicts
+    tok_{t+2} through one extra block, sharing the embedding and the head.
+    The shifted embedding keeps all S positions (a zero row pads the last),
+    so the block's MoE sees B·S tokens, as in JAX; the last two positions'
+    logits have no target.  The block is not checkpointed, as in JAX.
+    Returns (cross-entropy, the block's aux loss)."""
+    mp = params["mtp"]
+    cdt = torch_dtype(cfg.compute_dtype)
+    emb_next = F.embedding(tokens, params["embed"]).to(cdt)
+    emb_next = torch.cat([emb_next[:, 1:], torch.zeros_like(emb_next[:, :1])], dim=1)
+    h_in = torch.cat([pre_final, emb_next], dim=-1) @ mp["proj"]
+    positions = torch.arange(h_in.shape[1], dtype=torch.int32, device=h_in.device)
+    h_out, aux = _block_apply(mp["block"], h_in, positions, cfg, dense_ffn=not cfg.moe)
+    mtp_logits = rms_norm(h_out, mp["norm"], cfg.norm_eps) @ params.head()
+    return softmax_cross_entropy(mtp_logits[:, :-2], tokens[:, 2:]), aux
+
+
 def train_loss(params: LM, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
-    """Next-token loss plus the aux loss (zero for the dense configs).  The
-    MoE and MTP configs raise in ``check_trainable``: their training is not
-    ported yet.  Returns (total, metrics)."""
+    """Next-token loss plus the MoE aux loss summed over the stack (zero for
+    the dense configs) and, with MTP, 0.3 x the MTP loss plus its block's
+    aux.  Returns (total, metrics): ``lm_loss``, ``aux_loss``, ``mtp_loss``
+    (MTP configs only) and ``total_loss``, as the JAX package's."""
     check_trainable(cfg)
-    _, logits, aux = forward(params, batch, cfg)
-    loss = next_token_loss(logits, _tokens(params, batch["tokens"]))
+    pre_final, logits, aux = forward(params, batch, cfg)
+    tokens = _tokens(params, batch["tokens"])
+    loss = next_token_loss(logits, tokens)
+    metrics = {"lm_loss": loss, "aux_loss": aux}
+    if cfg.mtp_depth:
+        mtp_loss, mtp_aux = _mtp_loss(params, pre_final, tokens, cfg)
+        metrics["mtp_loss"] = mtp_loss
+        loss = loss + 0.3 * mtp_loss
+        aux = aux + mtp_aux
     total = loss + aux
-    return total, {"lm_loss": loss, "aux_loss": aux, "total_loss": total}
+    metrics["total_loss"] = total
+    return total, metrics
 
 
 # =============================================================================

@@ -1,7 +1,9 @@
 """Port's checkpoint manager: the JAX package's on-disk layout and
 guarantees (atomic, ``keep_last``, bfloat16 as a ``uint16`` view, the same
 leaf paths), and checkpoints that cross between the packages: one the JAX
-driver wrote resumes in the port's driver, and the reverse.
+driver wrote resumes in the port's driver, and the reverse; and a reduced
+deepseek-v3 train state (the nested ``mtp`` subtree, the float32 routers in
+a bfloat16 model, each leaf's m and v) crossing both ways bit for bit.
 
 Tolerance of the cross-package runs: the reduced gemma-2b the drivers train
 is bfloat16, and the two frameworks round bfloat16 intermediates at
@@ -93,15 +95,81 @@ def test_round_trip_is_bit_identical_in_the_jax_layout(tmp_path, quantize):
                                   train_state_to_numpy(state)["params"]["embed"])
 
 
-def _jax_template(quantize):
+def _jax_template(quantize, arch="gemma-2b", seed=0):
     from repro.configs import get_config as jax_config
     from repro.launch.steps import TrainState
     from repro.models import api as japi
     from repro.optim.adamw import adamw as jadamw
 
-    jc = jax_config("gemma-2b", reduced=True)
-    return TrainState.create(japi.init_params(jax.random.PRNGKey(0), jc),
+    jc = jax_config(arch, reduced=True)
+    return TrainState.create(japi.init_params(jax.random.PRNGKey(seed), jc),
                              jadamw(1e-3, quantize_moments=quantize))
+
+
+V3 = "deepseek-v3-671b"
+
+
+def _as_numpy(tree):
+    """A JAX train state's tree as numpy, bfloat16 as float32 (exact), in
+    ``train_state_to_numpy``'s form."""
+    import jax.numpy as jnp
+
+    def leaf(a):
+        return np.asarray(a.astype(jnp.float32) if a.dtype == jnp.bfloat16 else a)
+
+    return {"params": jax.tree.map(leaf, tree.params),
+            "opt": jax.tree.map(leaf, dict(tree.opt)), "step": leaf(tree.step)}
+
+
+def _port_v3_template():
+    cfg = get_config(V3, reduced=True)
+    return steps.TrainState.create(api.init_params(1, cfg, device="cpu"), adamw.adamw(1e-3))
+
+
+def test_jax_deepseek_v3_state_restores_in_the_port(tmp_path):
+    """A JAX ``TrainState`` of reduced deepseek-v3, its moments seeded
+    nonzero, saved by the JAX manager: the port restores every leaf bit for
+    bit, the ``mtp`` subtree and the float32 routers included."""
+    import jax.numpy as jnp
+    from repro.launch.steps import TrainState
+
+    tmpl = _jax_template(False, V3, seed=2)
+    rng = np.random.default_rng(2)
+    draw = lambda a: jnp.asarray(rng.standard_normal(a.shape, np.float32) * 1e-3)  # noqa: E731
+    opt = dict(tmpl.opt, count=jnp.int32(5), m=jax.tree.map(draw, tmpl.opt["m"]),
+               v=jax.tree.map(lambda a: jnp.abs(draw(a)), tmpl.opt["v"]))
+    jstate = TrainState(tmpl.params, opt, jnp.int32(5))
+    jmanager.save_checkpoint(tmp_path, 5, jstate, extra={"loader": {"clock": 3}})
+    leaves = json.loads((tmp_path / "step_00000005" / "manifest.json").read_text())["leaves"]
+    assert leaves["params/tail/ffn/router"]["dtype"] == "float32"
+    assert leaves["params/mtp/block/ffn/router"]["dtype"] == "float32"
+    assert leaves["params/mtp/block/mixer/wq_a"]["dtype"] == "bfloat16"
+    got, extra = manager.restore_checkpoint(tmp_path, 5, _port_v3_template())
+    assert extra == {"loader": {"clock": 3}} and int(got.step) == 5
+    assert got.params.mtp.block.ffn.router.dtype == torch.float32
+    assert got.params.tail[0].ffn.w_up.dtype == torch.bfloat16
+    _same(train_state_to_numpy(got), _as_numpy(jstate))
+
+
+def test_port_deepseek_v3_state_restores_in_jax(tmp_path):
+    """The reverse: a port state of reduced deepseek-v3 after two train
+    steps, saved by the port's manager, restores in the JAX manager bit for
+    bit."""
+    cfg = get_config(V3, reduced=True)
+    opt = adamw.adamw(1e-3)
+    state = steps.TrainState.create(api.init_params(3, cfg, device="cpu"), opt)
+    step = steps.make_train_step(cfg, opt)
+    rng = np.random.default_rng(3)
+    for _ in range(2):
+        state, _ = step(state, {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32))})
+    manager.save_checkpoint(tmp_path, 2, state)
+    jstate, _ = jmanager.restore_checkpoint(tmp_path, 2, _jax_template(False, V3))
+    assert str(jstate.params["mtp"]["block"]["ffn"]["router"].dtype) == "float32"
+    assert str(jstate.params["tail"]["ffn"]["w_gate"].dtype) == "bfloat16"
+    want = train_state_to_numpy(state)
+    assert float(np.abs(want["opt"]["m"]["mtp"]["block"]["ffn"]["router"]).max()) > 0
+    _same(_as_numpy(jstate), want)
 
 
 def test_a_torn_write_never_becomes_latest(tmp_path, monkeypatch):
@@ -157,6 +225,17 @@ def test_jax_checkpoint_resumes_in_the_port(tmp_path):
     ref = jtrain.main(ARGS + ["--ckpt-dir", str(d)])
     assert manager.latest_step(d) == 4
     resumed = train.main(ARGS + ["--ckpt-dir", str(d)], device="cpu")
+    assert resumed["start_step"] == 5 and resumed["steps_run"] == 3
+    np.testing.assert_allclose(resumed["losses"], ref["losses"][5:], rtol=0, atol=LOSS_TOL)
+
+
+def test_jax_deepseek_v3_checkpoint_resumes_in_the_port(tmp_path):
+    """The JAX driver trains reduced deepseek-v3 (MLA, MoE, MTP) 8 steps with
+    a checkpoint at step 4; the port's driver resumes it to JAX's losses."""
+    args = ["--arch", V3, *ARGS[2:]]
+    d = tmp_path / "jax"
+    ref = jtrain.main(args + ["--ckpt-dir", str(d)])
+    resumed = train.main(args + ["--ckpt-dir", str(d)], device="cpu")
     assert resumed["start_step"] == 5 and resumed["steps_run"] == 3
     np.testing.assert_allclose(resumed["losses"], ref["losses"][5:], rtol=0, atol=LOSS_TOL)
 

@@ -383,14 +383,19 @@ def test_moe_bf16_close_to_jax():
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_moe_training_raises(arch):
-    """Training the MoE/MTP family is not ported yet: the loss and the train
-    step raise, naming the ROADMAP."""
+    """The MoE/MTP family trains now (``tests/test_torch_train.py`` holds it to
+    JAX): its loss and train step run.  Only a family still unported raises,
+    naming the ROADMAP: here the same config with a vision prefix."""
     jc, tc, jp, model = _models(arch)
     batch = {"tokens": _tokens(tc, 1, 8)}
+    total, metrics = api.train_loss(model, batch, tc)
+    assert np.isfinite(float(total)) and ("mtp_loss" in metrics) == bool(tc.mtp_depth)
+    steps.make_train_step(tc, None)
+    unported = dataclasses.replace(tc, vision_prefix=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.train_loss(model, batch, tc)
+        api.train_loss(model, batch, unported)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.make_train_step(tc, None)
+        steps.make_train_step(unported, None)
 
 
 def test_full_deepseek_v2_lite_size():

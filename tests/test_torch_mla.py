@@ -4,10 +4,13 @@ weights (in the tree of the JAX package's ``mla_init``): the full-sequence
 attention with and without the query LoRA, at shared and per-row
 positions; the absorbed decode step by step with its compressed caches; and
 the absorbed decode against the expanded attention at the same positions.
+The gradient of the expanded attention (the form training runs) against
+``jax.grad`` of JAX's, for every weight and the input.
 
 Tolerances: in float32 the two packages (and the absorbed and expanded
-forms) differ in summation order only, so outputs and caches agree to 1e-4;
-the cache's ``pos`` is exact."""
+forms) differ in summation order only, so outputs and caches agree to 1e-4,
+and each gradient leaf to 1e-4 of that leaf's largest entry; the cache's
+``pos`` is exact."""
 
 import pytest
 
@@ -66,6 +69,35 @@ def test_mla_attention_matches_jax(q_lora, per_row):
     got = mla.mla_attention(tp, torch.from_numpy(x), torch.from_numpy(pos), tc)
     assert got.shape == (2, 12, 32)
     _close(got, want)
+
+
+@pytest.mark.parametrize("q_lora", [0, 16])
+def test_mla_attention_grad_matches_jax(q_lora):
+    """jax.grad of JAX's ``mla_attention`` against the port's autograd, for
+    ``wq`` (or ``wq_a``, ``q_norm``, ``wq_b`` with the query LoRA),
+    ``wkv_a``, ``kv_norm``, ``wkv_b``, ``wo`` and x, under a random
+    cotangent."""
+    jc, tc = _cfgs(q_lora)
+    jp, tp = _params(jc, 7)
+    x = _x((2, 12, 32), 8)
+    ct = _x((2, 12, 32), 9)
+    pos = np.arange(12, dtype=np.int32)
+    jgp, jgx = jax.jit(jax.grad(
+        lambda p, xx: (jmla.mla_attention(p, xx, jnp.asarray(pos), jc) * ct).sum(),
+        argnums=(0, 1)))(jp, jnp.asarray(x))
+    leaves = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = mla.mla_attention(leaves, xt, torch.from_numpy(pos), tc)
+    grads = torch.autograd.grad((y * torch.from_numpy(ct)).sum(), [xt, *leaves.values()])
+    want = {"x": jgx, **jgp}
+    assert set(want) == {"x", *leaves}
+    assert ("q_norm" in leaves) == bool(q_lora)
+    for name, g in zip(["x", *leaves], grads):
+        w = np.asarray(want[name])
+        scale = float(np.abs(w).max())
+        assert scale > 0, name
+        err = float(np.abs(g.numpy() - w).max())
+        assert err <= TOL * scale, f"grad {name}: max err {err} > {TOL} x scale {scale}"
 
 
 @pytest.mark.parametrize("q_lora", [0, 16])

@@ -3,13 +3,19 @@
 of the JAX package's ``moe_init``): routing, the sort-based dispatch with
 and without drops, the combine, the shared experts and the aux loss; the
 port's dispatch against its own GShard einsum oracle; the decode call's
-no-drop shape.
+no-drop shape.  The gradient of ``moe_apply`` (through the k scatters into
+the expert buffer, the sentinel row, the k gathers and the renormalized
+gates) against ``jax.grad`` of JAX's, without and with drops, and against
+the port's einsum oracle's; the aux loss's gradient, which reaches the
+router through the mean router probability alone.  Each gradient test first
+asserts that the two calls it compares routed alike (``idx_k`` and ``keep``).
 
 Tolerances: integer results are exact (``idx_k``, ``dst``, ``keep``, byte
 for byte in their dtypes).  In float32 outputs and aux losses agree to 1e-4
-(the two packages differ in summation order only).  In bfloat16 the two
-frameworks round intermediates at different places, so outputs agree to
-``BF16_TOL`` (absolute, on outputs of magnitude about 1)."""
+(the two packages differ in summation order only), and so does each
+gradient leaf, relative to that leaf's largest entry (``GRAD_TOL``).  In
+bfloat16 the two frameworks round intermediates at different places, so
+outputs agree to ``BF16_TOL`` (absolute, on outputs of magnitude about 1)."""
 
 import pytest
 
@@ -25,6 +31,7 @@ from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
 
 TOL = 1e-4
+GRAD_TOL = 1e-4
 BF16_TOL = 0.05
 
 # jitted: JAX's op-by-op dispatch compiles every op of every call
@@ -214,6 +221,121 @@ def test_module_names_match_jax():
     assert names["router"].dtype == torch.float32 and names["shared.w_up"].shape == (32, 32)
 
 
+def _grad_leaf_close(got: torch.Tensor, want, what: str) -> None:
+    want = _f32(want)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(_f32(got) - want).max())
+    assert err <= GRAD_TOL * scale, f"{what}: max err {err} > {GRAD_TOL} x scale {scale}"
+
+
+def _flat(tree, prefix=""):
+    """(dotted name, leaf) over a nested dict of leaves."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _port_grads(apply, tp, x, ct, device="cpu"):
+    """Gradients of sum(y * ct) + aux of ``apply(params, x)`` on ``device``,
+    by leaf name (``x`` included), on the CPU."""
+    leaves = {n: t.to(device, copy=True).requires_grad_(True) for n, t in _flat(tp)}
+    xt = torch.from_numpy(x).to(device).requires_grad_(True)
+    params = {n: t for n, t in leaves.items() if "." not in n}
+    shared = {n.split(".", 1)[1]: t for n, t in leaves.items() if n.startswith("shared.")}
+    if shared:
+        params["shared"] = shared
+    y, aux = apply(params, xt)
+    loss = (y * torch.from_numpy(ct).to(device)).sum() + aux
+    grads = torch.autograd.grad(loss, [xt, *leaves.values()])
+    return {n: g.cpu() for n, g in zip(["x", *leaves], grads)}
+
+
+def _jax_grads(jp, x, ct, jc, group_size, cf):
+    def loss(p, xx):
+        y, aux = jmoe.moe_apply(p, xx, jc, group_size=group_size, capacity_factor=cf)
+        return (y * ct).sum() + aux
+
+    gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(jp, jnp.asarray(x))
+    return {"x": gx, **dict(_flat(gp))}
+
+
+@pytest.mark.parametrize("cf,offset,drops", [(8.0, 0.0, False), (1.0, 1.0, True),
+                                             (1.25, 1.0, True)])
+def test_moe_grad_matches_jax(cf, offset, drops):
+    """jax.grad of JAX's ``moe_apply`` (plus its aux loss) on the same
+    weights and tokens: the gradients of x, ``router``, the expert stacks and
+    the shared experts, with no drop (cf 8) and where the capacity binds
+    (cf 1.0 and 1.25, tokens sharing an offset that skews the router)."""
+    jc, tc = _cfgs(8, 2)
+    jp, tp = _params(jc, 4)
+    x = _x((2, 64, 32), seed=20, offset=offset)
+    ct = np.random.default_rng(21).standard_normal(x.shape, np.float32)
+    (tidx, _, tkeep), (jidx, _, jkeep) = _dispatch_both(jp, tp, x, jc, tc, 64, cf)
+    np.testing.assert_array_equal(tidx.numpy(), jidx)
+    np.testing.assert_array_equal(tkeep.numpy(), jkeep)
+    assert bool(tkeep.all()) != drops
+    got = _port_grads(lambda p, xx: moe.moe_apply(p, xx, tc, group_size=64,
+                                                  capacity_factor=cf), tp, x, ct)
+    want = _jax_grads(jp, x, ct, jc, 64, cf)
+    assert set(got) == set(want) == {"x", "router", "w_gate", "w_up", "w_down",
+                                     "shared.w_gate", "shared.w_up", "shared.w_down"}
+    for name, g in got.items():
+        _grad_leaf_close(g, want[name], f"cf {cf} grad {name}")
+
+
+@pytest.mark.parametrize("cf", [1.0, 1.25, 8.0])
+def test_sort_dispatch_grad_matches_own_einsum_oracle(cf):
+    """JAX's ``test_gradients_match_oracle`` on the port, with drops too:
+    the sort path's gradient (scatters, sentinel, gathers) equals the GShard
+    einsum oracle's within 1e-4."""
+    jc, tc = _cfgs(8, 2)
+    jp, tp = _params(jc, 3)
+    x = _x((2, 64, 32), seed=4, offset=1.0)
+    ct = np.random.default_rng(5).standard_normal(x.shape, np.float32)
+    (_, _, keep), _ = _dispatch_both(jp, tp, x, jc, tc, 64, cf)
+    assert bool(keep.all()) == (cf == 8.0)
+    sort = _port_grads(lambda p, xx: moe.moe_apply(p, xx, tc, group_size=64,
+                                                   capacity_factor=cf), tp, x, ct)
+    oracle = _port_grads(lambda p, xx: moe.moe_apply_einsum(p, xx, tc, group_size=64,
+                                                            capacity_factor=cf), tp, x, ct)
+    for name, g in sort.items():
+        assert float((g - oracle[name]).abs().max()) < 1e-4, name
+
+
+def test_aux_loss_grad_matches_jax_through_the_mean_probability_only():
+    """The aux loss's gradient equals JAX's, where ``stop_gradient`` holds
+    the top-1 fractions constant; in the port the fractions are counted by
+    ``scatter_add_`` and carry no gradient, so the aux gradient is that of
+    coef · E · Σ me · ce with ce a constant: it reaches the router (and x)
+    through ``me`` alone."""
+    jc, tc = _cfgs(8, 2, shared=0)
+    jp, tp = _params(jc, 6)
+    x = _x((2, 64, 32), seed=7, offset=1.0)
+    xg_t = moe._group(torch.from_numpy(x), 64)
+    router = tp["router"].clone().requires_grad_(True)
+    xt = xg_t.clone().requires_grad_(True)
+    _, idx_k, aux = moe._route({"router": router}, xt, tc)
+    _, jidx, _ = _route(jp, jmoe._group(jnp.asarray(x), 64), cfg=jc)
+    np.testing.assert_array_equal(idx_k.numpy(), np.asarray(jidx))
+    g_router, g_x = torch.autograd.grad(aux, [router, xt])
+    jg_router, jg_x = jax.jit(jax.grad(
+        lambda r, xx: jmoe._route({"router": r}, xx, jc)[2], argnums=(0, 1)))(
+        jp["router"], jmoe._group(jnp.asarray(x), 64))
+    _grad_leaf_close(g_router, jg_router, "aux grad router")
+    _grad_leaf_close(g_x, jg_x, "aux grad x")
+    # the same gradient with the top-1 fractions as a constant
+    r2 = tp["router"].clone().requires_grad_(True)
+    x2 = xg_t.clone().requires_grad_(True)
+    me = torch.softmax(x2 @ r2, dim=-1).mean(dim=(0, 1))
+    ce = torch.bincount(idx_k[..., 0].reshape(-1), minlength=8).float() / idx_k[..., 0].numel()
+    want = torch.autograd.grad(tc.router_aux_coef * 8 * (me * ce).sum(), [r2, x2])
+    assert float(g_router.abs().max()) > 0
+    torch.testing.assert_close(g_router, want[0], rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(g_x, want[1], rtol=1e-5, atol=1e-7)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -244,3 +366,24 @@ def test_moe_on_card(cuda_device):
     assert dst.cpu().numpy().tobytes() == cdst.numpy().tobytes()
     assert keep.cpu().numpy().tobytes() == ckeep.numpy().tobytes()
     assert not bool(ckeep.all()), "the capacity binds"
+
+
+@pytest.mark.gpu
+def test_moe_backward_on_card(cuda_device):
+    """``chip_smoke.py``'s ``moe_backward`` check at a small shape in
+    float32: the card's sort-path gradient against the einsum oracle's with
+    the capacity binding (1e-4), and against the CPU's."""
+    jc, tc = _cfgs(16, 4, shared=1)
+    _, tp = _params(jc, 11)
+    x = _x((4, 256, 32), seed=12, offset=1.0)
+    ct = np.random.default_rng(13).standard_normal(x.shape, np.float32)
+    sort = lambda p, xx: moe.moe_apply(p, xx, tc, group_size=256,  # noqa: E731
+                                       capacity_factor=1.25)
+    oracle = lambda p, xx: moe.moe_apply_einsum(p, xx, tc, group_size=256,  # noqa: E731
+                                                capacity_factor=1.25)
+    card = _port_grads(sort, tp, x, ct, cuda_device)
+    card_oracle = _port_grads(oracle, tp, x, ct, cuda_device)
+    cpu = _port_grads(sort, tp, x, ct)
+    for name, g in card.items():
+        _grad_leaf_close(g, card_oracle[name].numpy(), f"card sort vs oracle {name}")
+        _grad_leaf_close(g, cpu[name].numpy(), f"card vs CPU {name}")

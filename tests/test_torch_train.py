@@ -1,8 +1,11 @@
 """Port's training path against the JAX package: ``train_loss`` and every
-gradient leaf on the reduced dense configs (JAX weights carried over with
-``convert``), the train step over 4 steps with one and two microbatches, and
-the driver (``launch/train.py``): kill-and-resume bit-identical, a loss that
-falls, one device only.
+gradient leaf on the reduced dense configs and the reduced MLA + MoE configs
+(deepseek-v2-lite; deepseek-v3 with its MTP branch), JAX weights carried
+over with ``convert``; the train step over 4 steps with one and two
+microbatches; and the driver (``launch/train.py``): kill-and-resume
+bit-identical, a loss that falls, one device only.  The MoE cases first
+assert that both packages routed alike: each dispatch's ``idx_k`` and
+``keep``, in call order, equal.
 
 Tolerances: in float32 both packages do the same arithmetic and differ in
 summation order only, so the loss agrees to 1e-5 relative and each gradient
@@ -28,6 +31,7 @@ import numpy as np  # noqa: E402
 from repro.configs import get_config as jax_config  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import api as japi  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
 from repro.optim import schedules as jsched  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -38,16 +42,18 @@ from repro_torch.convert import (  # noqa: E402
 )
 from repro_torch.kernels.flash_attn import ops as flash_ops  # noqa: E402
 from repro_torch.launch import steps, train  # noqa: E402
-from repro_torch.models import api, losses  # noqa: E402
+from repro_torch.models import api, losses, moe  # noqa: E402
 from repro_torch.optim import adamw, schedules  # noqa: E402
 
 GRAD_TOL = 1e-4
 TRAJ_TOL = 1e-4
 PARAM_REL_RMS = 1e-3
 ARCHS = ["phi3-medium-14b", "qwen1.5-4b", "gemma-2b", "gemma3-1b"]
+MOE_ARCHS = ["deepseek-v2-lite-16b", "deepseek-v3-671b"]
 # the JAX driver test's arguments (tests/integration/test_train_driver.py)
 ARGS = ["--arch", "gemma-2b", "--steps", "12", "--batch", "2", "--seq", "32",
         "--ckpt-every", "4", "--log-every", "100"]
+MOE_ARGS = ["--arch", "deepseek-v3-671b", *ARGS[2:]]
 
 
 def _configs(arch, impl="xla"):
@@ -94,6 +100,7 @@ def test_token_nll_matches_the_one_hot_sum():
 
 
 _JAX_GRADS: dict = {}
+_JAX_METRICS: dict = {}
 
 
 def _jax_loss_and_grads(arch):
@@ -102,10 +109,11 @@ def _jax_loss_and_grads(arch):
         jc, _ = _configs(arch)
         jp = japi.init_params(jax.random.PRNGKey(11), jc)
         toks = _tokens(jc, 2, 24, seed=5)
-        (loss, _), g = jax.jit(jax.value_and_grad(
+        (loss, metrics), g = jax.jit(jax.value_and_grad(
             lambda p: japi.train_loss(p, {"tokens": jnp.asarray(toks)}, jc), has_aux=True))(jp)
         _JAX_GRADS[arch] = (jax.tree.map(np.asarray, jp), toks, float(loss),
                             jax.tree.map(np.asarray, g))
+        _JAX_METRICS[arch] = {k: float(v) for k, v in metrics.items()}
     return _JAX_GRADS[arch]
 
 
@@ -189,6 +197,182 @@ def test_train_step_matches_jax_over_4_steps(micro):
             assert rel <= PARAM_REL_RMS, f"µ={micro} {part} {name}: rel RMS {rel}"
 
 
+def _jax_routes(fn, *args):
+    """``fn(*args)`` under ``jax.jit`` with each of JAX's dispatches logged:
+    (idx_k, keep) as numpy, in call order.  Traced anew on every call: a
+    cached trace would log into an earlier call's list."""
+    log, real = [], jmoe._dispatch_indices
+
+    def observed(idx_k, e, cap):
+        dst, keep = real(idx_k, e, cap)
+        jax.debug.callback(lambda i, k: log.append((np.asarray(i), np.asarray(k))),
+                           idx_k, keep, ordered=True)
+        return dst, keep
+
+    jmoe._dispatch_indices = observed
+    try:
+        jax.block_until_ready(jax.jit(lambda *a: fn(*a))(*args))
+        jax.effects_barrier()
+    finally:
+        jmoe._dispatch_indices = real
+    return log
+
+
+class _PortRoutes:
+    """Logs each of the port's dispatches, (idx_k, keep) on the CPU, in call
+    order, while the context is open."""
+
+    def __enter__(self):
+        self.log, self._real = [], moe._dispatch_indices
+
+        def observed(idx_k, e, cap):
+            dst, keep = self._real(idx_k, e, cap)
+            self.log.append((idx_k.detach().cpu().numpy(), keep.cpu().numpy()))
+            return dst, keep
+
+        moe._dispatch_indices = observed
+        return self
+
+    def __exit__(self, *exc):
+        moe._dispatch_indices = self._real
+
+
+def _same_routes(got: list, want: list) -> None:
+    assert len(got) == len(want) > 0
+    for (gi, gk), (wi, wk) in zip(got, want):
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gk, wk)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_train_loss_and_grads_match_jax(arch):
+    """The MLA + MoE family's ``train_loss`` (aux loss through the stack; for
+    deepseek-v3 the MTP branch, ``mtp_loss`` and the ``mtp.*`` leaves) and
+    every gradient leaf against JAX's, after asserting that every dispatch
+    (each MoE layer's, and the MTP block's) routed alike."""
+    tree, toks, want_loss, want_grads = _jax_loss_and_grads(arch)
+    jc, tc = _configs(arch)
+    want_routes = _jax_routes(lambda p: japi.train_loss(p, {"tokens": jnp.asarray(toks)}, jc),
+                              jax.tree.map(jnp.asarray, tree))
+    model = lm_params_from_numpy(tc, tree, device="cpu")
+    with torch.no_grad(), _PortRoutes() as routes:
+        api.train_loss(model, {"tokens": torch.from_numpy(toks)}, tc)
+    n_moe = tc.num_layers - tc.first_dense_layers + tc.mtp_depth
+    assert len(want_routes) == n_moe
+    _same_routes(routes.log, want_routes)
+    assert any(not k.all() for _, k in routes.log), "some assignment drops"
+
+    model.requires_grad_(True)
+    named = dict(model.named_parameters())
+    loss, metrics = api.train_loss(model, {"tokens": torch.from_numpy(toks)}, tc)
+    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    want_metrics = _JAX_METRICS[arch]
+    assert set(metrics) == set(want_metrics) == (
+        {"lm_loss", "aux_loss", "total_loss"} | ({"mtp_loss"} if tc.mtp_depth else set()))
+    for k, v in metrics.items():
+        assert abs(float(v.detach()) - want_metrics[k]) <= 1e-5 * abs(want_metrics[k]), k
+    assert abs(float(loss.detach()) - want_loss) <= 1e-5 * abs(want_loss)
+    want = _port_named(want_grads)
+    assert set(want) == set(grads)
+    assert any(n.startswith("mtp.block.ffn.") for n in grads) == bool(tc.mtp_depth)
+    for name, g in grads.items():
+        assert g.dtype == torch.float32
+        _leaf_close(g.numpy(), want[name], GRAD_TOL, f"{arch} grad {name}")
+
+
+def test_moe_recompute_routes_as_the_forward():
+    """Each checkpointed MoE tail block is recomputed in the backward and
+    routes there exactly as in the forward; the MTP block is not
+    checkpointed (JAX runs it outside the tail scan)."""
+    tree, toks, _, _ = _jax_loss_and_grads("deepseek-v3-671b")
+    _, tc = _configs("deepseek-v3-671b")
+    model = lm_params_from_numpy(tc, tree, device="cpu").requires_grad_(True)
+    tail = tc.num_layers - tc.first_dense_layers
+    with _PortRoutes() as routes:
+        loss, _ = api.train_loss(model, {"tokens": torch.from_numpy(toks)}, tc)
+        assert len(routes.log) == tail + 1
+        loss.backward()
+    assert len(routes.log) == 2 * tail + 1
+    _same_routes(routes.log[tail + 1:], routes.log[:tail][::-1])
+
+
+@pytest.mark.parametrize("micro", [1, 2])
+def test_moe_train_step_matches_jax_over_4_steps(micro):
+    """Reduced deepseek-v3 (MLA with query LoRA, MoE, MTP): 4 train steps
+    against JAX's, the float32 router included, with every step's routing
+    asserted alike first."""
+    jc, tc = _configs("deepseek-v3-671b")
+    kw = dict(weight_decay=0.01, grad_clip=1.0)
+    jopt = jadamw.adamw(jsched.warmup_cosine(3e-3, 2, 4), **kw)
+    topt = adamw.adamw(schedules.warmup_cosine(3e-3, 2, 4), **kw)
+    jp = japi.init_params(jax.random.PRNGKey(3), jc)
+    jstate = jsteps.TrainState.create(jp, jopt)
+    tstate = steps.TrainState.create(
+        lm_params_from_numpy(tc, jax.tree.map(np.asarray, jp), device="cpu"), topt)
+    jstep = jax.jit(jsteps.make_train_step(jc, jopt, num_microbatches=micro))
+    tstep = steps.make_train_step(tc, topt, num_microbatches=micro)
+    loss_fn = lambda p, t: japi.train_loss(p, {"tokens": t}, jc)  # noqa: E731
+    for i in range(4):
+        toks = _tokens(jc, 4, 16, seed=100 + i)
+        mb = toks.reshape(micro, -1, toks.shape[1])
+        want_routes = [r for j in range(micro)
+                       for r in _jax_routes(loss_fn, jstate.params, jnp.asarray(mb[j]))]
+        with torch.no_grad(), _PortRoutes() as routes:
+            for j in range(micro):
+                api.train_loss(tstate.params, {"tokens": torch.from_numpy(mb[j])}, tc)
+        _same_routes(routes.log, want_routes)
+        jstate, jm = jstep(jstate, {"tokens": jnp.asarray(toks)})
+        tstate, tm = tstep(tstate, {"tokens": torch.from_numpy(toks)})
+        for k in ("lm_loss", "mtp_loss", "total_loss"):
+            assert abs(float(tm[k]) - float(jm[k])) <= TRAJ_TOL * float(jm[k]), (i, k)
+    got = train_state_to_numpy(tstate)
+    want = jax.tree.map(np.asarray, jstate)
+    assert int(got["opt"]["count"]) == int(want.opt["count"]) == 4
+    assert tstate.params.tail[0].ffn.router.dtype == torch.float32
+    for part, g_tree, w_tree in (("params", got["params"], want.params),
+                                 ("m", got["opt"]["m"], want.opt["m"]),
+                                 ("v", got["opt"]["v"], want.opt["v"])):
+        g, w = _port_named(g_tree), _port_named(w_tree)
+        assert set(g) == set(w)
+        for name in g:
+            rel = np.linalg.norm(g[name] - w[name]) / max(np.linalg.norm(w[name]), 1e-30)
+            assert rel <= PARAM_REL_RMS, f"µ={micro} {part} {name}: rel RMS {rel}"
+
+
+def test_bf16_moe_step_keeps_the_float32_router():
+    """In a bfloat16 model (reduced deepseek-v2-lite's own dtypes) the
+    router, its gradient, its accumulated microbatch gradient and its AdamW
+    moments stay float32; every other weight stays bfloat16."""
+    cfg = get_config("deepseek-v2-lite-16b", reduced=True)
+    opt = adamw.adamw(3e-3)
+    state = steps.TrainState.create(api.init_params(0, cfg, device="cpu"), opt)
+    toks = torch.from_numpy(_tokens(cfg, 4, 16, seed=9))
+    metrics, grads = steps.loss_and_grads(state.params, {"tokens": toks}, cfg)
+    for micro in (1, 2):
+        state, metrics = steps.make_train_step(cfg, opt, num_microbatches=micro)(
+            state, {"tokens": toks})
+        assert all(np.isfinite(float(v)) for v in metrics.values())
+    for name, p in state.params.named_parameters():
+        want = torch.float32 if name.endswith("ffn.router") else torch.bfloat16
+        assert p.dtype == grads[name].dtype == want, name
+        assert state.opt["m"][name].dtype == state.opt["v"][name].dtype == torch.float32
+    assert int(state.step) == 2
+
+
+def test_moe_driver_kill_and_resume_bit_identical(tmp_path):
+    """The driver's kill at step 9 and resume, bit-identical, on reduced
+    deepseek-v3 (MLA, MoE with drops, MTP)."""
+    ref = train.main(MOE_ARGS + ["--ckpt-dir", str(tmp_path / "uninterrupted")], device="cpu")
+    assert ref["steps_run"] == 12 and ref["last_loss"] < ref["first_loss"]
+    killed = str(tmp_path / "killed")
+    with pytest.raises(SystemExit) as e:
+        train.main(MOE_ARGS + ["--ckpt-dir", killed, "--kill-at", "9"], device="cpu")
+    assert e.value.code == 17
+    resumed = train.main(MOE_ARGS + ["--ckpt-dir", killed], device="cpu")
+    assert resumed["start_step"] == 9
+    np.testing.assert_allclose(resumed["losses"], ref["losses"][9:], rtol=0, atol=0)
+
+
 def test_driver_kill_and_resume_bit_identical(tmp_path):
     """The JAX driver test, on the port's driver on the CPU."""
     ref = train.main(ARGS + ["--ckpt-dir", str(tmp_path / "uninterrupted")], device="cpu")
@@ -211,7 +395,7 @@ def test_driver_refuses_a_mesh_and_unported_families():
     for mesh in ("2x1", "1x2", "4x2"):
         with pytest.raises(ValueError, match="one device"):
             train.main(ARGS + ["--mesh", mesh], device="cpu")
-    for arch in ("whisper-tiny", "pixtral-12b", "deepseek-v3-671b"):
+    for arch in ("whisper-tiny", "pixtral-12b", "mamba2-2.7b", "zamba2-7b"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train.main(["--arch", arch, "--steps", "1", "--batch", "2", "--seq", "16"],
                        device="cpu")
@@ -244,6 +428,52 @@ def test_driver_kill_and_resume_on_card(cuda_device, tmp_path):
     resumed = train.main(ARGS + ["--ckpt-dir", str(tmp_path / "b")], device=cuda_device)
     assert resumed["start_step"] == 9
     np.testing.assert_allclose(resumed["losses"], ref["losses"][9:], rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_moe_driver_kill_and_resume_on_card(cuda_device, tmp_path):
+    """``chip_smoke.py``'s ``lm_moe_train.kill_resume``: the driver's resume
+    on the card for reduced deepseek-v3, where the gathers' backward
+    (``scatter_add`` with atomics on the sentinel row) could break it."""
+    ref = train.main(MOE_ARGS + ["--ckpt-dir", str(tmp_path / "a")], device=cuda_device)
+    with pytest.raises(SystemExit):
+        train.main(MOE_ARGS + ["--ckpt-dir", str(tmp_path / "b"), "--kill-at", "9"],
+                   device=cuda_device)
+    resumed = train.main(MOE_ARGS + ["--ckpt-dir", str(tmp_path / "b")], device=cuda_device)
+    assert resumed["start_step"] == 9
+    np.testing.assert_allclose(resumed["losses"], ref["losses"][9:], rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_train_step_on_card_matches_cpu(cuda_device, arch, monkeypatch):
+    """``chip_smoke.py``'s ``moe_train_parity``: 4 float32 train steps on the
+    card (TF32 off) against the same steps on the CPU from the same weights,
+    routing identical at every step."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    jc, tc = _configs(arch)
+    tree = jax.tree.map(np.asarray, japi.init_params(jax.random.PRNGKey(3), jc))
+    opt = adamw.adamw(schedules.warmup_cosine(3e-3, 2, 4), weight_decay=0.01)
+    runs = []
+    for dev in ("cpu", cuda_device):
+        state = steps.TrainState.create(lm_params_from_numpy(tc, tree, device=dev), opt)
+        step, losses, routes = steps.make_train_step(tc, opt), [], []
+        for i in range(4):
+            toks = torch.from_numpy(_tokens(tc, 4, 16, seed=100 + i)).to(dev)
+            with _PortRoutes() as r:
+                state, m = step(state, {"tokens": toks})
+            losses.append(float(m["total_loss"]))
+            routes += r.log
+        runs.append((losses, routes, train_state_to_numpy(state)))
+    (cl, cr, cs), (gl, gr, gs) = runs
+    _same_routes(gr, cr)
+    np.testing.assert_allclose(gl, cl, rtol=TRAJ_TOL, atol=0)
+    for part in ("params", "m", "v"):
+        g = _port_named(gs[part] if part == "params" else gs["opt"][part])
+        c = _port_named(cs[part] if part == "params" else cs["opt"][part])
+        for name in c:
+            rel = np.linalg.norm(g[name] - c[name]) / max(np.linalg.norm(c[name]), 1e-30)
+            assert rel <= PARAM_REL_RMS, f"{part} {name}: rel RMS {rel}"
 
 
 @pytest.mark.gpu
