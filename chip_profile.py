@@ -19,13 +19,14 @@ each under ``torch.profiler`` (``lm_train_trace``).  Between the two, 8
 decode steps of deepseek-v2-lite-16b at full width (8 requests, seeded bf16
 weights) under ``torch.profiler`` (``moe_decode_trace``), their device time
 split into the MoE dispatch, the expert einsums, the shared experts, MLA and
-the rest.  Last, one train step of ``chip_smoke.py``'s ``lm_moe_train``
+the rest, and 8 decode steps of mamba2-2.7b at full width (``ssm_decode_trace``),
+split into the input projection, the recurrent step and the rest.  Last,
+one train step of ``chip_smoke.py``'s ``lm_moe_train``
 (deepseek-v2-lite-16b at full width cut to ``MOE_TRAIN_LAYERS`` layers, a
 4 x 2,048 batch): its forward + backward traced with the forward and the
 backward each split into those parts, then its AdamW update
-(``moe_train_trace``).  Before all of these it runs ``lm_moe_train`` at
-the 6 layers (1 dense + 5 MoE) its depth was first cut to, whose peak
-memory decided the cut to 4 (``moe_train_depth``).  The untraced times are
+(``moe_train_trace``), with the peak memory of that depth's steps.  The
+untraced times are
 those ``chip_smoke.py`` prints.  Exits non-zero without a CUDA device.
 """
 
@@ -44,6 +45,7 @@ import chip_smoke as cs
 from repro_torch.models import lm as lm_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 
 # (label, file suffix, function) of each layer, from the entry point down
 LAYERS = [
@@ -222,6 +224,62 @@ def moe_decode_trace(card: str, steps: int = 8) -> None:
                        weight_read_bound_ms=weight_bytes / cs.HBM_BYTES_PER_S * 1e3)})
 
 
+# (range label, module, function): the parts of a Mamba2 decode step
+SSM_RANGES = (
+    ("mamba_decode", ssm_mod, "mamba_decode"),
+    ("mamba_in_proj", ssm_mod, "_split_proj"),
+)
+
+
+def ssm_decode_trace(card: str, steps: int = 8) -> None:
+    """``steps`` decode steps of ``cs.SSM_ARCH`` at full width for
+    ``cs.LM_REQUESTS`` requests after 32 prompt steps, traced, each function
+    of ``SSM_RANGES`` in a ``record_function`` range of its name (for the
+    trace only).  Split: the input projection (the (D, 2·DI + 2·G·N + H)
+    product) = mamba_in_proj; the recurrent step (the conv over the ring,
+    the SSM state's decay and outer-product update and its read-out, the
+    gated norm and the output projection) = mamba_decode - mamba_in_proj;
+    the rest (embedding, block norms and residuals, the final norm and the
+    head) = busy - mamba_decode.  The bound is one read of every weight and
+    one read and one write of every layer's state."""
+    cfg = cs.get_config(cs.SSM_ARCH)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    params = cs.api.init_params(0, cfg, device=dev)
+    toks = cs.api.make_dummy_batch(cfg, cs.LM_REQUESTS, 32 + steps, seed=1, device=dev)["tokens"]
+    cache = cs.api.init_cache(cfg, cs.LM_REQUESTS, 32 + steps, device=dev)
+    for i in range(32):  # advance the state as the served prompts would
+        cs.api.decode_step(params, cache, toks[:, i:i + 1], cfg)
+
+    def decode():
+        for i in range(32, 32 + steps):
+            cs.api.decode_step(params, cache, toks[:, i:i + 1], cfg)
+
+    real = {label: getattr(mod, name) for label, mod, name in SSM_RANGES}
+    for label, mod, name in SSM_RANGES:
+        setattr(mod, name, _in_range(label, real[label]))
+    try:
+        wall, tp = profiled(decode, dev)
+    finally:
+        for label, mod, name in SSM_RANGES:
+            setattr(mod, name, real[label])
+    ops = device_ops(tp, ranges=real)
+    part = {label: sum(e.device_time_total for e in tp.key_averages()
+                       if e.key == label and e.device_type == torch.autograd.DeviceType.CPU)
+            / 1e3 for label in real}
+    busy = sum(v["device_ms"] for v in ops.values())
+    split = {"in_proj": part["mamba_in_proj"],
+             "recurrent_step": part["mamba_decode"] - part["mamba_in_proj"],
+             "rest": busy - part["mamba_decode"]}
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    state_bytes = cs.recurrent_state_bytes(cfg, cs.LM_REQUESTS)
+    cs.emit({"phase": "ssm_decode_trace", "card": card, "arch": cfg.name,
+             **summary(f"{steps} decode steps of {cs.LM_REQUESTS} requests", wall, ops,
+                       ms_per_step=wall / steps * 1e3,
+                       device_launches_per_step=sum(v["count"] for v in ops.values()) / steps,
+                       device_ms_per_step={k: v / steps for k, v in split.items()},
+                       bound_ms=(weight_bytes + 2 * state_bytes) / cs.HBM_BYTES_PER_S * 1e3)})
+
+
 # the parts of a MoE/MLA train step, by the innermost range an op runs in;
 # a block's own ops (norms, residual adds, the dense layer's FFN) are the rest
 TRAIN_RANGES = (*(r for r in MOE_RANGES if r[0] != "mla_decode"),
@@ -279,10 +337,12 @@ def moe_train_trace(card: str) -> None:
     batch and optimizer) after a warm-up step: ``loss_and_grads`` traced
     with each function of ``TRAIN_RANGES`` in a ``record_function`` range
     of its name (for the trace only), its device time split by
-    ``train_split``; then the AdamW update traced alone."""
+    ``train_split``; then the AdamW update traced alone, with the peak
+    memory of the warm-up and the traced step."""
     cfg = dataclasses.replace(cs.get_config(cs.MOE_ARCH), num_layers=cs.MOE_TRAIN_LAYERS)
     dev = torch.device("cuda", torch.cuda.current_device())
     optimizer = cs.lm_train.train_optimizer(cs.TRAIN_LR, cs.TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
     state = cs.TrainState.create(cs.api.init_params(0, cfg, device=dev), optimizer)
     batch = cs.api.make_dummy_batch(cfg, cs.TRAIN_BATCH, cs.TRAIN_SEQ, seed=3, device=dev)
     state, _ = cs.make_train_step(cfg, optimizer)(state, batch)  # warm-up
@@ -308,7 +368,8 @@ def moe_train_trace(card: str) -> None:
     cs.emit({"phase": "moe_train_trace", "card": card, "arch": cfg.name,
              "layers": cfg.num_layers, "part": "optimizer",
              **summary("one AdamW update (float32 moments)", wall, ops,
-                       device_launches=sum(v["count"] for v in ops.values()))})
+                       device_launches=sum(v["count"] for v in ops.values())),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
 
 
 def train_trace(card: str) -> None:
@@ -341,11 +402,6 @@ def main() -> int:
         return 2
     card = cs.card_line()
     cs.native.library()
-    # moe_train_depth, first: its peak (78.97 GB of 85.02 on an NVIDIA H100
-    # 80GB HBM3, 700.00 W) leaves no room for a cache that other phases left
-    # fragmented (after them it ran out of memory on the same card)
-    cs.phase_lm_moe_train(cs.get_config(cs.MOE_ARCH), cs.MOE_TRAIN_LAYERS_TRIED)
-    torch.cuda.empty_cache()
     prof = cProfile.Profile()
     t0 = time.perf_counter()
     prof.enable()
@@ -383,6 +439,8 @@ def main() -> int:
     lm_traces(card)
     torch.cuda.empty_cache()
     moe_decode_trace(card)
+    torch.cuda.empty_cache()
+    ssm_decode_trace(card)
     torch.cuda.empty_cache()
     train_trace(card)
     torch.cuda.empty_cache()

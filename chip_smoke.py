@@ -53,9 +53,11 @@ port's paths on the card through the entry points a user calls:
      over, converges again and answers GETs alike from every region;
   7. ``flash_attn`` against its plain version at phi3-medium-14b's prefill
      shape (B=4, S=2,048, H=40, KV=10, D=128, bf16), a ragged float32 GQA
-     shape, an MQA D=256 shape and a ragged bf16 D=128 shape, beside
-     ``scaled_dot_product_attention``; each check asserts its route (bf16 at
-     D 64/128/256 on the tensor cores, ``wgmma``; float32 on the CUDA cores);
+     shape, an MQA D=256 shape, a ragged bf16 D=128 shape, and zamba2's
+     shared-block shape (B=4, S=2,048, H=KV=32, D=112, bf16) and a ragged
+     one (S=T=1,000), beside ``scaled_dot_product_attention``; each check
+     asserts its route (bf16 at D 64/128/256 on the tensor cores,
+     ``wgmma``; float32, and bf16 at D 112, on the CUDA cores);
   8. ``lm_serve``: the ported LM request path (``launch/serve.py``) at
      phi3-medium-14b's full width (40 layers, d_model 5,120, random bf16
      weights from a seed, 29.3 GB): 8 sessions' contexts fetched through the
@@ -67,21 +69,38 @@ port's paths on the card through the entry points a user calls:
      logits) and on a 4 x 2,048 batch from a ``FeatureStoreLoader`` over the
      serving plane (against ``attn_impl="xla"``), 40 flash launches per
      forward, all on the tensor-core route;
-  10. ``moe_dispatch``: one MoE layer at deepseek-v2-lite-16b's widths (D
+  10. ``lm_ssm_serve`` and ``lm_ssm_prefill``: ``lm_serve``'s request path
+     and checks at mamba2-2.7b's full width (64 Mamba2 layers, d_model
+     2,560, 80 heads of 64, state 128; random bf16 weights from a seed,
+     5.7 GB), decode bounded by the weights and one read and one write of
+     every layer's SSM state; then ``make_prefill_step`` at 4 x 2,048 (8
+     SSD chunks of 256) against the same forward at chunk 128, no flash
+     launch.  The bf16 forward on the served prompts, the bf16 stepped
+     prefill and the 4 x 2,048 forward's first 512 logits of row 0 are each
+     held against the float32 stepped prefill of a float32 twin of the
+     weights, and the weights rounded one mantissa bit coarser must fall
+     outside that bound;
+  11. ``lm_hybrid_serve`` and ``lm_hybrid_prefill``: the same at zamba2-7b's
+     full width (81 Mamba2 layers as 13 groups of 6 and a tail of 3, one
+     shared attention block of 32 heads of 112 after each group; 13.4 GB),
+     the prefill with ``attn_impl="pallas_flash"`` against ``"xla"``, 13
+     flash launches a forward on the CUDA-core route, and the same float32
+     twin reference and control;
+  12. ``moe_dispatch``: one MoE layer at deepseek-v2-lite-16b's widths (D
      2,048, 64 experts top-6, F 1,408, two shared experts; seeded bf16
      weights) on 4 x 2,048 tokens in groups of 2,048 at capacity factor
      1.25 (capacity 240): ``moe_apply`` against its GShard einsum oracle,
      the share of assignments dropped (above 0), ``_dispatch_indices`` on
      the card byte-identical to the CPU, and ``moe_apply`` sync-free;
-  11. ``lm_moe_serve``: ``lm_serve``'s request path and checks at
+  13. ``lm_moe_serve``: ``lm_serve``'s request path and checks at
      deepseek-v2-lite-16b's full width (27 layers, MLA, 64 experts; random
      bf16 weights from a seed, 31.4 GB) on a serving plane of its own:
      absorbed-MLA decode and no-drop MoE, no flash launch;
-  12. ``lm_moe_prefill``: ``make_prefill_step`` on that model, no-drop on
+  14. ``lm_moe_prefill``: ``make_prefill_step`` on that model, no-drop on
      the served prompts against the stepped prefill's logits, then at
      capacity factor 1.25 on a 4 x 2,048 loader batch with each MoE layer's
      dropped share;
-  13. ``lm_train``: the ported train path (``launch/train.py``'s data plane
+  15. ``lm_train``: the ported train path (``launch/train.py``'s data plane
      and optimizer, ``make_train_step``) at gemma-2b's full width (18
      layers, d_model 2,048, MQA 8/1, head_dim 256, vocab 256,000; 2.51 B
      random bf16 weights from a seed), ``attn_impl="pallas_flash"``: 8 AdamW
@@ -95,31 +114,32 @@ port's paths on the card through the entry points a user calls:
      ``scaled_dot_product_attention``'s forward and backward; and the
      driver's kill at step 9 and resume (``train.main``, reduced gemma-2b, the
      JAX driver test's arguments), bit-identical to an uninterrupted run;
-  14. ``moe_backward``: ``moe_dispatch``'s layer and tokens (gemma-2b freed
+  16. ``moe_backward``: ``moe_dispatch``'s layer and tokens (gemma-2b freed
      first), forward + backward: every gradient leaf of the sort dispatch
      (x, the float32 router, the expert stacks, the shared experts) within
      2^-5 of the largest entry of the einsum oracle's, the routing of the
      two identical, no host sync, the time beside three times the forward's
      bound;
-  15. ``lm_moe_train``: the train path at deepseek-v2-lite-16b's published
+  17. ``lm_moe_train``: the train path at deepseek-v2-lite-16b's published
      width (d_model 2,048, MLA R 512, 64 experts top-6 + 2 shared, F 1,408,
-     vocab 102,400) cut to ``MOE_TRAIN_LAYERS`` layers (1 dense + 3 MoE:
-     at 6 the step's peak is above 75 GB), seeded random bf16
+     vocab 102,400) cut to ``MOE_TRAIN_LAYERS`` layers (1 dense + 5 MoE:
+     all 27 need 188 GB of weights, gradients and moments), seeded random bf16
      weights (float32 routers), float32 AdamW moments, 8 steps on 4 x 2,048
      loader batches at the config's capacity factor: finite losses and aux
      losses, each MoE layer's dropped share at the first and the last step,
      every recompute routing as its forward, no kernel launch, peak memory
      under the card's; then ``train.main``'s kill at step 9 and resume on
      reduced deepseek-v3 (MLA with query LoRA, MoE, MTP), bit-identical;
-  16. ``moe_train_parity``: reduced deepseek-v2-lite and reduced
+  18. ``moe_train_parity``: reduced deepseek-v2-lite and reduced
      deepseek-v3 in float32 (TF32 off), 4 train steps on the card against
      the same 4 on the CPU from the same weights: routing identical at
      every step, losses, parameters and moments within the CPU tests'
      bounds;
-  17. the ``kernels`` line: launches, errors, times and bounds per kernel.
+  19. the ``kernels`` line: launches, errors, times and bounds per kernel.
 
 Each path (``scan_merge``, the main path, ``offline_retrieval``, ``geo``,
-``lm_serve``, ``lm_prefill``, ``lm_moe_serve``, ``lm_moe_prefill``,
+``lm_serve``, ``lm_prefill``, ``lm_ssm_serve``, ``lm_ssm_prefill``,
+``lm_hybrid_serve``, ``lm_hybrid_prefill``, ``lm_moe_serve``, ``lm_moe_prefill``,
 ``lm_train``, ``lm_moe_train``) runs with the launch counts zeroed just
 before it and read just after, and must have launched each kernel of its
 own path (``lm_moe_train``'s path launches none of them: MLA and the MoE
@@ -204,7 +224,9 @@ from repro_torch.launch.steps import (  # noqa: E402
     make_train_step,
 )
 from repro_torch.models import api  # noqa: E402
+from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.layers import torch_dtype  # noqa: E402
 
 HOUR = 3_600_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -224,6 +246,8 @@ TXN_HOURS = 24
 GET_BATCH = 4096
 SPINE_ROWS = 1 << 20
 LM_ARCH = "phi3-medium-14b"  # full width: 40 layers, d_model 5120, GQA 40/10, vocab 100,352
+SSM_ARCH = "mamba2-2.7b"  # full width: 64 layers, d_model 2,560, 80 heads of 64, state 128
+HYBRID_ARCH = "zamba2-7b"  # full width: 81 Mamba layers (13 groups of 6 + 3), shared attn D 112
 LM_REQUESTS, LM_NEW_TOKENS = 8, 16
 PREFILL_BATCH, PREFILL_SEQ = 4, 2048
 EPOCH_MS = 1_700_000_000_000
@@ -234,6 +258,24 @@ I64_MIN = -(2**63)
 # output (the stepped prefill also in its matmuls' shapes), amplified over 40
 # random-weight layers; compared relative to the logits' scale
 LOGITS_REL_RMS, LOGITS_TOP1 = 0.1, 0.8
+# lm_ssm_prefill and lm_hybrid_prefill, each bfloat16 path of the served model
+# (the full-sequence forward: chunked SSD, the conv as products summed in
+# bfloat16; the stepped prefill: one recurrent step a token, the conv summed
+# in float32; both as the JAX package formulates them) against the stepped
+# prefill of a float32 twin of the same weights with TF32 off.  Their
+# roundings compound over the depth: at mamba2's 64 layers the bfloat16
+# paths land about 0.12 from float32, as the JAX package's own do
+# (tests/test_torch_lm.py::test_ssm_bf16_paths_part_as_jax_at_depth), so
+# the pure SSM family has its own bound; zamba2's 81 Mamba layers, with the
+# shared block after each group, stay within the LOGITS bound.  The bounds
+# sit above the H100 readings, and the served weights rounded to
+# SSM_CONTROL_BITS explicit mantissa bits (bfloat16 keeps 7) must fall
+# outside them: they pass no model one bit coarser
+SERVED_BOUNDS = {"ssm": (0.15, 0.7)}
+SSM_CONTROL_BITS = 6
+# the row-0 prefix of the 4 x 2,048 forward held against the float32 stepped
+# prefill: two SSD chunks, so the inter-chunk scan is in it
+SSM_PREFIX = 512
 # flash_attn, kernel vs plain: the plain version keeps float32 throughout.  The
 # float32 route (CUDA cores) differs from it in summation order only: 1e-5.
 # The bfloat16 route (tensor cores) also rounds P to bfloat16 before P.V, as
@@ -264,12 +306,12 @@ MOE_CF = 1.25  # the config's train-time capacity factor: 4 groups of 2,048 toke
 # (one more rounding).  About 2k + 2 roundings of at most half a bfloat16
 # step (2**-9 relative) each: 2**-5 of the output's largest magnitude
 MOE_TOL = 2**-5
-# lm_moe_train: deepseek-v2-lite's depth cut from 27 layers to 1 dense + 3 MoE.
-# At 1 dense + 5 MoE the step peaked at 78.97 GB (NVIDIA H100 80GB HBM3,
-# 700.00 W; chip_profile.py's moe_train_depth runs that depth), above the
-# 75 GB the cut allows: AdamW's update is out of place, so the old and the
-# new float32 moments are alive together, 22 bytes a parameter in all
-MOE_TRAIN_LAYERS, MOE_TRAIN_LAYERS_TRIED = 4, 6
+# lm_moe_train: deepseek-v2-lite's depth cut from 27 layers to 1 dense + 5 MoE.
+# Its 15.7 B parameters need 188 GB of weights, gradients and float32 moments
+# at 12 bytes a parameter (AdamW updates in place); 6 layers hold 3.42 B.
+# (Before the in-place update, 22 bytes a parameter, 6 layers peaked at
+# 78.97 GB and the cut was 4.)
+MOE_TRAIN_LAYERS = 6
 MOE_KILL_ARGS = ["--arch", "deepseek-v3-671b", *TRAIN_KILL_ARGS[2:]]
 # moe_train_parity: the CPU tests' bounds (tests/test_torch_train.py): in
 # float32 the card and the CPU differ in summation order only
@@ -1741,11 +1783,22 @@ def logits_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
             "top1_agree": float((g.argmax(-1) == w.argmax(-1)).float().mean())}
 
 
+def recurrent_state_bytes(cfg, batch: int) -> int:
+    """The bytes of every Mamba layer's decode state (the float32 SSM state
+    and the conv ring) for ``batch`` requests; 0 without SSM layers."""
+    cache = lm_mod.init_cache(cfg, batch, 1, device=torch.device("meta"))
+    layers = [*cache.get("prefix", []), *(lc for g in cache.get("groups", []) for lc in g),
+              *cache.get("tail", [])]
+    return sum(t.numel() * t.element_size() for lc in layers for k, t in lc.items()
+               if k in ("conv", "ssm"))
+
+
 def phase_lm_serve(cfg, device: str, phase: str = "lm_serve") -> dict:
     """The ported request path at full width: the context GET through the
     online store, stepped prefill of the 32-token contexts, greedy decode.
     A decode step's bound is one read of every weight (the MoE decode reads
-    every expert's, as the JAX formulation does)."""
+    every expert's, as the JAX formulation does), plus, for the SSM and
+    hybrid families, one read and one write of every Mamba layer's state."""
     t0 = time.perf_counter()
     plane = build_serving_plane(cfg, seed=0, device=device)
     plane_s = time.perf_counter() - t0
@@ -1755,6 +1808,7 @@ def phase_lm_serve(cfg, device: str, phase: str = "lm_serve") -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weight_gb = sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9
+    state_gb = recurrent_state_bytes(cfg, LM_REQUESTS) / 1e9
     reset_counts()
     out = serve(cfg, requests=LM_REQUESTS, new_tokens=LM_NEW_TOKENS, seed=0, device=device,
                 params=params, plane=plane, keep_logits=True)
@@ -1784,8 +1838,8 @@ def phase_lm_serve(cfg, device: str, phase: str = "lm_serve") -> dict:
         "prompt_len": int(out["prompts"].shape[1]), "context_hits": out["context_hits"],
         "new_tokens": LM_NEW_TOKENS, "online_lookup_ms": out["online_lookup_ms"],
         "stepped_prefill_ms": out["prefill_ms"],
-        "decode_ms_per_step": decode_ms / LM_NEW_TOKENS,
-        "decode_bound_ms": weight_gb * 1e9 / HBM_BYTES_PER_S * 1e3,
+        "decode_ms_per_step": decode_ms / LM_NEW_TOKENS, "state_gb": state_gb,
+        "decode_bound_ms": (weight_gb + 2 * state_gb) * 1e9 / HBM_BYTES_PER_S * 1e3,
         "decode_tokens_per_s": LM_REQUESTS * LM_NEW_TOKENS / decode_ms * 1e3,
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
     }
@@ -1812,13 +1866,81 @@ def prefill_batch(plane, seq: int, batch: int) -> tuple[dict, FeatureStoreLoader
     return loader.sample_batch(0), loader
 
 
-def phase_lm_prefill(cfg, served: dict, kernel_ms: float) -> dict:
+def float32_twin(params, cfg):
+    """A float32 copy of ``params`` (the same weights, each cast) and its
+    float32 config."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    twin = lm_mod.LM(cfg32, None, device=params.device)
+    with torch.no_grad():
+        for (name, p32), (same, p) in zip(twin.named_parameters(), params.named_parameters(),
+                                          strict=True):
+            check(name == same, "the float32 twin holds the served model's parameters")
+            p32.copy_(p)
+    return twin, cfg32
+
+
+def round_mantissa(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Float32 ``x`` rounded to ``bits`` explicit mantissa bits, half away
+    from zero, on its bit pattern."""
+    drop = 23 - bits
+    i = x.contiguous().view(torch.int32)
+    return ((i + (1 << (drop - 1))) & -(1 << drop)).view(torch.float32)
+
+
+def float32_references(params, cfg, token_sets: list, control) -> dict:
+    """The reference of a config with SSM layers: the stepped prefill
+    (``lm.prefill``) of each of ``token_sets`` on a float32 twin of the
+    served weights.  Then the control: ``control(params)`` (a forward on the
+    served model) with every weight rounded to ``SSM_CONTROL_BITS``
+    explicit mantissa bits, after which the served weights are put back
+    from the twin, bit for bit."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is off")
+    twin, cfg32 = float32_twin(params, cfg)
+    t0 = time.perf_counter()
+    refs = [lm_mod.prefill(twin, torch.as_tensor(t, device=params.device), cfg32,
+                           max_len=t.shape[1])[0] for t in token_sets]
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    with torch.no_grad():
+        for p in params.parameters():
+            p.copy_(round_mantissa(p.float(), SSM_CONTROL_BITS))
+        control_logits = control(params)
+        for p, p32 in zip(params.parameters(), twin.parameters(), strict=True):
+            p.copy_(p32)
+    del twin
+    torch.cuda.empty_cache()
+    return {"logits": refs, "control": control_logits, "seconds": ref_s}
+
+
+def attention_calls(cfg) -> int:
+    """Full-sequence attention calls a forward makes: one a layer, or for a
+    hybrid config one a group (the shared block), none for pure SSM."""
+    if cfg.ssm:
+        return lm_mod._layer_plan(cfg)["groups"]
+    return cfg.num_layers
+
+
+def phase_lm_prefill(cfg, served: dict, kernel_ms: float, phase: str = "lm_prefill") -> dict:
     """``make_prefill_step`` with ``attn_impl="pallas_flash"`` on the served
-    model: (i) on the served prompts against the stepped prefill's logits,
-    (ii) on a 4 x 2,048 loader batch against ``attn_impl="xla"``."""
+    model.  (i) On the served prompts, against a reference: for attention
+    only, the stepped prefill's logits; with SSM layers, the float32 stepped
+    prefill of a float32 twin (``float32_references``), against which the
+    served stepped prefill and the first ``SSM_PREFIX`` logits of (ii)'s row
+    0 are held too, and a lower-precision control must fall outside the
+    bounds.  (ii) On a 4 x 2,048 loader batch against ``attn_impl="xla"``,
+    or, with no attention in the model (mamba2), against the same forward
+    at half the SSD chunk (twice the chunks through the inter-chunk scan).
+    Each attention call launches flash on the route ``flash_ops.route``
+    names (``kernel_ms`` is that kernel's time at this shape)."""
     params, out = served["params"], served["out"]
     flash = make_prefill_step(dataclasses.replace(cfg, attn_impl="pallas_flash"))
-    xla = make_prefill_step(dataclasses.replace(cfg, attn_impl="xla"))
+    calls = attention_calls(cfg)
+    if calls:
+        ref_label = "xla"
+        xla = make_prefill_step(dataclasses.replace(cfg, attn_impl="xla"))
+    else:
+        ref_label = f"ssm_chunk {cfg.ssm_chunk // 2}"
+        xla = make_prefill_step(dataclasses.replace(cfg, ssm_chunk=cfg.ssm_chunk // 2))
     t0 = time.perf_counter()
     batch, loader = prefill_batch(served["plane"], PREFILL_SEQ, PREFILL_BATCH)
     batch_s = time.perf_counter() - t0
@@ -1827,6 +1949,14 @@ def phase_lm_prefill(cfg, served: dict, kernel_ms: float) -> dict:
     check(bool((batch["__max_event_ts__"] <= batch["__observation_ts__"]).all()),
           "no token from after the loader's clock")
 
+    if cfg.ssm:
+        refs = float32_references(params, cfg, [out["prompts"], tokens[:1, :SSM_PREFIX]],
+                                  lambda model: flash(model, {"tokens": out["prompts"]}))
+        served_ref, prefix_ref = refs["logits"]
+        reference = "float32 stepped prefill"
+    else:
+        refs, served_ref, reference = None, out["prompt_logits"], "stepped prefill"
+    bounds = SERVED_BOUNDS.get(cfg.family, (LOGITS_REL_RMS, LOGITS_TOP1))
     reset_counts()
     short = flash(params, {"tokens": out["prompts"]})
     torch.cuda.synchronize()
@@ -1841,36 +1971,55 @@ def phase_lm_prefill(cfg, served: dict, kernel_ms: float) -> dict:
     forward_s = (time.perf_counter() - t0) / reps
     launches = read_counts()
     forwards = 2 + reps
-    check(launches["flash_attn"] == launches["flash_attn_wgmma"] == cfg.num_layers * forwards,
-          f"{cfg.num_layers} flash launches per forward, all on the tensor cores "
-          f"({forwards} forwards)")
+    route = flash_ops.route(torch_dtype(cfg.compute_dtype), cfg.head_dim)
+    check(launches["flash_attn"] == calls * forwards
+          and launches["flash_attn_wgmma"] == (calls * forwards if route == "wgmma" else 0),
+          f"{calls} flash launches per forward, all on the {route} route ({forwards} forwards)")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ref = xla(params, {"tokens": tokens})
     torch.cuda.synchronize()
     xla_s = time.perf_counter() - t0
-    check(read_counts()["flash_attn"] == launches["flash_attn"], "the xla path launches no flash")
-    vs_stepped = logits_agreement(short, out["prompt_logits"])
-    vs_xla = logits_agreement(long, ref)
+    check(read_counts()["flash_attn"] == launches["flash_attn"],
+          f"the {ref_label} path launches no flash")
     check(short.shape == out["prompt_logits"].shape and long.shape == ref.shape
           == (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab_size), "logits of the expected shapes")
-    check(vs_stepped["rel_rms_err"] <= LOGITS_REL_RMS and vs_stepped["top1_agree"] >= LOGITS_TOP1,
-          f"flash prefill within {LOGITS_REL_RMS} relative RMS and {LOGITS_TOP1} top-1 "
-          "agreement of the stepped prefill")
-    check(vs_xla["rel_rms_err"] <= LOGITS_REL_RMS and vs_xla["top1_agree"] >= LOGITS_TOP1,
-          f"flash prefill within {LOGITS_REL_RMS} relative RMS and {LOGITS_TOP1} top-1 "
-          "agreement of the xla path")
+    vs_reference = {"forward": logits_agreement(short, served_ref)}
+    if refs:
+        vs_reference["stepped_prefill"] = logits_agreement(out["prompt_logits"], served_ref)
+        vs_reference[f"forward_4x{PREFILL_SEQ}_row0_prefix"] = logits_agreement(
+            long[:1, :SSM_PREFIX], prefix_ref)
+        control = logits_agreement(refs["control"], served_ref)
+    vs_xla = logits_agreement(long, ref)
+
+    def within(a: dict, rel_rms: float, top1: float) -> bool:
+        return a["rel_rms_err"] <= rel_rms and a["top1_agree"] >= top1
+
+    for what, agreement in vs_reference.items():
+        check(within(agreement, *bounds), f"{what} within {bounds[0]} relative RMS and "
+              f"{bounds[1]} top-1 agreement of the {reference}")
+    if refs:
+        check(not within(control, *bounds), f"the control ({SSM_CONTROL_BITS} mantissa bits) "
+              f"falls outside {bounds[0]} relative RMS or {bounds[1]} top-1 agreement")
+    check(within(vs_xla, LOGITS_REL_RMS, LOGITS_TOP1), f"flash prefill within "
+          f"{LOGITS_REL_RMS} relative RMS and {LOGITS_TOP1} top-1 agreement of the {ref_label} path")
     n_tok = PREFILL_BATCH * PREFILL_SEQ
     row = {
-        "phase": "lm_prefill", "arch": cfg.name, "batch": PREFILL_BATCH, "seq": PREFILL_SEQ,
+        "phase": phase, "arch": cfg.name, "batch": PREFILL_BATCH, "seq": PREFILL_SEQ,
         "loader_clock_h": loader.clock / HOUR, "batch_s": batch_s,
-        "vs_stepped_prefill": vs_stepped, "vs_xla": vs_xla,
+        "reference": reference, "bounds": bounds, "vs_reference": vs_reference,
+        "vs_xla_reference": ref_label, "vs_xla": vs_xla,
         "first_forward_s": first_s, "forward_s": forward_s, "xla_forward_s": xla_s,
         "prefill_tokens_per_s": n_tok / forward_s,
         "xla_prefill_tokens_per_s": n_tok / xla_s,
-        "flash_share_of_forward": cfg.num_layers * kernel_ms / (forward_s * 1e3),
+        "flash_calls_per_forward": calls, "flash_route": route if calls else None,
+        "flash_share_of_forward": calls * kernel_ms / (forward_s * 1e3),
         "xla_peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
     }
+    if refs:
+        row.update(ssd_chunks=PREFILL_SEQ // cfg.ssm_chunk, reference_s=refs["seconds"],
+                   control_mantissa_bits=SSM_CONTROL_BITS, control=control,
+                   forward_vs_stepped_prefill_bf16=logits_agreement(short, out["prompt_logits"]))
     emit(row)
     return {"row": row}
 
@@ -2164,24 +2313,24 @@ def phase_lm_train(cfg, rng, device: str = "cuda") -> dict:
           f"tensor cores ({TRAIN_STEPS} steps)")
     check(peak_gb < card_gb, "peak memory under the card's")
 
-    # one state and batch: the optimizer alone, then flash against xla.  The
-    # cache is emptied first: the loop leaves its blocks cut to its own sizes,
-    # and the 7.8 GiB float32 logits need a fresh one
+    # one state and batch: flash against xla, then the optimizer alone (it
+    # updates the state in place, so it goes last).  The cache is emptied
+    # first: the loop leaves its blocks cut to its own sizes, and the 7.8 GiB
+    # float32 logits need a fresh one
     torch.cuda.empty_cache()
     batch = {"tokens": torch.as_tensor(batches[0]["tokens"], device=device)}
     flash_m, flash_g = loss_and_grads(state.params, batch, cfg)
-    named = dict(state.params.named_parameters())
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    update = optimizer.update(flash_g, state.opt, named)
-    torch.cuda.synchronize()
-    opt_s = time.perf_counter() - t0
-    del update
     torch.cuda.empty_cache()
     before = read_counts()["flash_attn"]
     xla_m, xla_g = loss_and_grads(state.params, batch, dataclasses.replace(cfg, attn_impl="xla"))
     torch.cuda.synchronize()
     check(read_counts()["flash_attn"] == before, "the xla step launches no flash")
+    named = dict(state.params.named_parameters())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    optimizer.update(flash_g, state.opt, named)
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t0
     lf, lx = float(flash_m["lm_loss"]), float(xla_m["lm_loss"])
     grads = leaf_agreement(flash_g, xla_g)
     check(np.isfinite(lf) and abs(lf - lx) <= TRAIN_LOSS_RTOL * abs(lx),
@@ -2306,6 +2455,7 @@ def phase_lm_moe_train(cfg, layers: int, device: str = "cuda") -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     counts = cfg.param_counts()
+    counts_full = int(get_config(cfg.name).param_counts()["total"])
     n_params = sum(p.numel() for p in params.parameters())
     # the config's count leaves out the final and the latent norms' weights
     uncounted = sum(p.numel() for n, p in params.named_parameters()
@@ -2368,8 +2518,8 @@ def phase_lm_moe_train(cfg, layers: int, device: str = "cuda") -> dict:
     row = {
         "phase": "lm_moe_train", "arch": cfg.name, "layers": layers,
         "published_layers": get_config(cfg.name).num_layers,
-        "depth_cut": (f"{MOE_TRAIN_LAYERS_TRIED} layers peak above 75 GB"
-                      if layers < MOE_TRAIN_LAYERS_TRIED else None),
+        "depth_cut": (f"{counts_full:,} parameters at all {get_config(cfg.name).num_layers} "
+                      f"layers need {12 * counts_full / 1e9:.0f} GB at 12 B a parameter"),
         "dense_layers": cfg.first_dense_layers, "moe_layers": n_moe, "d_model": cfg.d_model,
         "experts": cfg.num_experts, "top_k": cfg.top_k, "moe_d_ff": cfg.moe_d_ff,
         "shared_experts": cfg.num_shared_experts, "kv_lora_rank": cfg.kv_lora_rank,
@@ -2602,8 +2752,12 @@ def main() -> int:
                     "MQA B=2 S=T=1,024 H=8 KV=1 D=256 bf16 (gemma-2b heads)", rng),
         check_flash(2, 1000, 40, 10, 128, torch.bfloat16, "wgmma",
                     "ragged bf16 B=2 S=T=1,000 H=40 KV=10 D=128", rng),
+        check_flash(PREFILL_BATCH, PREFILL_SEQ, 32, 32, 112, torch.bfloat16, "cuda_cores",
+                    "zamba2 prefill: B=4 S=T=2,048 H=KV=32 D=112 bf16 (shared block)", rng),
+        check_flash(2, 1000, 32, 32, 112, torch.bfloat16, "cuda_cores",
+                    "ragged bf16 B=2 S=T=1,000 H=KV=32 D=112", rng),
     ]
-    main_flash = checks["flash_attn"][0]
+    main_flash, flash_112 = checks["flash_attn"][0], checks["flash_attn"][4]
     cfg = get_config(LM_ARCH)
     served = phase_lm_serve(cfg, "cuda")
     prefill = phase_lm_prefill(cfg, served, main_flash["ms"])
@@ -2614,6 +2768,22 @@ def main() -> int:
     del served, prefill
     gc.collect()
     torch.cuda.empty_cache()
+
+    # the SSM and hybrid families: serving, then the full-sequence prefill
+    for arch, family, kernel_ms in ((SSM_ARCH, "ssm", 0.0), (HYBRID_ARCH, "hybrid",
+                                                               flash_112["ms"])):
+        fam_cfg = get_config(arch)
+        fam_served = phase_lm_serve(fam_cfg, "cuda", phase=f"lm_{family}_serve")
+        launches["online_lookup"] += fam_served["row"]["launches"]["online_lookup"]
+        fam_prefill = phase_lm_prefill(fam_cfg, fam_served, kernel_ms,
+                                       phase=f"lm_{family}_prefill")["row"]
+        launches["flash_attn"] += fam_prefill["launches"]["flash_attn"]
+        lm_row[family] = {k: fam_served["row"][k] for k in (
+            "weight_gb", "state_gb", "decode_ms_per_step", "decode_bound_ms")}
+        lm_row[family]["prefill_tokens_per_s"] = fam_prefill["prefill_tokens_per_s"]
+        del fam_served, fam_prefill
+        gc.collect()
+        torch.cuda.empty_cache()
 
     moe_cfg = get_config(MOE_ARCH)
     moe_row = phase_moe_dispatch(moe_cfg, "cuda")
@@ -2669,6 +2839,8 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"], "shape": main_row["shape"],
         })
+    kernels[-1]["head_dim_112"] = {k: flash_112[k] for k in (
+        "shape", "route", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(json.dumps({"kernels": kernels}), flush=True)
     emit({"card": card, "get_batch": GET_BATCH, "get_p50_ms": prof_row["get_p50_ms"],
           "get_p99_ms": prof_row["get_p99_ms"], "lm": lm_row, "geo_s": geo_s,

@@ -12,9 +12,10 @@ part of that state: ``keys_full`` carries the same keys as int64.
 
 ``lm_params_from_numpy`` builds a port ``LM`` from the JAX package's
 parameter tree (numpy leaves; the scanned ``tail`` holds layer-leading
-arrays, unstacked here into one block per layer), and
-``lm_params_to_numpy`` gives the tree back; ``kv_cache_to_numpy`` gives a
-decode cache in the JAX package's layout.  bfloat16 leaves come back as
+arrays and a hybrid config's ``groups`` group- then layer-leading (G, L,
+...) ones, unstacked here into one block per layer; ``shared_attn`` and
+``mtp`` are subtrees), and ``lm_params_to_numpy`` gives the tree back;
+``kv_cache_to_numpy`` gives a decode cache in the JAX package's layout.  bfloat16 leaves come back as
 float32 (exact), since numpy has no bfloat16 of its own.
 
 ``train_state_from_numpy`` and ``train_state_to_numpy`` do the same for a
@@ -203,39 +204,55 @@ def _stack_leaf(xs: list, stack):
 def _jax_tree(named, stack) -> dict:
     """The JAX package's tree of port-named leaves (``(name, leaf)`` pairs):
     ``prefix`` a list of blocks, the per-layer leaves of ``tail`` stacked
-    layer-leading with ``stack``."""
-    top, prefix, tail = {}, {}, {}
+    layer-leading with ``stack``, those of ``groups`` stacked (G, L, ...)."""
+    top, prefix, groups, tail = {}, {}, {}, {}
     for name, x in named:
         head, _, rest = name.partition(".")
         if head == "prefix":
             i, _, path = rest.partition(".")
             prefix.setdefault(int(i), {})[path] = x
+        elif head == "groups":
+            g, i, path = rest.split(".", 2)
+            groups.setdefault(path, {}).setdefault(int(g), {})[int(i)] = x
         elif head == "tail":
             j, _, path = rest.partition(".")
             tail.setdefault(path, {})[int(j)] = x
         else:
             top[name] = x
-    top = _nest(top)  # top-level subtrees (``mtp``) nest like a block
+    top = _nest(top)  # top-level subtrees (``mtp``, ``shared_attn``) nest like a block
     if prefix:
         top["prefix"] = [_nest(prefix[i]) for i in sorted(prefix)]
+    if groups:
+        top["groups"] = _nest({
+            k: _stack_leaf([_stack_leaf([v[g][i] for i in sorted(v[g])], stack)
+                            for g in sorted(v)], stack)
+            for k, v in groups.items()})
     if tail:
         top["tail"] = _nest({k: _stack_leaf([v[j] for j in sorted(v)], stack)
                              for k, v in tail.items()})
     return top
 
 
+def _unstack(v, index: tuple):
+    """One layer of a stacked leaf (a quantized moment's ``q`` and ``scale``
+    alike)."""
+    return {n: x[index] for n, x in v.items()} if isinstance(v, dict) else v[index]
+
+
 def _port_named(tree: dict) -> dict:
-    """The inverse of ``_jax_tree``: port parameter name -> leaf, the tail's
-    stacked leaves split into one per layer."""
-    flat = dict(_leaves({k: v for k, v in tree.items() if k not in ("prefix", "tail")}))
+    """The inverse of ``_jax_tree``: port parameter name -> leaf, the stacked
+    leaves of ``groups`` and ``tail`` split into one per layer."""
+    flat = dict(_leaves({k: v for k, v in tree.items()
+                         if k not in ("prefix", "groups", "tail")}))
     for i, bp in enumerate(tree.get("prefix", [])):
         flat.update((f"prefix.{i}.{k}", v) for k, v in _leaves(bp))
+    for k, v in _leaves(tree.get("groups", {})):
+        n_g, n_l = np.shape(v["q"] if isinstance(v, dict) else v)[:2]
+        flat.update((f"groups.{g}.{i}.{k}", _unstack(v, (g, i)))
+                    for g in range(n_g) for i in range(n_l))
     for k, v in _leaves(tree.get("tail", {})):
-        if isinstance(v, dict):
-            flat.update((f"tail.{j}.{k}", {n: x[j] for n, x in v.items()})
-                        for j in range(np.shape(v["q"])[0]))
-        else:
-            flat.update((f"tail.{j}.{k}", v[j]) for j in range(np.shape(v)[0]))
+        n_l = np.shape(v["q"] if isinstance(v, dict) else v)[0]
+        flat.update((f"tail.{j}.{k}", _unstack(v, (j,))) for j in range(n_l))
     return flat
 
 
@@ -331,10 +348,17 @@ def train_state_from_numpy(cfg: ModelConfig, tree: dict, *,
 
 def kv_cache_to_numpy(cache: dict) -> dict:
     """A decode cache in the JAX package's layout: ``t`` an int32 scalar,
-    ``prefix`` a list of layer caches, ``tail`` stacked layer-leading."""
+    ``prefix`` and ``shared`` lists of layer caches, ``groups`` stacked
+    (G, L, ...), ``tail`` stacked layer-leading (KV, MLA or Mamba caches
+    alike)."""
     out = {"t": np.int32(cache["t"])}
-    if "prefix" in cache:
-        out["prefix"] = [{k: _numpy(v) for k, v in lc.items()} for lc in cache["prefix"]]
+    for part in ("prefix", "shared"):
+        if part in cache:
+            out[part] = [{k: _numpy(v) for k, v in lc.items()} for lc in cache[part]]
+    if "groups" in cache:
+        out["groups"] = {k: np.stack([np.stack([_numpy(lc[k]) for lc in gc])
+                                      for gc in cache["groups"]])
+                         for k in cache["groups"][0][0]}
     if "tail" in cache:
         out["tail"] = {k: np.stack([_numpy(lc[k]) for lc in cache["tail"]])
                        for k in cache["tail"][0]}

@@ -1,7 +1,7 @@
 // Causal GQA flash attention, forward, on the CUDA cores (sm_90a): the
-// float32 route at every head dim and the bf16 route at D 16 and 32.  bf16 at
-// D 64, 128 and 256 -- every configuration's hot path -- runs on the tensor
-// cores in flash_attn_tc.cu instead.
+// float32 route at every head dim and the bf16 route at D 16, 32 and 112
+// (zamba2's shared attention block).  bf16 at D 64, 128 and 256 runs on the
+// tensor cores in flash_attn_tc.cu instead.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` (src/repro/kernels/flash_attn/
 // kernel.py:41) together with what its wrapper (ops.py) did around it.  Same
@@ -19,7 +19,7 @@
 // Bound on this card: operations, at the CUDA cores' float32 rate (67 TFLOP/s)
 // for the float32 inputs it exists for.  It does its products in float32 on
 // the CUDA cores, so it is exact to float32 summation order (1e-5 against the
-// plain version); no configuration runs its shapes on the hot path.
+// plain version).
 //
 // Design: one block of 256 threads per (64-query tile, b*h), the heaviest
 // (latest) query tiles scheduled first.  The block loops over 64-key tiles up to
@@ -27,7 +27,10 @@
 // this loop -- staging each K tile, then each V tile, in one shared buffer as
 // float32.  Thread (ty, tx) owns query rows ty + 16 i (i < 4): it computes a 4x4
 // block of scores, the 16 threads of a row reduce its max and sum by shuffles,
-// and it accumulates D/16 output columns of each of its rows in registers.
+// and it accumulates D/16 output columns of each of its rows in registers:
+// where 64 divides D, runs of 4 neighbouring columns 64 apart (tx*4 + 64 g + e);
+// otherwise (D 16, 32, 112) single columns 16 apart (tx + 16 g), which covers
+// D = 16 * (D/16) exactly, 7 columns a thread at D 112, and reads nothing past D.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -104,7 +107,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
           T* __restrict__ o, int S, int Tk, int H, int group, int64_t q_sb, int64_t q_ss,
           int64_t q_sh, int64_t k_sb, int64_t k_st, int64_t k_sh, float scale, int causal) {
   constexpr int kStride = D + 4;                // row stride of the Q and K/V tiles
-  constexpr int kCw = D >= 64 ? 4 : 1;          // output columns a thread owns side by side
+  constexpr int kCw = D % 64 == 0 ? 4 : 1;      // output columns a thread owns side by side
   constexpr int kCols = D / 16;                 // output columns a thread owns per row
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // (64, D + 4)
@@ -254,7 +257,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   return cudaGetLastError();
 }
 
-// float32 at every head dim; bf16 at D 16 and 32 only (flash_attn_tc.cu
+// float32 at every head dim; bf16 at D 16, 32 and 112 only (flash_attn_tc.cu
 // takes the others)
 template <typename T>
 cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o, int B, int S,
@@ -266,6 +269,7 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o
     case 64:
       if constexpr (kF32) return launch<T, 64>(q, k, v, o, B, S, Tk, H, KV, st, causal, s);
       break;
+    case 112: return launch<T, 112>(q, k, v, o, B, S, Tk, H, KV, st, causal, s);
     case 128:
       if constexpr (kF32) return launch<T, 128>(q, k, v, o, B, S, Tk, H, KV, st, causal, s);
       break;
@@ -279,7 +283,7 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o
 }  // namespace
 
 // q/o strides (batch, seq, head) and k/v strides (batch, seq, head) in elements;
-// the head dim is contiguous.  dtype: 0 float32, 1 bfloat16 (D 16 or 32).  Returns
+// the head dim is contiguous.  dtype: 0 float32, 1 bfloat16 (D 16, 32 or 112).  Returns
 // cudaGetLastError() after the launch.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o, int B, int S,
                               int T, int H, int KV, int D, int dtype, int causal,

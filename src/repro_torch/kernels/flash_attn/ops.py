@@ -5,7 +5,8 @@
 by ``route``: bf16 at D 64, 128 or 256 runs on the tensor cores
 (``csrc/flash_attn_tc.cu``, wgmma on TMA-fed tiles, P rounded to bf16 before
 P.V as the TPU kernel's DEFAULT-precision dot does); float32, and bf16 at D
-16 or 32, on the CUDA cores (``csrc/flash_attn.cu``, exact float32).  Both
+16, 32 or 112 (zamba2), on the CUDA cores (``csrc/flash_attn.cu``, exact
+float32).  A CUDA tensor at another head dim raises.  Both
 read kv head h // (H / KV) for query head h in place and mask ragged S and T
 themselves: no GQA expansion, no transpose, no padding copy.  A CPU tensor
 runs the plain version in ``ref.py``.
@@ -28,8 +29,9 @@ from repro_torch.kernels.flash_attn.ref import attention_bwd_ref, attention_ref
 __all__ = ["ENTRIES", "HEAD_DIMS", "TC_HEAD_DIMS", "FlashAttention", "counter", "flash_attention",
            "flash_bytes", "route", "tc_counter"]
 
-#: head dims the kernels are built for (phi3/qwen 128, gemma 256, small checks)
-HEAD_DIMS = (16, 32, 64, 128, 256)
+#: head dims the kernels are built for (phi3/qwen 128, gemma 256, zamba2 112,
+#: small checks)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 #: head dims of the tensor-core route (bf16 only)
 TC_HEAD_DIMS = (64, 128, 256)
 #: C entry of each route

@@ -14,8 +14,9 @@ equal the offline store's latest record for the session.
     python -m repro_torch.launch.serve --arch gemma3-1b   # reduced config, on the card
 
 ``main`` runs the reduced config of ``--arch`` on the card, as the JAX
-package's ``main`` does; ``serve`` takes any config (a full one, or a float32
-one with converted weights) and a device.
+package's ``main`` does; ``serve`` takes any config the port runs (dense,
+MLA + MoE, SSM, hybrid; a full one, or a float32 one with converted weights)
+and a device.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Step functions: the units the drivers execute.
 
   * train_step — fwd + bwd + optimizer update
-  * serve_step — one decode token against a KV cache (updated in place)
+  * serve_step — one decode token against a KV/state cache (updated in place)
   * prefill_step — full-sequence logits (the prefill-throughput unit)
 """
 
@@ -59,9 +59,10 @@ def make_train_step(
     hybrid, encoder/decoder and vision-prefix configs, not ported yet.
 
     The step consumes its state, as the JAX driver's donated state is
-    consumed: the new weights are written into ``state.params`` in place
-    (one model's worth of weights, not two), and the returned state holds
-    the same model."""
+    consumed: the optimizer writes the new weights into ``state.params`` and
+    the new float32 moments into ``state.opt`` in place (one copy of each,
+    not two), and the returned state holds the same model and optimizer
+    state.  A caller that needs the state from before a step rebuilds it."""
     check_trainable(cfg)
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
@@ -78,13 +79,8 @@ def make_train_step(
                     grads[n] += gi.float()
             grads = {n: a / num_microbatches for n, a in grads.items()}
 
-        new_params, new_opt = optimizer.update(grads, state.opt,
-                                               dict(state.params.named_parameters()))
-        del grads
-        with torch.no_grad():
-            for n, p in state.params.named_parameters():
-                p.copy_(new_params.pop(n))
-        return TrainState(state.params, new_opt, state.step + 1), metrics
+        _, opt = optimizer.update(grads, state.opt, dict(state.params.named_parameters()))
+        return TrainState(state.params, opt, state.step + 1), metrics
 
     return train_step
 

@@ -13,8 +13,9 @@ the JAX package's, so a run started by either package resumes in the other.
 The port trains on one device (the card unless ``main`` is given
 ``device="cpu"``): ``--mesh`` takes only ``1x1``.  It trains the dense and
 the MLA + MoE configs (``--arch deepseek-v2-lite-16b``, and
-``deepseek-v3-671b`` with its MTP loss); the SSM, hybrid, encoder/decoder
-and vision-prefix configs are not ported yet and raise.
+``deepseek-v3-671b`` with its MTP loss); the SSM and hybrid configs (served,
+not trained yet), and the encoder/decoder and vision-prefix ones (not ported
+yet), raise.
 """
 
 from __future__ import annotations

@@ -1,11 +1,12 @@
 """Uniform model API: the decoder-only half of the JAX package's
-``models/api.py``, for the dense and the MLA + MoE configs.
+``models/api.py``, for the dense, MLA + MoE, SSM (mamba2) and hybrid
+(zamba2) configs.
 
 Everything downstream (steps, the serving driver, tests) talks to these
 functions.  Each one that allocates takes ``device=`` (default ``"cuda"``,
 resolved by ``device.resolve_device``: no card, no silent CPU).
-``train_loss`` raises for the MoE and MTP configs, whose training is not
-ported yet; the encoder/decoder assembly is not ported either (ROADMAP
+``train_loss`` raises for the SSM and hybrid configs, which serve but do
+not train yet; the encoder/decoder assembly is not ported either (ROADMAP
 queue 1, item 4): its entry points raise ``NotImplementedError``.
 """
 

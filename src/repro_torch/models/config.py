@@ -6,8 +6,9 @@ local:global sliding-window attention, plus the enc-dec (whisper) and
 vision-prefix (pixtral) assemblies.  Param-count helpers feed the roofline's
 MODEL_FLOPS = 6·N(active)·D term.
 
-Copied from the JAX package.  The port's models/lm.py runs the dense and the
-MLA + MoE (+MTP) decoder-only configs; the other families raise
+Copied from the JAX package.  The port's models/lm.py runs the dense, the
+MLA + MoE (+MTP), the SSM and the hybrid decoder-only configs (the last two
+serve only); the enc-dec and vision-prefix families raise
 NotImplementedError there.
 """
 

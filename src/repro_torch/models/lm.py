@@ -1,18 +1,24 @@
-"""Decoder-only LM: the dense configs (phi3, gemma-2b, qwen1.5, gemma3) and
-the MLA + MoE family (deepseek-v2-lite, deepseek-v3).
+"""Decoder-only LM: the dense configs (phi3, gemma-2b, qwen1.5, gemma3), the
+MLA + MoE family (deepseek-v2-lite, deepseek-v3), the pure SSM (mamba2) and
+the hybrid SSM + shared attention (zamba2).
 
 The JAX package's ``models/lm.py`` as ``nn.Module``s: an ``LM`` holds
 ``embed``, ``final_norm``, ``lm_head`` (unless tied), the layer plan's
-``prefix`` and ``tail`` as ``ModuleList``s of ``Block``s, each with
-``norm1``, ``mixer`` (attention, or ``MLA``), ``norm2`` and ``ffn`` (an
-``MLP``, or an ``MoE`` outside the leading dense layers), and with MTP the
-``mtp`` subtree (``proj``, an MoE ``block``, ``norm``).  Parameter names
-are the JAX dict keys and weights keep JAX's (in, out) layout, so ``x @ w``
-is the same product (``convert.py`` moves weights across).  A Python loop
-over the blocks replaces ``lax.scan``.  Where JAX wraps the tail's scan body
-in ``jax.checkpoint`` (full rematerialisation of each block), the port runs
-each tail block under ``torch.utils.checkpoint`` whenever a gradient is
-recorded for trainable weights; the prefix is not checkpointed, as in JAX.
+``prefix``, ``groups`` and ``tail`` as ``ModuleList``s of ``Block``s, each
+with ``norm1``, ``mixer`` (attention, ``MLA`` or ``Mamba``), and, except in
+a Mamba block, ``norm2`` and ``ffn`` (an ``MLP``, or an ``MoE`` outside the
+leading dense layers); a hybrid config's ``groups`` (``groups`` of
+``group_len`` Mamba blocks) come with one ``shared_attn`` block (attention
+and a GELU MLP) applied after each group; with MTP the ``mtp`` subtree
+(``proj``, an MoE ``block``, ``norm``).  Parameter names are the JAX dict
+keys and weights keep JAX's (in, out) layout, so ``x @ w`` is the same
+product (``convert.py`` moves weights across, stacking ``groups`` (G, L,
+...) and ``tail`` (L, ...) as JAX's scans hold them).  A Python loop over
+the blocks replaces ``lax.scan``.  Where JAX wraps a scan body in
+``jax.checkpoint`` (full rematerialisation of each tail or group block), the
+port runs each such block under ``torch.utils.checkpoint`` whenever a
+gradient is recorded for trainable weights; the prefix and the shared block
+are not checkpointed, as in JAX.
 Serving's weights are frozen, so it runs the blocks plainly.  Local/global
 layer flags are plain bools per layer.  The token embedding is
 ``F.embedding`` (the same rows as indexing): its backward on CUDA sums each
@@ -22,12 +28,14 @@ row's gradient in a fixed order, where indexing's backward (an accumulating
 and a resumed run repeats an uninterrupted one.
 
 ``forward`` sums the MoE blocks' aux losses over the stack.  Decode runs
-MoE no-drop (one group of the batch, capacity factor E/k) and MLA absorbed
-against its compressed cache.  Serving ignores the ``mtp`` subtree, as the
+MoE no-drop (one group of the batch, capacity factor E/k), MLA absorbed
+against its compressed cache, and a Mamba block as one recurrent step on
+its conv ring and SSM state.  Serving ignores the ``mtp`` subtree, as the
 JAX package does; ``train_loss`` runs it (the MTP loss branch, one extra
 block predicting the token after next).  The dense and the MLA + MoE
-configs train; SSM, hybrid, encoder/decoder and vision-prefix configs raise
-``NotImplementedError`` in serving and training alike (ROADMAP queue 1,
+configs train; the SSM and hybrid configs serve but raise
+``NotImplementedError`` in training, and the encoder/decoder and
+vision-prefix configs raise in serving and training alike (ROADMAP queue 1,
 item 4).
 """
 
@@ -43,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, ParamModule, dense_init, mlp_apply, rms_norm, torch_dtype
 from repro_torch.models.losses import next_token_loss, softmax_cross_entropy
@@ -50,6 +59,7 @@ from repro_torch.models.losses import next_token_loss, softmax_cross_entropy
 __all__ = [
     "Block",
     "LM",
+    "SharedAttnBlock",
     "check_supported",
     "check_trainable",
     "decode_step",
@@ -60,7 +70,8 @@ __all__ = [
     "train_loss",
 ]
 
-_UNPORTED = ("ssm", "hybrid_attn_period", "encoder_decoder", "vision_prefix")
+_UNPORTED = ("encoder_decoder", "vision_prefix")
+_UNTRAINED = ("ssm", "hybrid_attn_period")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -69,45 +80,75 @@ def check_supported(cfg: ModelConfig) -> None:
     if on:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(on)} not ported yet (ROADMAP queue 1, item 4); "
-            "the port runs the dense and MLA + MoE decoder-only configs"
+            "the port runs the dense, MLA + MoE, SSM and hybrid decoder-only configs"
         )
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a config family the port does not train yet: the port
-    trains every family it runs."""
+    """Raise for a config family the port does not train yet: the unported
+    families, and the SSM and hybrid ones, which it serves only."""
     check_supported(cfg)
+    on = [f for f in _UNTRAINED if getattr(cfg, f)]
+    if on:
+        raise NotImplementedError(
+            f"{cfg.name}: training of {', '.join(on)} not ported yet (ROADMAP queue 1, "
+            "item 4); the port trains the dense and MLA + MoE configs"
+        )
 
 
 # =============================================================================
 # init
 # =============================================================================
 class Block(ParamModule):
-    """One transformer block: ``norm1``, ``mixer`` (``MLA`` when
-    ``cfg.use_mla``), and ``norm2`` and ``ffn``: an ``MoE`` when ``cfg.moe``
-    and not ``dense_ffn``, else a dense ``MLP`` (when ``cfg.d_ff``)."""
+    """One transformer or Mamba block: ``norm1``, ``mixer`` (``Mamba`` when
+    ``cfg.ssm``, ``MLA`` when ``cfg.use_mla``), and ``norm2`` and ``ffn``: an
+    ``MoE`` when ``cfg.moe`` and not ``dense_ffn``, else a dense ``MLP``
+    (when ``cfg.d_ff``).  A Mamba block is the whole layer, with no FFN: a
+    hybrid config's ``d_ff`` sizes the shared attention block's MLP only."""
 
     def __init__(self, gen, cfg: ModelConfig, *, dtype: torch.dtype,
                  device: Optional[torch.device] = None, dense_ffn: bool = False) -> None:
         dev = gen.device if gen is not None else device
         super().__init__({"norm1": torch.zeros((cfg.d_model,), dtype=dtype, device=dev)})
-        mixer = mla_mod.MLA if cfg.use_mla else attn.Attention
+        mixer = ssm_mod.Mamba if cfg.ssm else mla_mod.MLA if cfg.use_mla else attn.Attention
         self.mixer = mixer(gen, cfg, dtype=dtype, device=device)
         moe = cfg.moe and not dense_ffn
-        if moe or cfg.d_ff:
+        if moe or (cfg.d_ff and not cfg.ssm):
             self.register_parameter("norm2", nn.Parameter(
                 torch.zeros((cfg.d_model,), dtype=dtype, device=dev), requires_grad=False))
         if moe:
             self.ffn = moe_mod.MoE(gen, cfg, dtype=dtype, device=device)
-        elif cfg.d_ff:
+        elif cfg.d_ff and not cfg.ssm:
             self.ffn = MLP(gen, cfg.d_model, cfg.d_ff, cfg.mlp_variant, dtype=dtype,
                            device=device)
 
 
+class SharedAttnBlock(ParamModule):
+    """zamba2's shared transformer block, one copy: ``norm1``, ``attn``,
+    ``norm2`` and a GELU ``mlp`` of width ``cfg.d_ff`` (4·D when unset)."""
+
+    def __init__(self, gen, cfg: ModelConfig, *, dtype: torch.dtype,
+                 device: Optional[torch.device] = None) -> None:
+        dev = gen.device if gen is not None else device
+        super().__init__({"norm1": torch.zeros((cfg.d_model,), dtype=dtype, device=dev)})
+        self.attn = attn.Attention(gen, cfg, dtype=dtype, device=device)
+        self.register_parameter("norm2", nn.Parameter(
+            torch.zeros((cfg.d_model,), dtype=dtype, device=dev), requires_grad=False))
+        self.mlp = MLP(gen, cfg.d_model, cfg.d_ff or 4 * cfg.d_model, "gelu", dtype=dtype,
+                       device=device)
+
+
 def _layer_plan(cfg: ModelConfig) -> dict:
-    """How the depth dimension is organized (must match init & apply): the
-    JAX package's plan without the hybrid groups, which are not ported."""
-    return {"prefix": cfg.first_dense_layers, "tail": cfg.num_layers - cfg.first_dense_layers}
+    """How the depth dimension is organized (must match init & apply): a
+    hybrid config's ``groups`` of ``group_len`` blocks, each followed by the
+    shared attention block, then a ``tail`` of the rest; otherwise the
+    leading dense ``prefix`` and the ``tail``."""
+    if cfg.hybrid_attn_period:
+        per = cfg.hybrid_attn_period
+        return {"prefix": 0, "groups": cfg.num_layers // per, "group_len": per,
+                "tail": cfg.num_layers % per}
+    return {"prefix": cfg.first_dense_layers, "groups": 0, "group_len": 0,
+            "tail": cfg.num_layers - cfg.first_dense_layers}
 
 
 class LM(ParamModule):
@@ -135,6 +176,12 @@ class LM(ParamModule):
         self.prefix = nn.ModuleList(
             Block(gen, cfg, dtype=dtype, device=dev, dense_ffn=True)
             for _ in range(plan["prefix"]))
+        self.groups = nn.ModuleList(
+            nn.ModuleList(Block(gen, cfg, dtype=dtype, device=dev)
+                          for _ in range(plan["group_len"]))
+            for _ in range(plan["groups"]))
+        if plan["groups"]:
+            self.shared_attn = SharedAttnBlock(gen, cfg, dtype=dtype, device=dev)
         self.tail = nn.ModuleList(
             Block(gen, cfg, dtype=dtype, device=dev) for _ in range(plan["tail"]))
         if cfg.mtp_depth:
@@ -167,7 +214,9 @@ def _block_apply(bp, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
     """Returns (y, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, bp["norm1"], cfg.norm_eps)
-    if cfg.use_mla:
+    if cfg.ssm:
+        x = x + ssm_mod.mamba_forward(bp["mixer"], h, cfg)
+    elif cfg.use_mla:
         x = x + mla_mod.mla_attention(bp["mixer"], h, positions, cfg)
     else:
         x = x + attn.attention(bp["mixer"], h, positions, cfg, is_global=is_global)
@@ -179,6 +228,14 @@ def _block_apply(bp, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
         else:
             x = x + mlp_apply(bp["ffn"], h, cfg.mlp_variant)
     return x, aux
+
+
+def _shared_attn_apply(sp, x: torch.Tensor, positions: torch.Tensor,
+                       cfg: ModelConfig) -> torch.Tensor:
+    h = rms_norm(x, sp["norm1"], cfg.norm_eps)
+    x = x + attn.attention(sp["attn"], h, positions, cfg, is_global=True)
+    h = rms_norm(x, sp["norm2"], cfg.norm_eps)
+    return x + mlp_apply(sp["mlp"], h, "gelu")
 
 
 def _tokens(params: LM, tokens) -> torch.Tensor:
@@ -193,24 +250,36 @@ def _embed_inputs(params: LM, cfg: ModelConfig, batch: dict) -> tuple[torch.Tens
     return x, positions
 
 
-def _layers(params: LM, cfg: ModelConfig):
-    """(block, is_global, dense_ffn) over the whole stack, prefix then tail."""
+def _layers(params: LM, cfg: ModelConfig) -> list:
+    """(block, is_global, dense_ffn) over the whole stack in order: prefix,
+    each group's blocks followed by ``None`` (the shared attention block
+    applies there), then tail.  The flags are JAX's: the prefix's and the
+    tail's by their index in prefix + tail, a group block's global."""
     n_prefix = len(params["prefix"])
-    blocks = [*params["prefix"], *params["tail"]]
-    return [(bp, cfg.is_global_layer(i), i < n_prefix) for i, bp in enumerate(blocks)]
+    out = [(bp, cfg.is_global_layer(i), True) for i, bp in enumerate(params["prefix"])]
+    for group in params["groups"]:
+        out += [(bp, True, False) for bp in group]
+        out.append(None)
+    out += [(bp, cfg.is_global_layer(n_prefix + j), False)
+            for j, bp in enumerate(params["tail"])]
+    return out
 
 
 def forward(params: LM, batch: dict,
             cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (x before the final norm (B,S,D),
     logits, aux_loss summed over the stack).  While a gradient is recorded,
-    each tail block is recomputed in the backward (``jax.checkpoint`` of the
-    JAX tail scan)."""
+    each tail and group block is recomputed in the backward
+    (``jax.checkpoint`` of the JAX scan bodies)."""
     check_supported(cfg)
     x, positions = _embed_inputs(params, cfg, batch)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters())
-    for bp, is_global, dense_ffn in _layers(params, cfg):
+    for layer in _layers(params, cfg):
+        if layer is None:
+            x = _shared_attn_apply(params["shared_attn"], x, positions, cfg)
+            continue
+        bp, is_global, dense_ffn = layer
         if remat and not dense_ffn:
             x, aux = checkpoint(_block_apply, bp, x, positions, cfg, is_global=is_global,
                                 use_reentrant=False)
@@ -265,48 +334,65 @@ def train_loss(params: LM, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor,
 # =============================================================================
 # serving: cache init / prefill / decode
 # =============================================================================
+def _layer_cache(cfg: ModelConfig, batch: int, max_len: int, window_cache: bool,
+                 dtype: torch.dtype, device: Optional[torch.device]) -> dict:
+    if cfg.ssm:
+        return ssm_mod.init_mamba_state(cfg, batch, dtype=dtype, device=device)
+    if cfg.use_mla:
+        return mla_mod.init_mla_cache(cfg, batch, max_len, dtype=dtype, device=device)
+    return attn.init_kv_cache(cfg, batch, max_len, window_cache=window_cache, dtype=dtype,
+                              device=device)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: Optional[torch.device] = None) -> dict:
     """Decode state organized like the layer plan: ``t`` (the next
-    position, a Python int) and one cache dict per layer of ``prefix`` and
-    ``tail`` (compressed MLA caches when ``cfg.use_mla``).  As in the JAX
-    package, the tail keeps full-length caches when any of its layers is
-    global, and ring buffers only when all are local."""
+    position, a Python int) and one cache dict per layer of ``prefix``,
+    ``groups`` (a list per group) and ``tail`` (compressed MLA caches when
+    ``cfg.use_mla``, conv ring and SSM state when ``cfg.ssm``), and with
+    groups one full-length KV cache per group for the shared attention
+    block (``shared``).  As in the JAX package, an attention tail keeps
+    full-length caches when any of its layers is global, and ring buffers
+    only when all are local."""
     check_supported(cfg)
     dtype = torch_dtype(cfg.compute_dtype)
     plan = _layer_plan(cfg)
     cache: dict[str, Any] = {"t": 0}
-    if cfg.use_mla:
-        for part in ("prefix", "tail"):
-            if plan[part]:
-                cache[part] = [mla_mod.init_mla_cache(cfg, batch, max_len, dtype=dtype,
-                                                      device=device)
-                               for _ in range(plan[part])]
-        return cache
+
+    def local(i: int) -> bool:
+        return bool(cfg.sliding_window) and not cfg.is_global_layer(i)
+
     if plan["prefix"]:
-        cache["prefix"] = [
-            attn.init_kv_cache(
-                cfg, batch, max_len,
-                window_cache=bool(cfg.sliding_window) and not cfg.is_global_layer(i),
-                dtype=dtype, device=device)
-            for i in range(plan["prefix"])
-        ]
+        cache["prefix"] = [_layer_cache(cfg, batch, max_len, local(i), dtype, device)
+                           for i in range(plan["prefix"])]
+    if plan["groups"]:
+        per = plan["group_len"]
+        cache["groups"] = [[_layer_cache(cfg, batch, max_len, local(g * per + i), dtype, device)
+                            for i in range(per)] for g in range(plan["groups"])]
+        cache["shared"] = [attn.init_kv_cache(cfg, batch, max_len, dtype=dtype, device=device)
+                           for _ in range(plan["groups"])]
     if plan["tail"]:
-        window_all = bool(cfg.sliding_window) and all(
-            not cfg.is_global_layer(plan["prefix"] + i) for i in range(plan["tail"])
-        )
-        cache["tail"] = [
-            attn.init_kv_cache(cfg, batch, max_len, window_cache=window_all, dtype=dtype,
-                               device=device)
-            for _ in range(plan["tail"])
-        ]
+        window_all = all(local(plan["prefix"] + i) for i in range(plan["tail"]))
+        cache["tail"] = [_layer_cache(cfg, batch, max_len, window_all, dtype, device)
+                         for _ in range(plan["tail"])]
     return cache
+
+
+def _layer_caches(cache: dict) -> list:
+    """The caches in ``_layers``' order: the shared block's cache of each
+    group after its blocks'."""
+    out = list(cache.get("prefix", []))
+    for gc, sc in zip(cache.get("groups", []), cache.get("shared", [])):
+        out += [*gc, sc]
+    return out + list(cache.get("tail", []))
 
 
 def _block_decode(bp, x: torch.Tensor, lcache: dict, t: int, cfg: ModelConfig, *,
                   is_global=True, dense_ffn: bool = False) -> torch.Tensor:
     h = rms_norm(x, bp["norm1"], cfg.norm_eps)
-    if cfg.use_mla:
+    if cfg.ssm:
+        y, _ = ssm_mod.mamba_decode(bp["mixer"], h, lcache, cfg)
+    elif cfg.use_mla:
         y, _ = mla_mod.mla_decode(bp["mixer"], h, lcache, t, cfg)
     else:
         y, _ = attn.attention_decode(bp["mixer"], h, lcache, t, cfg, is_global=is_global)
@@ -324,6 +410,15 @@ def _block_decode(bp, x: torch.Tensor, lcache: dict, t: int, cfg: ModelConfig, *
     return x
 
 
+def _shared_attn_decode(sp, x: torch.Tensor, lcache: dict, t: int,
+                        cfg: ModelConfig) -> torch.Tensor:
+    h = rms_norm(x, sp["norm1"], cfg.norm_eps)
+    y, _ = attn.attention_decode(sp["attn"], h, lcache, t, cfg, is_global=True)
+    x = x + y
+    h = rms_norm(x, sp["norm2"], cfg.norm_eps)
+    return x + mlp_apply(sp["mlp"], h, "gelu")
+
+
 def decode_step(params: LM, cache: dict, tokens_new,
                 cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """One decode step for the whole stack.  tokens_new (B, 1).  Updates
@@ -332,9 +427,12 @@ def decode_step(params: LM, cache: dict, tokens_new,
     cdt = torch_dtype(cfg.compute_dtype)
     t = cache["t"]
     x = params["embed"][_tokens(params, tokens_new)].to(cdt)
-    layer_caches = [*cache.get("prefix", []), *cache.get("tail", [])]
-    for (bp, is_global, dense_ffn), lc in zip(_layers(params, cfg), layer_caches):
-        x = _block_decode(bp, x, lc, t, cfg, is_global=is_global, dense_ffn=dense_ffn)
+    for layer, lc in zip(_layers(params, cfg), _layer_caches(cache), strict=True):
+        if layer is None:
+            x = _shared_attn_decode(params["shared_attn"], x, lc, t, cfg)
+        else:
+            bp, is_global, dense_ffn = layer
+            x = _block_decode(bp, x, lc, t, cfg, is_global=is_global, dense_ffn=dense_ffn)
     cache["t"] = t + 1
     hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return hidden @ params.head(), cache

@@ -1,0 +1,234 @@
+"""Mamba2 blocks via the SSD (state-space duality) chunked algorithm
+(arXiv:2405.21060).
+
+The JAX package's ``models/ssm.py`` on tensors.  The chunked form is
+matmul-dominated: intra-chunk terms are Q x Q attention-like einsums and the
+inter-chunk state passing is a short loop over chunks (JAX's ``lax.scan``),
+carried in float32 in chunk order.  The JAX package computes all of it as
+XLA ops (no Pallas kernel), so here it is plain PyTorch; B/C groups repeat
+over heads with ``repeat_interleave`` (``jnp.repeat``).
+
+Shapes (per block):
+  x_in (B, L, D) -> in_proj -> z (B,L,DI), xBC (B,L,DI+2GN), dt (B,L,H)
+  conv1d width W over xBC (causal), silu
+  SSD over x (B,L,H,P), A (H,), B/C (B,L,G,N), dt (B,L,H)
+  gated RMSNorm, out_proj (DI, D)
+
+Decode keeps a conv ring (B, W-1, DI+2GN) and the SSM state (B, H, P, N) in
+float32: O(1) memory per token.  ``mamba_decode`` updates both in the state
+dict in place (JAX returns new arrays) and returns the same dict.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import ParamModule, dense_init, reduce_boundary, rms_norm
+
+__all__ = [
+    "Mamba",
+    "init_mamba_state",
+    "mamba_decode",
+    "mamba_forward",
+    "mamba_init",
+    "ssd_reference",
+]
+
+
+def _conv_dim(cfg: ModelConfig) -> int:
+    return cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+
+
+def mamba_init(gen, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
+               device: Optional[torch.device] = None) -> dict:
+    d, di, h = cfg.d_model, cfg.d_inner, cfg.ssm_heads
+    cdim = _conv_dim(cfg)
+    dev = gen.device if gen is not None else device
+
+    def init(shape, **kw):
+        return dense_init(gen, shape, dtype=dtype, device=device, **kw)
+
+    return {
+        "w_in": init((d, 2 * di + 2 * cfg.ssm_groups * cfg.ssm_state + h)),
+        "conv_w": init((cfg.ssm_conv_width, cdim), fan_in=cfg.ssm_conv_width),
+        "conv_b": torch.zeros((cdim,), dtype=dtype, device=dev),
+        "a_log": torch.zeros((h,), dtype=torch.float32, device=dev),  # A = -exp(a_log) = -1
+        "dt_bias": torch.full((h,), -2.0, dtype=torch.float32, device=dev),  # softplus ~ 0.12
+        "d_skip": torch.ones((h,), dtype=torch.float32, device=dev),
+        "gate_norm": torch.zeros((di,), dtype=dtype, device=dev),
+        "w_out": init((di, d), fan_in=di),
+    }
+
+
+class Mamba(ParamModule):
+    """One Mamba2 mixer: ``w_in`` (D, 2·DI + 2·G·N + H), ``conv_w`` (W, C),
+    ``conv_b``, ``a_log``, ``dt_bias`` and ``d_skip`` (H,) in float32,
+    ``gate_norm`` (DI,) and ``w_out`` (DI, D), in JAX's (in, out) layout."""
+
+    def __init__(self, gen, cfg: ModelConfig, *, dtype: torch.dtype,
+                 device: Optional[torch.device] = None) -> None:
+        super().__init__(mamba_init(gen, cfg, dtype, device))
+
+
+def _split_proj(params, x: torch.Tensor, cfg: ModelConfig):
+    di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
+    proj = x @ params["w_in"]
+    z = proj[..., :di]
+    xbc = proj[..., di: di + di + 2 * g * n]
+    dt = proj[..., di + di + 2 * g * n:].float()
+    return z, xbc, dt
+
+
+def _causal_conv(params, xbc: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Depthwise causal conv, width W: y_t = sum_w w[w]*x[t-W+1+w] + b, the
+    products summed in the input dtype, silu in float32."""
+    w = cfg.ssm_conv_width
+    pad = F.pad(xbc, (0, 0, w - 1, 0))
+    out = sum(pad[:, i: i + xbc.shape[1], :] * params["conv_w"][i][None, None, :]
+              for i in range(w))
+    return F.silu((out + params["conv_b"]).float()).to(xbc.dtype)
+
+
+def _split_xbc(xbc: torch.Tensor, cfg: ModelConfig):
+    b, l, _ = xbc.shape
+    di, g, n, h, p = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    xs = xbc[..., :di].reshape(b, l, h, p)
+    bs = xbc[..., di: di + g * n].reshape(b, l, g, n)
+    cs = xbc[..., di + g * n:].reshape(b, l, g, n)
+    return xs, bs, cs
+
+
+def _ssd_chunked(xs, dt, a, bs, cs, cfg: ModelConfig):
+    """SSD: xs (B,L,H,P) fp32, dt (B,L,H) fp32 (post-softplus), a (H,)
+    negative, bs/cs (B,L,G,N) fp32.  Returns y (B,L,H,P) fp32 and the final
+    state (B,H,P,N)."""
+    b, l, h, p = xs.shape
+    g, n = bs.shape[2], bs.shape[3]
+    q = min(cfg.ssm_chunk, l)
+    assert l % q == 0, f"L={l} % chunk={q}"
+    nc = l // q
+    rep = h // g
+
+    da = dt * a[None, None, :]                          # (B,L,H) <= 0
+    xdt = xs * dt[..., None]                            # input scaled by dt
+
+    # chunked views
+    da_c = da.reshape(b, nc, q, h)
+    x_c = xdt.reshape(b, nc, q, h, p)
+    b_c = bs.reshape(b, nc, q, g, n)
+    c_c = cs.reshape(b, nc, q, g, n)
+
+    cum = torch.cumsum(da_c, dim=2)                     # (B,NC,Q,H) inclusive
+    total = cum[:, :, -1:, :]                           # (B,NC,1,H)
+
+    # -- intra-chunk (attention-like) ------------------------------------------
+    # decay[i,j] = exp(cum_i - cum_j) for i >= j
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B,NC,Qi,Qj,H)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xs.device))
+    decay = torch.where(tri[None, None, :, :, None], torch.exp(diff), 0.0)
+    del diff
+    cb = torch.einsum("bcign,bcjgn->bcgij", c_c, b_c)        # (B,NC,G,Qi,Qj)
+    cb = torch.repeat_interleave(cb, rep, dim=2)             # (B,NC,H,Qi,Qj)
+    scores = cb * decay.movedim(-1, 2)                       # (B,NC,H,Qi,Qj)
+    del cb, decay
+    y_intra = torch.einsum("bchij,bcjhp->bcihp", scores, x_c)
+    del scores
+
+    # -- chunk states ----------------------------------------------------------
+    # S_c = sum_j exp(total - cum_j) B_j (x_j dt_j)
+    w_state = torch.exp(total - cum)                         # (B,NC,Q,H)
+    b_h = torch.repeat_interleave(b_c, rep, dim=3)           # (B,NC,Q,H,N)
+    s_c = torch.einsum("bcjhn,bcjhp->bchpn", b_h, x_c * w_state[..., None])
+    del b_h
+
+    # -- inter-chunk scan, in chunk order ----------------------------------------
+    chunk_decay = torch.exp(total[:, :, 0, :])               # (B,NC,H)
+    s = torch.zeros((b, h, p, n), dtype=torch.float32, device=xs.device)
+    s_prevs = []
+    for c in range(nc):
+        s_prevs.append(s)
+        s = s * chunk_decay[:, c][..., None, None] + s_c[:, c]
+    s_prev = torch.stack(s_prevs, dim=1)                     # (B,NC,H,P,N)
+
+    # y_inter[i] = exp(cum_i) * C_i . S_prev
+    c_h = torch.repeat_interleave(c_c, rep, dim=3)           # (B,NC,Q,H,N)
+    y_inter = torch.einsum("bcihn,bchpn->bcihp", c_h, s_prev) * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(b, l, h, p)
+    return y, s
+
+
+def ssd_reference(xs, dt, a, bs, cs):
+    """Naive O(L) recurrence oracle (fp32): the ground truth for tests."""
+    b, l, h, p = xs.shape
+    g, n = bs.shape[2], bs.shape[3]
+    rep = h // g
+    da = dt * a[None, None, :]
+    xdt = xs * dt[..., None]
+    b_h = torch.repeat_interleave(bs, rep, dim=2)
+    c_h = torch.repeat_interleave(cs, rep, dim=2)
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=xs.device)
+    ys = []
+    for t in range(l):
+        state = state * torch.exp(da[:, t])[..., None, None] + torch.einsum(
+            "bhn,bhp->bhpn", b_h[:, t], xdt[:, t])
+        ys.append(torch.einsum("bhn,bhpn->bhp", c_h[:, t], state))
+    return torch.stack(ys, dim=1), state
+
+
+def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Full-sequence Mamba2 block (train / prefill)."""
+    z, xbc, dt = _split_proj(params, x, cfg)
+    xbc = _causal_conv(params, xbc, cfg)
+    xs, bs, cs = _split_xbc(xbc, cfg)
+    dt = F.softplus(dt + params["dt_bias"])
+    a = -torch.exp(params["a_log"])
+    y, _ = _ssd_chunked(xs.float(), dt, a, bs.float(), cs.float(), cfg)
+    y = y + params["d_skip"][None, None, :, None] * xs.float()
+    b, l = x.shape[:2]
+    y = y.reshape(b, l, cfg.d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z.float()).to(x.dtype), params["gate_norm"], cfg.norm_eps)
+    return reduce_boundary(y, x.dtype) @ params["w_out"]
+
+
+def init_mamba_state(cfg: ModelConfig, batch: int, dtype: torch.dtype = torch.bfloat16,
+                     device: Optional[torch.device] = None) -> dict:
+    return {
+        "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, _conv_dim(cfg)), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def mamba_decode(params, x: torch.Tensor, state: dict,
+                 cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """One-token recurrent step.  x (B, 1, D).  Shifts the conv ring and
+    advances the SSM state in ``state`` in place; returns (out (B, 1, D),
+    state)."""
+    z, xbc_new, dt = _split_proj(params, x, cfg)
+    # conv over the ring buffer: window = [conv_state ; xbc_new], in float32
+    window = torch.cat([state["conv"], xbc_new], dim=1)      # (B, W, C)
+    conv = (torch.einsum("bwc,wc->bc", window.float(), params["conv_w"].float())
+            + params["conv_b"].float())
+    xbc = F.silu(conv)[:, None, :].to(x.dtype)               # (B,1,C)
+    xs, bs, cs = _split_xbc(xbc, cfg)
+    dt = F.softplus(dt + params["dt_bias"])                  # (B,1,H)
+    a = -torch.exp(params["a_log"])
+    rep = cfg.ssm_heads // cfg.ssm_groups
+
+    da = (dt[:, 0] * a[None, :]).float()                     # (B,H)
+    xdt = xs[:, 0].float() * dt[:, 0][..., None]
+    b_h = torch.repeat_interleave(bs[:, 0].float(), rep, dim=1)   # (B,H,N)
+    c_h = torch.repeat_interleave(cs[:, 0].float(), rep, dim=1)
+    ssm = state["ssm"]
+    ssm.mul_(torch.exp(da)[..., None, None]).add_(torch.einsum("bhn,bhp->bhpn", b_h, xdt))
+    state["conv"].copy_(window[:, 1:, :])
+    y = torch.einsum("bhn,bhpn->bhp", c_h, ssm)
+    y = y + params["d_skip"][None, :, None] * xs[:, 0].float()
+    y = y.reshape(x.shape[0], 1, cfg.d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z.float()).to(x.dtype), params["gate_norm"], cfg.norm_eps)
+    return y @ params["w_out"], state

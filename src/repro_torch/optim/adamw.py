@@ -6,9 +6,17 @@ bitsandbytes recipe with deterministic round-half-to-even), which cuts m+v
 from 8 to about 2.06 bytes a parameter.  The quantization is byte-identical
 to the JAX package's, so checkpoints carry across and resume bit for bit.
 
-The optimizer is pure-functional over a dict of named tensors: ``init``
-builds the state, ``update(grads, state, params)`` returns new params and a
-new state and changes none of its arguments.  The update is the JAX one,
+The optimizer works over a dict of named tensors: ``init`` builds the state,
+and ``update(grads, state, params)`` consumes its state and its params, as
+the JAX driver's donated train state is consumed.  Leaf by leaf, float32
+moments are updated in place (``mul_``/``add_`` in the JAX expression's
+order, so the bits are those of ``b1*m + (1-b1)*g``) and the new weight is
+written into the parameter before the next leaf; quantized moments are
+dequantized, updated and requantized into the leaf's state entry.  It
+returns ``params`` and ``state``, the same objects, updated; the grads are
+left alone.  The peak is then the weights, the grads, the moments and one
+leaf's float32 temporaries, not a second copy of the moments and weights.
+The update is the JAX one,
 ``upd = (m/bc1)/(sqrt(v/bc2)+eps) + wd·p`` and ``p <- (p32 - lr·upd)`` cast
 back to p's dtype, with the global-norm clip in float32; it is not
 ``torch.optim.AdamW``, whose decay and eps sit elsewhere.  Leaves are
@@ -102,23 +110,29 @@ def adamw(
         bc1 = 1.0 - b1 ** count.float()
         bc2 = 1.0 - b2 ** count.float()
 
-        new_p, new_m, new_v = {}, {}, {}
         for name, g in grads.items():
             p = params[name]
             if scale is not None:
                 g = g * scale.to(g.dtype)
             g32 = g.float()
-            m, v = state["m"][name], state["v"][name]
             if quantize_moments:
-                m, v = dequantize_q8(m, p.shape), dequantize_q8(v, p.shape)
-            m = b1 * m + (1 - b1) * g32
-            v = b2 * v + (1 - b2) * g32 * g32
-            upd = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+                m = dequantize_q8(state["m"][name], p.shape)
+                v = dequantize_q8(state["v"][name], p.shape)
+            else:
+                m, v = state["m"][name], state["v"][name]
+            m.mul_(b1).add_((1 - b1) * g32)
+            v.mul_(b2).add_(((1 - b2) * g32).mul_(g32))
+            del g, g32
+            # (m/bc1) / (sqrt(v/bc2) + eps) [+ wd·p], then p32 - lr·upd: the
+            # same roundings, in place on one leaf-sized temporary at a time
+            upd = (m / bc1).div_((v / bc2).sqrt_().add_(eps))
             if weight_decay:
-                upd = upd + weight_decay * p.float()
-            new_p[name] = (p.float() - step_size * upd).to(p.dtype)
-            new_m[name] = quantize_q8(m) if quantize_moments else m
-            new_v[name] = quantize_q8(v) if quantize_moments else v
-        return new_p, {"count": count, "m": new_m, "v": new_v}
+                upd.add_(weight_decay * p.float())
+            p.copy_(p.float().sub_(upd.mul_(step_size)).to(p.dtype))
+            del upd
+            if quantize_moments:
+                state["m"][name], state["v"][name] = quantize_q8(m), quantize_q8(v)
+        state["count"] = count
+        return params, state
 
     return Optimizer(init, update)

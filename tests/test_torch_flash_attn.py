@@ -52,6 +52,8 @@ def _port(arrays, dtype=torch.float32, **kw):
         (1, 64, 2, 1, 256),    # gemma-style 256 head_dim
         (1, 100, 4, 2, 64),    # unaligned S: JAX pads, the port masks
         (1, 40, 4, 2, 16),     # the reduced configs' head_dim
+        (1, 64, 4, 4, 112),    # zamba2's shared attention head_dim
+        (1, 100, 4, 2, 112),   # the same, unaligned S, GQA
     ],
 )
 def test_flash_matches_jax_kernel_and_oracle(b, s, h, kv, d):
@@ -69,6 +71,17 @@ def test_flash_bf16_inputs():
     arrays = _rand(1, 64, 4, 2, 64, seed=5)
     got = _port(arrays, torch.bfloat16)
     assert got.dtype == torch.bfloat16
+    want_kernel, want_ref = _jax(arrays, jnp.bfloat16)
+    np.testing.assert_allclose(got.float().numpy(), want_kernel, rtol=BF16_TOL, atol=BF16_TOL)
+    np.testing.assert_allclose(got.float().numpy(), want_ref, rtol=BF16_TOL, atol=BF16_TOL)
+
+
+def test_flash_bf16_head_dim_112():
+    """zamba2's head dim in bf16 (the CUDA-core route on the card, exact
+    float32 inside) against the JAX kernel in interpret mode."""
+    arrays = _rand(2, 96, 4, 4, 112, seed=15)
+    got = _port(arrays, torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 96, 4, 112)
     want_kernel, want_ref = _jax(arrays, jnp.bfloat16)
     np.testing.assert_allclose(got.float().numpy(), want_kernel, rtol=BF16_TOL, atol=BF16_TOL)
     np.testing.assert_allclose(got.float().numpy(), want_ref, rtol=BF16_TOL, atol=BF16_TOL)
@@ -135,14 +148,15 @@ def test_flash_cpu_counts_no_launch():
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 256, "wgmma"),
     (torch.bfloat16, 16, "cuda_cores"), (torch.bfloat16, 32, "cuda_cores"),
+    (torch.bfloat16, 112, "cuda_cores"), (torch.float32, 112, "cuda_cores"),
     (torch.float32, 16, "cuda_cores"), (torch.float32, 32, "cuda_cores"),
     (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores"),
     (torch.float32, 256, "cuda_cores"),
 ])
 def test_flash_route_choice(dtype, d, want):
-    """bf16 at the configs' head dims takes the tensor cores; float32, and
-    bf16 at D 16/32, the exact CUDA-core kernel.  Both C entries take the
-    same arguments."""
+    """bf16 at D 64/128/256 takes the tensor cores; float32, and bf16 at D
+    16/32/112, the exact CUDA-core kernel.  Both C entries take the same
+    arguments."""
     assert tops.route(dtype, d) == want
     assert tops.ENTRIES == {"wgmma": "flash_attn_fwd_tc", "cuda_cores": "flash_attn_fwd"}
     assert (native._SIGNATURES["flash_attn_fwd_tc"] == native._SIGNATURES["flash_attn_fwd"])
@@ -197,6 +211,9 @@ def cuda_device():
     (1, 2048, 8, 2, 128, torch.bfloat16),
     (1, 300, 8, 2, 64, torch.bfloat16),
     (1, 1000, 4, 1, 256, torch.bfloat16),
+    # zamba2's D=112 on the CUDA cores: 7 columns a thread, ragged S, GQA
+    (2, 1000, 4, 4, 112, torch.bfloat16),
+    (1, 129, 8, 2, 112, torch.float32),
 ])
 def test_flash_kernel_matches_plain_on_card(cuda_device, b, s, h, kv, d, dtype):
     arrays = [torch.from_numpy(a).to(cuda_device, dtype) for a in _rand(b, s, h, kv, d, seed=s)]

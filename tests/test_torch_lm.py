@@ -1,6 +1,8 @@
 """Port's LM against the JAX package, on the reduced phi3, qwen1.5,
-gemma-2b and gemma3 configs and the reduced MLA + MoE configs
-(deepseek-v2-lite, deepseek-v3 with its query LoRA and MTP subtree): the JAX
+gemma-2b and gemma3 configs, the reduced MLA + MoE configs
+(deepseek-v2-lite, deepseek-v3 with its query LoRA and MTP subtree) and the
+reduced SSM and hybrid configs (mamba2, zamba2 with its groups and shared
+attention block): the JAX
 weights (``init_params`` from a PRNG key) are carried over as numpy
 (``convert.lm_params_from_numpy``) and both packages run the same
 numpy-seeded tokens.  Integer results (the MLA caches' ``pos``) are exact.
@@ -44,7 +46,8 @@ TOL = 1e-4
 BF16_TOL = 0.1
 ARCHS = ["phi3-medium-14b", "qwen1.5-4b", "gemma-2b", "gemma3-1b"]
 MOE_ARCHS = ["deepseek-v2-lite-16b", "deepseek-v3-671b"]
-UNPORTED = ["mamba2-2.7b", "zamba2-7b", "pixtral-12b", "whisper-tiny"]
+SSM_ARCHS = ["mamba2-2.7b", "zamba2-7b"]
+UNPORTED = ["pixtral-12b", "whisper-tiny"]
 # jitted: JAX's op-by-op dispatch compiles every op of the MoE/MLA stacks
 _jax_init = jax.jit(japi.init_params, static_argnames=("cfg",))
 
@@ -414,3 +417,215 @@ def test_full_deepseek_v2_lite_size():
     assert model.tail[0].ffn.router.dtype == torch.float32
     assert model.tail[0].mixer.wkv_a.shape == (2048, 576)
     assert model.prefix[0].ffn.w_gate.shape == (2048, 10_944)
+
+
+# -- the SSM and hybrid families ----------------------------------------------------
+def _ssm_tokens(cfg, b, s, seed):
+    """s a multiple of the reduced configs' SSD chunk (8): the chunked scan
+    takes no ragged length, in either package."""
+    assert s % cfg.ssm_chunk == 0
+    return _tokens(cfg, b, s, seed)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_params_round_trip(arch):
+    """The JAX tree (``groups`` stacked (G, L, ...), ``shared_attn``, the
+    ``tail``) converts into the port and back; the Mamba blocks carry no
+    FFN, ``a_log``/``dt_bias``/``d_skip`` stay float32 in a bf16 model."""
+    jc, tc, jp, model = _models(arch, "bfloat16")
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32), jp)
+    back = lm_params_to_numpy(model)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
+        assert a.shape == b.shape and np.array_equal(a, b)
+    params = dict(model.named_parameters())
+    assert not any(".ffn." in n or n.endswith("norm2") for n in params
+                   if n.startswith(("groups.", "tail.")))
+    assert params["tail.0.mixer.a_log"].dtype == torch.float32
+    assert params["tail.0.mixer.w_in"].dtype == torch.bfloat16
+    assert ("shared_attn.mlp.w_up" in params) == bool(tc.hybrid_attn_period)
+    if tc.hybrid_attn_period:
+        assert len(model.groups) == 2 and len(model.groups[0]) == 3 and len(model.tail) == 1
+        assert jp["groups"]["mixer"]["w_in"].shape[:2] == (2, 3)
+
+
+@pytest.mark.parametrize("arch,impl", [("mamba2-2.7b", "xla"), ("zamba2-7b", "xla"),
+                                       ("zamba2-7b", "pallas_flash")])
+def test_ssm_forward_logits_match_jax(arch, impl):
+    """zamba2 with ``pallas_flash`` against JAX's Pallas kernel in interpret
+    mode: the shared block's attention is the flash call, once a group."""
+    jc, tc, jp, model = _models(arch, impl=impl)
+    toks = _ssm_tokens(jc, 2, 32, seed=1)
+    want = np.asarray(japi.forward_logits(jp, {"tokens": jnp.asarray(toks)}, jc))
+    got = api.forward_logits(model, {"tokens": torch.from_numpy(toks)}, tc)
+    assert got.shape == (2, 32, tc.vocab_size) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
+def test_zamba2_flash_calls_once_a_group(monkeypatch):
+    calls = []
+    real = flash_ops.flash_attention
+    monkeypatch.setattr(flash_ops, "flash_attention",
+                        lambda *a, **k: calls.append(a[0].shape) or real(*a, **k))
+    jc, tc, jp, model = _models("zamba2-7b", impl="pallas_flash")
+    api.forward_logits(model, {"tokens": _ssm_tokens(tc, 1, 16, seed=2)}, tc)
+    assert calls == [(1, 16, tc.num_heads, tc.head_dim)] * (tc.num_layers // tc.hybrid_attn_period)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_decode_steps_and_caches_match_jax(arch):
+    """Mamba states (conv ring, float32 SSM state) per layer, stacked (G, L,
+    ...) in ``groups``, and the shared block's KV cache of each group."""
+    jc, tc, jp, model = _models(arch)
+    toks = _tokens(jc, 2, 8, seed=2)
+    jcache = japi.init_cache(jc, 2, 12)
+    tcache = api.init_cache(tc, 2, 12, device="cpu")
+    jstep = jax.jit(lambda p, c, t: japi.decode_step(p, c, t, jc))
+    for i in range(8):
+        jl, jcache = jstep(jp, jcache, jnp.asarray(toks[:, i:i + 1]))
+        tl, tcache = api.decode_step(model, tcache, torch.from_numpy(toks[:, i:i + 1]), tc)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
+    mine, theirs = kv_cache_to_numpy(tcache), jax.tree.map(np.asarray, jcache)
+    assert jax.tree.structure(mine) == jax.tree.structure(theirs)
+    assert sorted(mine["tail"]) == ["conv", "ssm"] and int(mine["t"]) == 8
+    assert ("shared" in mine) == bool(tc.hybrid_attn_period)
+    for la, lb in zip(jax.tree.leaves(mine), jax.tree.leaves(theirs)):
+        assert la.shape == lb.shape and la.dtype == lb.dtype
+        np.testing.assert_allclose(la, lb, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_prefill_matches_jax_and_forward(arch):
+    """The stepped prefill (one recurrent step a token) equals JAX's and the
+    full-sequence forward (the chunked scan) at every position."""
+    jc, tc, jp, model = _models(arch)
+    toks = _ssm_tokens(jc, 2, 16, seed=4)
+    jl, jcache = jax.jit(jlm.prefill, static_argnames=("cfg", "max_len"))(
+        jp, jnp.asarray(toks), cfg=jc, max_len=20)
+    tl, tcache = lm.prefill(model, torch.from_numpy(toks), tc, max_len=20)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
+    mine, theirs = kv_cache_to_numpy(tcache), jax.tree.map(np.asarray, jcache)
+    np.testing.assert_allclose(mine["tail"]["ssm"], theirs["tail"]["ssm"], rtol=TOL, atol=TOL)
+    full = steps.make_prefill_step(tc)(model, {"tokens": toks})
+    np.testing.assert_allclose(tl.numpy(), full.numpy(), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_serve_steps_match_jax(arch):
+    jc, tc, jp, model = _models(arch)
+    toks = _ssm_tokens(jc, 3, 8, seed=6)
+    want = np.asarray(jsteps.make_prefill_step(jc)(jp, {"tokens": jnp.asarray(toks)}))
+    got = steps.make_prefill_step(tc)(model, {"tokens": toks})
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    jcache, tcache = japi.init_cache(jc, 3, 6), api.init_cache(tc, 3, 6, device="cpu")
+    jserve, tserve = jax.jit(jsteps.make_serve_step(jc)), steps.make_serve_step(tc)
+    jnext, tnext = jnp.asarray(toks[:, :1]), toks[:, :1]
+    for _ in range(5):  # greedy: each step feeds its own token back
+        jnext, jcache = jserve(jp, jcache, jnext)
+        tnext, tcache = tserve(model, tcache, tnext)
+        assert tnext.dtype == torch.int32
+        np.testing.assert_array_equal(tnext.numpy(), np.asarray(jnext))
+        jnext, tnext = jnext[:, None], tnext[:, None]
+    assert tcache["t"] == 5
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_bf16_close_to_jax(arch):
+    """JAX runs op by op here (``disable_jit``), rounding after each op as
+    PyTorch does: its layer scans, compiled, fuse the bf16 chains of the
+    conv, the gates and the norms and round elsewhere (on reduced zamba2
+    that moves JAX's own logits 0.16 from its op-by-op ones)."""
+    jc, tc, jp, model = _models(arch, "bfloat16")
+    toks = _ssm_tokens(jc, 2, 32, seed=5)
+    with jax.disable_jit():
+        want = _f32(japi.forward_logits(jp, {"tokens": jnp.asarray(toks)}, jc))
+    got = api.forward_logits(model, {"tokens": toks}, tc)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(got), want, rtol=0, atol=BF16_TOL)
+    jcache, tcache = japi.init_cache(jc, 2, 8), api.init_cache(tc, 2, 8, device="cpu")
+    assert tcache["tail"][0]["conv"].dtype == torch.bfloat16
+    assert tcache["tail"][0]["ssm"].dtype == torch.float32
+    for i in range(4):
+        with jax.disable_jit():
+            jl, jcache = japi.decode_step(jp, jcache, jnp.asarray(toks[:, i:i + 1]), jc)
+        tl, tcache = api.decode_step(model, tcache, toks[:, i:i + 1], tc)
+        np.testing.assert_allclose(_f32(tl), _f32(jl), rtol=0, atol=BF16_TOL)
+
+
+def _rel_rms_top1(got, want):
+    g, w = _f32(got), _f32(want)
+    return (float(np.linalg.norm(g - w) / np.linalg.norm(w)),
+            float((g.argmax(-1) == w.argmax(-1)).mean()))
+
+
+def test_ssm_bf16_paths_part_as_jax_at_depth():
+    """mamba2 at its full depth (64 layers) and a reduced width (d_model
+    256, 8 heads of 64, state 64), bf16, 4 x 32 seeded tokens: the
+    full-sequence forward, the stepped prefill, and the float32 stepped
+    prefill of the same weights, in each package (JAX compiled, as it
+    runs).  In bf16 the two paths' roundings compound over the depth, and
+    JAX's own two paths land about as far from each other and from float32
+    as the port's: each of the port's three distances stays within 1.25x
+    of JAX's.  Prints the readings."""
+    kw = dict(num_layers=64, d_model=256, ssm_head_dim=64, ssm_state=64, ssm_chunk=8)
+
+    def configs(dtype):
+        d = dict(kw, param_dtype=dtype, compute_dtype=dtype)
+        return (dataclasses.replace(jax_config("mamba2-2.7b", reduced=True), **d),
+                dataclasses.replace(get_config("mamba2-2.7b", reduced=True), **d))
+
+    (jc, tc), (jc32, tc32) = configs("bfloat16"), configs("float32")
+    jp = _jax_init(jax.random.PRNGKey(7), cfg=jc)
+    model = lm_params_from_numpy(tc, jax.tree.map(np.asarray, jp), device="cpu")
+    model32 = lm_params_from_numpy(
+        tc32, jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)), jp), device="cpu")
+    toks = _ssm_tokens(jc, 4, 32, seed=5)
+    with torch.no_grad():
+        ref = lm.prefill(model32, torch.from_numpy(toks), tc32, max_len=32)[0]
+        port = (api.forward_logits(model, {"tokens": toks}, tc),
+                lm.prefill(model, torch.from_numpy(toks), tc, max_len=32)[0])
+    forward = jax.jit(lambda p, t: japi.forward_logits(p, {"tokens": t}, jc))
+    ours = (forward(jp, jnp.asarray(toks)), jlm.prefill(jp, jnp.asarray(toks), jc, max_len=32)[0])
+    readings = {}
+    for name, (fwd, stepped) in (("port", port), ("jax", ours)):
+        readings[name] = {"forward_vs_stepped": _rel_rms_top1(fwd, stepped),
+                          "forward_vs_float32": _rel_rms_top1(fwd, ref),
+                          "stepped_vs_float32": _rel_rms_top1(stepped, ref)}
+    print("relative RMS, top-1 agreement:", readings)
+    for what, (rel, _) in readings["port"].items():
+        assert rel <= 1.25 * readings["jax"][what][0], what
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_training_raises(arch):
+    """Serving runs; training is the next slice and raises, naming the
+    ROADMAP."""
+    jc, tc, jp, model = _models(arch)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
+        api.train_loss(model, {"tokens": _tokens(tc, 1, 8)}, tc)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        steps.make_train_step(tc, None)
+
+
+@pytest.mark.parametrize("arch,n_params", [("mamba2-2.7b", 2_831_296_000),
+                                           ("zamba2-7b", 6_699_750_608)])
+def test_full_ssm_sizes(arch, n_params):
+    """mamba2-2.7b and zamba2-7b at full width on the meta device: the
+    config's count, less the norm2 a Mamba block lacks, plus what it leaves
+    out (each block's ``d_skip`` and ``conv_b``, the final norm and the
+    shared block's two norms)."""
+    cfg = get_config(arch)
+    model = lm.LM(cfg, device="meta")
+    n = sum(p.numel() for p in model.parameters())
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    extra = cfg.d_model + cfg.num_layers * (cfg.ssm_heads + conv_dim - cfg.d_model)
+    if cfg.hybrid_attn_period:
+        extra += 2 * cfg.d_model
+        assert len(model.groups) == 13 and len(model.groups[0]) == 6 and len(model.tail) == 3
+        assert model.shared_attn.attn.wq.shape == (3584, 32 * 112)
+        assert model.shared_attn.mlp.w_up.shape == (3584, 14_336)
+    else:
+        assert len(model.tail) == 64 and len(model.groups) == 0
+    assert n == cfg.param_counts()["total"] + extra == n_params
+    assert model.tail[0].mixer.w_in.shape == (
+        cfg.d_model, 2 * cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state + cfg.ssm_heads)

@@ -93,9 +93,12 @@ def test_adamw_updates_match_jax(quantize, clip):
         g_np = {k: v * 5 for k, v in _params(step + 1).items()}
         jp, js = jax.jit(jopt.update)({k: jnp.asarray(v) for k, v in g_np.items()}, js, jp)
         before = {k: v.clone() for k, v in tp.items()}
+        tp_in, ts_in = dict(tp), {mom: dict(ts[mom]) for mom in ("m", "v")}
         tp, ts = topt.update({k: torch.from_numpy(v) for k, v in g_np.items()}, ts, tp)
-        for k, v in before.items():  # pure: the old params are untouched
-            assert not torch.equal(v, tp[k])
+        for k, v in before.items():  # in place: the same tensors come back, updated
+            assert tp[k] is tp_in[k] and not torch.equal(v, tp[k])
+            if not quantize:
+                assert all(ts[mom][k] is ts_in[mom][k] for mom in ("m", "v"))
         assert int(ts["count"]) == int(js["count"]) == step + 1
         for k in p_np:
             _scale_close(tp[k].numpy(), np.asarray(jp[k]), UPDATE_TOL, f"param {k}")
@@ -119,13 +122,14 @@ def test_adamw_keeps_bf16_params_in_their_dtype():
     g = np.cos(w * 7)
     opt, jopt = adamw.adamw(1e-2), jadamw.adamw(1e-2)
     p = {"w": torch.from_numpy(w).bfloat16()}
+    w0 = p["w"].clone()
     new, state = opt.update({"w": torch.from_numpy(g).bfloat16()}, opt.init(p), p)
     assert new["w"].dtype == torch.bfloat16 and state["m"]["w"].dtype == torch.float32
     jp = {"w": jnp.asarray(w).astype(jnp.bfloat16)}
     jnew, _ = jopt.update({"w": jnp.asarray(g).astype(jnp.bfloat16)}, jopt.init(jp), jp)
     np.testing.assert_array_equal(new["w"].float().numpy(),
                                   np.asarray(jnew["w"].astype(jnp.float32)))
-    assert not torch.equal(new["w"], p["w"])
+    assert new["w"] is p["w"] and not torch.equal(new["w"], w0)
 
 
 @pytest.mark.parametrize("peak,warmup,total", [(3e-3, 20, 100), (1e-2, 0, 10), (3e-3, 20, 8)])
@@ -143,3 +147,36 @@ def test_constant_schedule():
     got = schedules.constant(2.5e-4)(torch.tensor(7, dtype=torch.int32))
     want = jsched.constant(2.5e-4)(jnp.asarray(7, jnp.int32))
     assert got.dtype == torch.float32 and float(got) == float(want)
+
+
+@pytest.mark.gpu
+def test_adamw_update_peak_bytes_per_parameter():
+    """In place, an update of bfloat16 weights with float32 moments holds the
+    weights, the bfloat16 gradients and both moments (12 bytes a parameter)
+    plus one leaf's float32 temporaries, not a second copy of the moments
+    and weights (22 bytes a parameter out of place)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shapes = [(4096, 2048)] * 8 + [(2048,)] * 4
+    params = {f"w{i}": torch.randn(s, generator=gen, device=dev).bfloat16()
+              for i, s in enumerate(shapes)}
+    grads = {n: torch.randn(p.shape, generator=gen, device=dev).bfloat16()
+             for n, p in params.items()}
+    opt = adamw.adamw(1e-3, weight_decay=0.01)
+    state = opt.init(params)
+    n = sum(p.numel() for p in params.values())
+    largest = max(p.numel() for p in params.values())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    assert base >= 12 * n
+    torch.cuda.reset_peak_memory_stats()
+    out, new_state = opt.update(grads, state, params)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert out is params and new_state is state
+    # each float32 temporary of the largest leaf is 4 bytes an entry; a few
+    # of them live at once
+    assert extra <= 6 * 4 * largest, (extra, largest)
+    assert torch.cuda.memory_allocated() - base <= 4096

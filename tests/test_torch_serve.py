@@ -97,11 +97,14 @@ def test_serving_plane_serves_jax_contexts():
         assert np.array_equal(tv[i], np.array([hist[c][latest] for c in cols], np.float32))
 
 
-@pytest.mark.parametrize("arch", ["phi3-medium-14b", "gemma3-1b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "gemma3-1b", "deepseek-v2-lite-16b",
+                                  "mamba2-2.7b", "zamba2-7b"])
 def test_serve_generates_jax_tokens(arch, monkeypatch):
     """JAX's own ``main`` (float32 config) and the port's ``serve`` on the
     same weights, carried over as numpy, generate the same tokens (for
-    deepseek-v2-lite through absorbed-MLA decode and no-drop MoE)."""
+    deepseek-v2-lite through absorbed-MLA decode and no-drop MoE, for
+    mamba2 and zamba2 through recurrent Mamba steps and the shared block's
+    KV cache)."""
     f32 = dict(param_dtype="float32", compute_dtype="float32")
     cfg_j = dataclasses.replace(jax_config(arch, reduced=True), **f32)
     cfg_t = dataclasses.replace(get_config(arch, reduced=True), **f32)
