@@ -15,7 +15,8 @@ each under ``torch.profiler``, with the host time per step, the device's
 busy share and its time by kernel.  Then the train step at gemma-2b's full
 width (seeded bf16 weights, ``attn_impl="pallas_flash"``, a 4 x 2,048
 batch): after one warm-up step, its forward + backward and its AdamW update
-each under ``torch.profiler`` (``lm_train_trace``).  Between the two, 8
+each under ``torch.profiler`` (``lm_train_trace``; the flash forward's and
+backward's kernels summed apart).  Between the two, 8
 decode steps of deepseek-v2-lite-16b at full width (8 requests, seeded bf16
 weights) under ``torch.profiler`` (``moe_decode_trace``), their device time
 split into the MoE dispatch, the expert einsums, the shared experts, MLA and
@@ -120,6 +121,15 @@ def summary(window: str, wall: float, ops: dict, **extra) -> dict:
             "device_busy_share": busy / 1e3 / wall, **extra, "top_device_ops": top}
 
 
+def flash_device_ms(ops: dict) -> tuple[float, float]:
+    """Device ms of the flash forward kernels (``flash_fwd``, either route)
+    and of the flash backward's kernels (``flash_bwd``: the tensor-core
+    ``flash_bwd_tc`` passes, the CUDA-core ``flash_bwd_cc`` ones, and the
+    ``flash_bwd::`` row-term and group-sum passes around them)."""
+    return (sum(v["device_ms"] for k, v in ops.items() if "flash_fwd" in k),
+            sum(v["device_ms"] for k, v in ops.items() if "flash_bwd" in k))
+
+
 def lm_traces(card: str, steps: int = 8) -> None:
     """The LM slice's two units on the card: ``steps`` decode steps of
     ``cs.LM_REQUESTS`` requests against a 32-token cache, and one flash
@@ -146,11 +156,12 @@ def lm_traces(card: str, steps: int = 8) -> None:
     batch = cs.api.make_dummy_batch(cfg, cs.PREFILL_BATCH, cs.PREFILL_SEQ, seed=2, device=dev)
     flash(params, batch)  # warm-up
     wall, ops = traced(lambda: flash(params, batch), dev)
-    flash_ms = sum(v["device_ms"] for k, v in ops.items() if "flash_fwd" in k)
+    flash_ms, bwd_ms = flash_device_ms(ops)
     busy = sum(v["device_ms"] for v in ops.values())
     cs.emit({"phase": "lm_prefill_trace", "card": card, "arch": cfg.name,
              **summary(f"one flash forward at {cs.PREFILL_BATCH} x {cs.PREFILL_SEQ}", wall, ops,
-                       flash_device_ms=flash_ms, flash_share_of_device=flash_ms / busy)})
+                       flash_device_ms=flash_ms, flash_share_of_device=flash_ms / busy,
+                       flash_bwd_device_ms=bwd_ms)})
 
 
 # (range label, module, function): the parts of a MoE/MLA decode step
@@ -384,10 +395,10 @@ def train_trace(card: str) -> None:
     state, _ = cs.make_train_step(cfg, optimizer)(state, batch)  # warm-up
     grads = {}
     wall, ops = traced(lambda: grads.update(cs.loss_and_grads(state.params, batch, cfg)[1]), dev)
-    flash_ms = sum(v["device_ms"] for k, v in ops.items() if "flash_fwd" in k)
+    flash_ms, bwd_ms = flash_device_ms(ops)
     cs.emit({"phase": "lm_train_trace", "card": card, "arch": cfg.name, "part": "fwd_bwd",
              **summary(f"loss_and_grads at {cs.TRAIN_BATCH} x {cs.TRAIN_SEQ}", wall, ops,
-                       flash_fwd_device_ms=flash_ms,
+                       flash_fwd_device_ms=flash_ms, flash_bwd_device_ms=bwd_ms,
                        device_launches=sum(v["count"] for v in ops.values()))})
     named = dict(state.params.named_parameters())
     wall, ops = traced(lambda: optimizer.update(grads, state.opt, named), dev)

@@ -56,8 +56,13 @@ port's paths on the card through the entry points a user calls:
      shape, an MQA D=256 shape, a ragged bf16 D=128 shape, and zamba2's
      shared-block shape (B=4, S=2,048, H=KV=32, D=112, bf16) and a ragged
      one (S=T=1,000), beside ``scaled_dot_product_attention``; each check
-     asserts its route (bf16 at D 64/128/256 on the tensor cores,
-     ``wgmma``; float32, and bf16 at D 112, on the CUDA cores);
+     asserts its route (bf16 at D 64/112/128/256 on the tensor cores,
+     ``wgmma``; float32 on the CUDA cores).  Then ``flash_backward``: the
+     backward kernel of each route at phi3's and zamba2's prefill shapes, a
+     ragged bf16 shape and a float32 one (and gemma-2b's in ``lm_train``),
+     its dq, dk, dv within FLASH_TOL of autograd through the plain forward,
+     two calls bit-equal, beside the plain backward and
+     ``scaled_dot_product_attention``'s backward;
   8. ``lm_serve``: the ported LM request path (``launch/serve.py``) at
      phi3-medium-14b's full width (40 layers, d_model 5,120, random bf16
      weights from a seed, 29.3 GB): 8 sessions' contexts fetched through the
@@ -84,7 +89,7 @@ port's paths on the card through the entry points a user calls:
      full width (81 Mamba2 layers as 13 groups of 6 and a tail of 3, one
      shared attention block of 32 heads of 112 after each group; 13.4 GB),
      the prefill with ``attn_impl="pallas_flash"`` against ``"xla"``, 13
-     flash launches a forward on the CUDA-core route, and the same float32
+     flash launches a forward on the tensor-core route, and the same float32
      twin reference and control;
   12. ``moe_dispatch``: one MoE layer at deepseek-v2-lite-16b's widths (D
      2,048, 64 experts top-6, F 1,408, two shared experts; seeded bf16
@@ -107,11 +112,12 @@ port's paths on the card through the entry points a user calls:
      steps (float32 moments) on 4 x 2,048 loader batches from the feature
      store on the card, advanced until no row is left-padded; finite losses,
      no token after the loader clock, 36 tensor-core flash launches a step
-     (18 forward, 18 recomputed in the backward), peak memory under the
-     card's.  Then, from the same state and batch, the loss and every
-     gradient leaf against ``attn_impl="xla"``; the flash backward alone at
-     the training shape against autograd through the plain forward, beside
-     ``scaled_dot_product_attention``'s forward and backward; and the
+     (18 forward, 18 recomputed in the backward) and 18 tensor-core backward
+     launches, peak memory under the card's.  Then, from the same state and
+     batch, the loss and every gradient leaf against ``attn_impl="xla"``; the
+     flash backward kernel alone at the training shape against autograd
+     through the plain forward, beside ``scaled_dot_product_attention``'s
+     backward; and the
      driver's kill at step 9 and resume (``train.main``, reduced gemma-2b, the
      JAX driver test's arguments), bit-identical to an uninterrupted run;
   16. ``moe_backward``: ``moe_dispatch``'s layer and tokens (gemma-2b freed
@@ -321,7 +327,12 @@ PARITY_STEPS, PARITY_BATCH, PARITY_SEQ = 4, 4, 64
 L2_FLUSH_BYTES = 128 << 20  # written before a launch to empty the 50 MB L2
 SLEEP_CYCLES = 50_000_000  # a sleep kernel of about 25 ms on an H100
 COUNTERS = (lookup_ops.counter, rolling_ops.counter, pit_ops.counter, merge_ops.counter,
-            flash_ops.counter, flash_ops.tc_counter)
+            flash_ops.counter, flash_ops.tc_counter, flash_ops.bwd_counter,
+            flash_ops.bwd_tc_counter)
+# the tensor-core flash kernels the build must hold: the forward at each of
+# its head dims, the backward's delta (0), dQ (1) and dK/dV (2) passes at each
+TC_KERNELS = sorted([f"flash_fwd_tc<{d}>" for d in flash_ops.TC_HEAD_DIMS]
+                    + [f"flash_bwd_tc<{d},{p}>" for d in flash_ops.TC_HEAD_DIMS for p in range(3)])
 
 
 def reset_counts() -> None:
@@ -351,18 +362,25 @@ def card_line() -> str:
 
 
 def tc_sass(so: Path) -> dict:
-    """Per tensor-core flash kernel in the built library, from ``cuobjdump``:
-    its HGMMA (wgmma) instructions, and the registers a thread starts with
-    (before ``setmaxnreg``) and its stack bytes (spills) from the resource
-    usage table."""
+    """Per tensor-core flash kernel in the built library (the forward
+    ``flash_fwd_tc<D>``, the backward's passes ``flash_bwd_tc<D,pass>``), from
+    ``cuobjdump``: its HGMMA (wgmma) instructions, and the registers a thread
+    starts with (before ``setmaxnreg``) and its stack bytes (spills) from the
+    resource usage table."""
     tool = str(Path(native.nvcc()).with_name("cuobjdump"))
     run = lambda *a: subprocess.run([tool, *a, str(so)], capture_output=True, text=True,
                                     check=True, timeout=300).stdout
-    name = lambda mangled: re.sub(r".*flash_fwd_tcILi(\d+)E.*", r"flash_fwd_tc<\1>", mangled)
+
+    def name(mangled: str) -> str | None:
+        m = re.search(r"(flash_(?:fwd|bwd)_tc)ILi(\d+)E(?:Li(\d)E)?", mangled)
+        if m is None:
+            return None
+        return f"{m.group(1)}<{m.group(2)}" + (f",{m.group(3)}>" if m.group(3) else ">")
+
     out, fn = {}, None
     for line in run("-sass").splitlines():
         if (m := re.search(r"Function : (\S+)", line)):
-            fn = name(m.group(1)) if "flash_fwd_tc" in m.group(1) else None
+            fn = name(m.group(1))
             if fn:
                 out[fn] = {"hgmma": 0}
         elif fn and "HGMMA" in line:
@@ -370,7 +388,7 @@ def tc_sass(so: Path) -> dict:
     fn = None
     for line in run("-res-usage").splitlines():
         if (m := re.search(r"Function (\S+):", line)):
-            fn = name(m.group(1)) if "flash_fwd_tc" in m.group(1) else None
+            fn = name(m.group(1))
         elif fn and (m := re.search(r"REG:(\d+) STACK:(\d+)", line)):
             out[fn].update(registers=int(m.group(1)), stack_bytes=int(m.group(2)))
     return out
@@ -2193,41 +2211,58 @@ def fill_history(loader: FeatureStoreLoader, hours: int) -> None:
         hours += 1
 
 
-def check_flash_backward(b: int, s: int, h: int, kv: int, d: int, rng, device: str = "cuda",
-                         reps: int = 3) -> dict:
-    """The flash ``Function``'s backward at one shape on the card: its dq, dk,
-    dv against autograd through the plain forward (within FLASH_TOL of each
-    gradient's largest entry), its time, and the library yardstick's
-    forward + backward (``scaled_dot_product_attention``).  The bound is a
-    flash backward's least work: five products (QKᵀ again, dV, dP, dQ, dK)
-    of 2·D operations per (query head, visible key) pair on the bfloat16
-    tensor cores; bytes: q, k, v, dO read and dq, dk, dv written once.  The
-    plain backward does more (the whole S x T square, in float32)."""
+def check_flash_backward(b: int, s: int, h: int, kv: int, d: int, rng, label: str,
+                         dtype=torch.bfloat16, device: str = "cuda", reps: int = 10) -> dict:
+    """The flash backward kernel at one causal shape on the card, on the
+    kernel forward's log-sum-exp: launched twice on the route
+    ``flash_ops.route`` names, the two calls' dq, dk, dv bit-equal, and each
+    within FLASH_TOL of its largest entry of autograd through the plain
+    forward.  Its time beside the plain backward's (``attention_bwd_ref``,
+    the whole S x T square in float32), ``scaled_dot_product_attention``'s
+    backward alone (the library call) and forward + backward.  The bound is
+    a flash backward's least work: five products (QKᵀ again, dV, dP, dQ, dK)
+    of 2·D operations per (query head, visible key) pair at the rate of the
+    input type; bytes: q, k, v, dO and the log-sum-exp read and dq, dk, dv
+    written once."""
     up = lambda shape: torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
-        device).bfloat16()
+        device).to(dtype)
     q, k, v, do = up((b, s, h, d)), up((b, s, kv, d)), up((b, s, kv, d)), up((b, s, h, d))
-    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
-    got = torch.autograd.grad(flash_ops.flash_attention(*leaves), leaves, do)
+    route = flash_ops.route(dtype, d)
+    before = flash_ops.bwd_counter.launches, flash_ops.bwd_tc_counter.launches
+    _, lse = flash_ops._forward(q, k, v, True, True)
+    got = flash_ops._backward(q, k, v, lse, do, True)
+    again = flash_ops._backward(q, k, v, lse, do, True)
     ref_leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     want = torch.autograd.grad(attention_ref(*ref_leaves), ref_leaves, do.float())
     torch.cuda.synchronize()
-    errs = {}
+    check(flash_ops.bwd_counter.launches == before[0] + 2
+          and flash_ops.bwd_tc_counter.launches == before[1] + 2 * (route == "wgmma"),
+          f"the flash backward kernel launched on the {route} route ({label})")
+    check(all(torch.equal(g, g2) for g, g2 in zip(got, again)),
+          f"two flash backward calls give the same bits ({label})")
+    errs, tol = {}, FLASH_TOL[dtype]
     for name, g, w in zip("qkv", got, want):
         errs[f"d{name}_max_abs_err"] = float((g.float() - w.float()).abs().max())
         errs[f"d{name}_max_abs"] = float(w.float().abs().max())
-        check(errs[f"d{name}_max_abs_err"] <= FLASH_TOL[torch.bfloat16] * errs[f"d{name}_max_abs"],
-              f"flash backward d{name} within {FLASH_TOL[torch.bfloat16]} of plain")
-    del got, want, leaves, ref_leaves
+        check(errs[f"d{name}_max_abs_err"] <= tol * errs[f"d{name}_max_abs"],
+              f"flash backward d{name} within {tol} of plain ({label})")
+    del got, again, want, ref_leaves
     sdpa_leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    sdpa_out = sdpa(*sdpa_leaves)
     pairs = s * (s + 1) // 2
-    b_ms, b_by = bound(q.element_size() * (3 * q.numel() + 4 * k.numel()),
-                       5 * 2 * d * b * h * pairs, BF16_OPS_PER_S)
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    b_ms, b_by = bound(q.element_size() * (3 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
+                       5 * 2 * d * b * h * pairs, rate)
     row = {
-        "phase": "flash_backward", "B": b, "S": s, "H": h, "KV": kv, "D": d, "dtype": "bfloat16",
-        **errs,
-        "ms": cuda_ms(lambda: attention_bwd_ref(q, k, v, do), reps),
+        "phase": "flash_backward", "shape": label, "route": route, "B": b, "S": s, "H": h,
+        "KV": kv, "D": d, "dtype": str(dtype).removeprefix("torch."), **errs,
+        "max_abs_err": max(errs[f"d{n}_max_abs_err"] for n in "qkv"),
+        "ms": cuda_ms(lambda: flash_ops._backward(q, k, v, lse, do, True), reps),
+        "plain_ms": cuda_ms(lambda: attention_bwd_ref(q, k, v, do), 3),
         "bound_ms": b_ms, "bound_by": b_by,
-        "forward_ms": cuda_ms(lambda: flash_ops.flash_attention(q, k, v), reps),
+        "forward_ms": cuda_ms(lambda: flash_ops._forward(q, k, v, True, True), reps),
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(sdpa_out, sdpa_leaves, do,
+                                                          retain_graph=True), reps),
         "library_fwd_bwd_ms": cuda_ms(
             lambda: torch.autograd.grad(sdpa(*sdpa_leaves), sdpa_leaves, do), reps),
     }
@@ -2311,6 +2346,9 @@ def phase_lm_train(cfg, rng, device: str = "cuda") -> dict:
     check(launches["flash_attn"] == launches["flash_attn_wgmma"] == want,
           f"{2 * cfg.num_layers} flash launches a step (forward and recompute), all on the "
           f"tensor cores ({TRAIN_STEPS} steps)")
+    check(launches["flash_attn_bwd"] == launches["flash_attn_bwd_wgmma"] == want // 2,
+          f"{cfg.num_layers} flash backward launches a step, all on the tensor cores "
+          f"({TRAIN_STEPS} steps)")
     check(peak_gb < card_gb, "peak memory under the card's")
 
     # one state and batch: flash against xla, then the optimizer alone (it
@@ -2341,7 +2379,9 @@ def phase_lm_train(cfg, rng, device: str = "cuda") -> dict:
     torch.cuda.empty_cache()
 
     bwd = check_flash_backward(TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads,
-                               cfg.head_dim, rng, device)
+                               cfg.head_dim, rng, f"lm_train: B={TRAIN_BATCH} S=T={TRAIN_SEQ} "
+                               f"H={cfg.num_heads} KV={cfg.num_kv_heads} D={cfg.head_dim} bf16 "
+                               f"({cfg.name})", device=device)
     t0 = time.perf_counter()
     resume = kill_and_resume(ROOT / "build" / "lm_train_ckpt", device)
     resume_s = time.perf_counter() - t0
@@ -2362,11 +2402,12 @@ def phase_lm_train(cfg, rng, device: str = "cuda") -> dict:
         "optimizer_s": opt_s, "optimizer_share": opt_s / steady,
         "peak_gb": peak_gb, "card_gb": card_gb, "launches": launches,
         "vs_xla": {"loss": lf, "xla_loss": lx, **grads},
-        "flash_backward_ms": bwd["ms"], "sdpa_fwd_bwd_ms": bwd["library_fwd_bwd_ms"],
+        "flash_backward_ms": bwd["ms"], "flash_backward_plain_ms": bwd["plain_ms"],
+        "sdpa_bwd_ms": bwd["library_ms"], "sdpa_fwd_bwd_ms": bwd["library_fwd_bwd_ms"],
         "kill_resume": {**resume, "seconds": resume_s},
     }
     emit(row)
-    return {"row": row}
+    return {"row": row, "backward": bwd}
 
 
 def phase_moe_backward(cfg, device: str, forward: dict) -> dict:
@@ -2616,9 +2657,9 @@ def main() -> int:
     native.library()
     build_s = time.perf_counter() - t0
     sass = tc_sass(Path(native.build_log["path"]))
-    check(sorted(sass) == [f"flash_fwd_tc<{d}>" for d in (128, 256, 64)]
-          and all(k["hgmma"] > 0 for k in sass.values()),
-          "each tensor-core flash kernel is built with HGMMA instructions")
+    check(sorted(sass) == TC_KERNELS and all(k["hgmma"] > 0 for k in sass.values()),
+          "each tensor-core flash kernel, forward and backward, is built with HGMMA "
+          "instructions")
     emit({"phase": "build", "seconds": build_s, "cached": native.build_log.get("cached"),
           "library": Path(native.build_log["path"]).name, "tensor_core_sass": sass})
     cuda = torch.device("cuda", torch.cuda.current_device())
@@ -2752,12 +2793,23 @@ def main() -> int:
                     "MQA B=2 S=T=1,024 H=8 KV=1 D=256 bf16 (gemma-2b heads)", rng),
         check_flash(2, 1000, 40, 10, 128, torch.bfloat16, "wgmma",
                     "ragged bf16 B=2 S=T=1,000 H=40 KV=10 D=128", rng),
-        check_flash(PREFILL_BATCH, PREFILL_SEQ, 32, 32, 112, torch.bfloat16, "cuda_cores",
+        check_flash(PREFILL_BATCH, PREFILL_SEQ, 32, 32, 112, torch.bfloat16, "wgmma",
                     "zamba2 prefill: B=4 S=T=2,048 H=KV=32 D=112 bf16 (shared block)", rng),
-        check_flash(2, 1000, 32, 32, 112, torch.bfloat16, "cuda_cores",
+        check_flash(2, 1000, 32, 32, 112, torch.bfloat16, "wgmma",
                     "ragged bf16 B=2 S=T=1,000 H=KV=32 D=112", rng),
     ]
     main_flash, flash_112 = checks["flash_attn"][0], checks["flash_attn"][4]
+    checks["flash_attn_bwd"] = [
+        check_flash_backward(PREFILL_BATCH, PREFILL_SEQ, 40, 10, 128, rng,
+                             "B=4 S=T=2,048 H=40 KV=10 D=128 bf16 (phi3-medium-14b)"),
+        check_flash_backward(PREFILL_BATCH, PREFILL_SEQ, 32, 32, 112, rng,
+                             "B=4 S=T=2,048 H=KV=32 D=112 bf16 (zamba2-7b's shared block)"),
+        check_flash_backward(2, 1000, 8, 2, 64, rng, "ragged bf16 B=2 S=T=1,000 H=8 KV=2 D=64"),
+        check_flash_backward(2, 300, 8, 2, 64, rng, "f32 GQA B=2 S=T=300 (ragged) H=8 KV=2 D=64",
+                             dtype=torch.float32),
+    ]
+    gc.collect()
+    torch.cuda.empty_cache()
     cfg = get_config(LM_ARCH)
     served = phase_lm_serve(cfg, "cuda")
     prefill = phase_lm_prefill(cfg, served, main_flash["ms"])
@@ -2803,6 +2855,9 @@ def main() -> int:
 
     trained = phase_lm_train(get_config(TRAIN_ARCH), rng)
     launches["flash_attn"] += trained["row"]["launches"]["flash_attn"]
+    launches["flash_attn_bwd"] = trained["row"]["launches"]["flash_attn_bwd"]
+    main_bwd = trained["backward"]
+    checks["flash_attn_bwd"].append(main_bwd)
     lm_row.update({k: trained["row"][k] for k in ("train_tokens_per_s", "mfu")})
     del trained
     torch.cuda.empty_cache()
@@ -2824,12 +2879,16 @@ def main() -> int:
                               "src/repro/kernels/pit_join/kernel.py:34"),
                "merge_scan": ("src/repro_torch/csrc/merge_scan.cu",
                               "src/repro/kernels/online_merge/kernel.py:60"),
-               "flash_attn": ("src/repro_torch/csrc/flash_attn.cu",
-                              "src/repro/kernels/flash_attn/kernel.py:41")}
+               "flash_attn": ("src/repro_torch/csrc/flash_attn_tc.cu",
+                              "src/repro/kernels/flash_attn/kernel.py:41"),
+               # no TPU kernel: XLA differentiates the einsum path of attention_ref
+               "flash_attn_bwd": ("src/repro_torch/csrc/flash_attn_bwd_tc.cu",
+                                  "none (XLA's gradient of "
+                                  "src/repro/kernels/flash_attn/ref.py:11)")}
     kernels = []
     for name, main_row in (("online_lookup", main_lookup), ("rolling_sum", main_roll),
                            ("pit_search", main_pit), ("merge_scan", main_merge),
-                           ("flash_attn", main_flash)):
+                           ("flash_attn", main_flash), ("flash_attn_bwd", main_bwd)):
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],
@@ -2839,8 +2898,12 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"], "shape": main_row["shape"],
         })
-    kernels[-1]["head_dim_112"] = {k: flash_112[k] for k in (
+    kernels[-2]["head_dim_112"] = {k: flash_112[k] for k in (
         "shape", "route", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    kernels[-1]["library_fwd_bwd_ms"] = main_bwd["library_fwd_bwd_ms"]
+    kernels[-1]["other_shapes"] = [{k: r[k] for k in (
+        "shape", "route", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "library_fwd_bwd_ms")} for r in checks["flash_attn_bwd"][:-1]]
     print(json.dumps({"kernels": kernels}), flush=True)
     emit({"card": card, "get_batch": GET_BATCH, "get_p50_ms": prof_row["get_p50_ms"],
           "get_p99_ms": prof_row["get_p99_ms"], "lm": lm_row, "geo_s": geo_s,

@@ -1,7 +1,7 @@
 // Causal GQA flash attention, forward, on the CUDA cores (sm_90a): the
-// float32 route at every head dim and the bf16 route at D 16, 32 and 112
-// (zamba2's shared attention block).  bf16 at D 64, 128 and 256 runs on the
-// tensor cores in flash_attn_tc.cu instead.
+// float32 route at every head dim and the bf16 route at D 16 and 32.  bf16
+// at D 64, 112, 128 and 256 runs on the tensor cores in flash_attn_tc.cu
+// instead.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` (src/repro/kernels/flash_attn/
 // kernel.py:41) together with what its wrapper (ops.py) did around it.  Same
@@ -9,7 +9,9 @@
 // or bfloat16; out (B, S, H, D) in q's type.  Scores are q.k * 1/sqrt(D) in
 // float32, key t is masked for query s when t > s (causal) with -1e30, the
 // softmax runs online with float32 (m, l, acc) carries, and the output is
-// acc / max(l, 1e-30), rounded once to the output type.
+// acc / max(l, 1e-30), rounded once to the output type.  Where the caller
+// asks (training), each query row's log-sum-exp m + log(max(l, 1e-30)) is
+// written too, float32 (B, H, S), for the backward (flash_attn_bwd.cu).
 //
 // What the wrapper used to do is gone: query head h reads kv head h / (H / KV)
 // straight from k and v (no `repeat`), q, k, v are read and O is written in the
@@ -30,7 +32,8 @@
 // and it accumulates D/16 output columns of each of its rows in registers:
 // where 64 divides D, runs of 4 neighbouring columns 64 apart (tx*4 + 64 g + e);
 // otherwise (D 16, 32, 112) single columns 16 apart (tx + 16 g), which covers
-// D = 16 * (D/16) exactly, 7 columns a thread at D 112, and reads nothing past D.
+// D = 16 * (D/16) exactly, 7 columns a thread at D 112 (float32 only), and
+// reads nothing past D.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -104,7 +107,8 @@ __device__ __forceinline__ float row_sum(float x) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, int S, int Tk, int H, int group, int64_t q_sb, int64_t q_ss,
+          T* __restrict__ o, float* __restrict__ lse, int S, int Tk, int H, int group,
+          int64_t q_sb, int64_t q_ss,
           int64_t q_sh, int64_t k_sb, int64_t k_st, int64_t k_sh, float scale, int causal) {
   constexpr int kStride = D + 4;                // row stride of the Q and K/V tiles
   constexpr int kCw = D % 64 == 0 ? 4 : 1;      // output columns a thread owns side by side
@@ -232,6 +236,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     const int qi = q0 + ty + 16 * i;
     if (qi >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * S + qi] = m[i] + logf(denom);
     T* orow = o + b * q_sb + qi * q_ss + h * q_sh + tx * kCw;
 #pragma unroll
     for (int g = 0; g < kCols / kCw; ++g)
@@ -242,8 +248,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk,
-                   int H, int KV, const long long* st, int causal, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int S, int Tk, int H, int KV, const long long* st, int causal,
+                   cudaStream_t stream) {
   constexpr int kSmem = smem_bytes<D>();
   // opt in to more than 48 KB of shared memory (on the current device)
   const cudaError_t err =
@@ -252,41 +259,47 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   flash_fwd<T, D><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, Tk, H, H / KV, st[0], st[1], st[2], st[3], st[4], st[5],
+      static_cast<T*>(o), lse, S, Tk, H, H / KV, st[0], st[1], st[2], st[3], st[4], st[5],
       1.0f / sqrtf(static_cast<float>(D)), causal);
   return cudaGetLastError();
 }
 
-// float32 at every head dim; bf16 at D 16, 32 and 112 only (flash_attn_tc.cu
+// float32 at every head dim; bf16 at D 16 and 32 only (flash_attn_tc.cu
 // takes the others)
 template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o, int B, int S,
-                     int Tk, int H, int KV, const long long* st, int causal, cudaStream_t s) {
+cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o, float* lse,
+                     int B, int S, int Tk, int H, int KV, const long long* st, int causal,
+                     cudaStream_t s) {
   constexpr bool kF32 = sizeof(T) == 4;
+#define FLASH_FWD_ARGS q, k, v, o, lse, B, S, Tk, H, KV, st, causal, s
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, Tk, H, KV, st, causal, s);
-    case 32: return launch<T, 32>(q, k, v, o, B, S, Tk, H, KV, st, causal, s);
+    case 16: return launch<T, 16>(FLASH_FWD_ARGS);
+    case 32: return launch<T, 32>(FLASH_FWD_ARGS);
     case 64:
-      if constexpr (kF32) return launch<T, 64>(q, k, v, o, B, S, Tk, H, KV, st, causal, s);
+      if constexpr (kF32) return launch<T, 64>(FLASH_FWD_ARGS);
       break;
-    case 112: return launch<T, 112>(q, k, v, o, B, S, Tk, H, KV, st, causal, s);
+    case 112:
+      if constexpr (kF32) return launch<T, 112>(FLASH_FWD_ARGS);
+      break;
     case 128:
-      if constexpr (kF32) return launch<T, 128>(q, k, v, o, B, S, Tk, H, KV, st, causal, s);
+      if constexpr (kF32) return launch<T, 128>(FLASH_FWD_ARGS);
       break;
     case 256:
-      if constexpr (kF32) return launch<T, 256>(q, k, v, o, B, S, Tk, H, KV, st, causal, s);
+      if constexpr (kF32) return launch<T, 256>(FLASH_FWD_ARGS);
       break;
   }
+#undef FLASH_FWD_ARGS
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q/o strides (batch, seq, head) and k/v strides (batch, seq, head) in elements;
-// the head dim is contiguous.  dtype: 0 float32, 1 bfloat16 (D 16, 32 or 112).  Returns
+// the head dim is contiguous.  dtype: 0 float32, 1 bfloat16 (D 16 or 32).  lse,
+// when not null, receives float32 (B, H, S) log-sum-exps.  Returns
 // cudaGetLastError() after the launch.
-extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o, int B, int S,
-                              int T, int H, int KV, int D, int dtype, int causal,
+extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                              int B, int S, int T, int H, int KV, int D, int dtype, int causal,
                               long long q_sb, long long q_ss, long long q_sh, long long k_sb,
                               long long k_st, long long k_sh, void* stream) {
   const long long st[6] = {q_sb, q_ss, q_sh, k_sb, k_st, k_sh};
@@ -294,8 +307,8 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
   if (B * H == 0 || S == 0) return static_cast<int>(cudaGetLastError());
   if (KV <= 0 || H % KV != 0 || T <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err =
-      dtype == 0 ? dispatch<float>(D, q, k, v, o, B, S, T, H, KV, st, causal, s)
-      : dtype == 1 ? dispatch<__nv_bfloat16>(D, q, k, v, o, B, S, T, H, KV, st, causal, s)
+      dtype == 0 ? dispatch<float>(D, q, k, v, o, lse, B, S, T, H, KV, st, causal, s)
+      : dtype == 1 ? dispatch<__nv_bfloat16>(D, q, k, v, o, lse, B, S, T, H, KV, st, causal, s)
                    : cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

@@ -2,20 +2,29 @@
 
 ``flash_attention(q, k, v)`` takes (B, S, H, D) x (B, T, KV, D) and returns
 (B, S, H, D) in q's dtype.  A CUDA tensor launches one of two kernels, chosen
-by ``route``: bf16 at D 64, 128 or 256 runs on the tensor cores
-(``csrc/flash_attn_tc.cu``, wgmma on TMA-fed tiles, P rounded to bf16 before
-P.V as the TPU kernel's DEFAULT-precision dot does); float32, and bf16 at D
-16, 32 or 112 (zamba2), on the CUDA cores (``csrc/flash_attn.cu``, exact
-float32).  A CUDA tensor at another head dim raises.  Both
-read kv head h // (H / KV) for query head h in place and mask ragged S and T
-themselves: no GQA expansion, no transpose, no padding copy.  A CPU tensor
-runs the plain version in ``ref.py``.
+by ``route``: bf16 at D 64, 112, 128 or 256 runs on the tensor cores
+(``csrc/flash_attn_tc.cu``, wgmma on TMA-fed tiles, D=112 padded to 128 by
+TMA's zero fill, P rounded to bf16 before P.V as the TPU kernel's
+DEFAULT-precision dot does); float32 at every head dim, and bf16 at D 16 or
+32, on the CUDA cores (``csrc/flash_attn.cu``, exact float32).  A CUDA
+tensor at another head dim raises.  Both read kv head h // (H / KV) for
+query head h in place and mask ragged S and T themselves: no GQA expansion,
+no transpose, no padding copy.  A CPU tensor runs the plain version in
+``ref.py``.
 
 ``flash_attention`` is differentiable (``FlashAttention``, a
-``torch.autograd.Function``): the forward is the kernel (or the plain
-version on the CPU), the backward ``ref.attention_bwd_ref``, plain PyTorch
-by recompute on both devices, the gradient of the einsum path.  The TPU
-package has no backward kernel to port.  ``flash_bytes`` is the JAX
+``torch.autograd.Function``).  When a gradient is wanted the forward also
+writes each query row's log-sum-exp (float32 (B, H, S)), and the backward
+launches the backward kernel of the forward's route:
+``csrc/flash_attn_bwd_tc.cu`` (wgmma) or ``csrc/flash_attn_bwd.cu`` (CUDA
+cores, exact float32).  Both rebuild P from the log-sum-exp tile by tile,
+sum delta = rowsum(P * dP) in float32 in a pass of their own (from the
+forward's output, rounded, delta would swamp dP - delta wherever a row's
+attention is sharp) and sum each GQA group's dK and dV in a fixed order,
+so two calls give the same bits.  A CUDA tensor never reaches the plain
+version; a CPU tensor runs ``ref.attention_bwd_lse_ref``, the plain version
+of the kernels' contract.  The TPU package has no backward kernel to port
+(XLA differentiates its einsum path).  ``flash_bytes`` is the JAX
 package's analytic HBM-traffic model, verbatim.
 """
 
@@ -24,18 +33,24 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import native
-from repro_torch.kernels.flash_attn.ref import attention_bwd_ref, attention_ref
+from repro_torch.kernels.flash_attn.ref import (
+    attention_bwd_lse_ref,
+    attention_lse_ref,
+    attention_ref,
+)
 
-__all__ = ["ENTRIES", "HEAD_DIMS", "TC_HEAD_DIMS", "FlashAttention", "counter", "flash_attention",
-           "flash_bytes", "route", "tc_counter"]
+__all__ = ["BWD_ENTRIES", "ENTRIES", "HEAD_DIMS", "TC_HEAD_DIMS", "FlashAttention",
+           "bwd_counter", "bwd_tc_counter", "counter", "flash_attention", "flash_bytes", "route",
+           "tc_counter"]
 
 #: head dims the kernels are built for (phi3/qwen 128, gemma 256, zamba2 112,
 #: small checks)
 HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 #: head dims of the tensor-core route (bf16 only)
-TC_HEAD_DIMS = (64, 128, 256)
-#: C entry of each route
+TC_HEAD_DIMS = (64, 112, 128, 256)
+#: C entry of each route, forward and backward
 ENTRIES = {"wgmma": "flash_attn_fwd_tc", "cuda_cores": "flash_attn_fwd"}
+BWD_ENTRIES = {"wgmma": "flash_attn_bwd_tc", "cuda_cores": "flash_attn_bwd"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the JAX wrapper's default block: its non-causal path refuses a ragged T
 _JAX_BLOCK = 512
@@ -44,10 +59,16 @@ _JAX_BLOCK = 512
 counter = native.LaunchCounter("flash_attn")
 #: the tensor-core route's launches
 tc_counter = native.LaunchCounter("flash_attn_wgmma")
+#: every backward launch, either route, and the tensor-core route's
+bwd_counter = native.LaunchCounter("flash_attn_bwd")
+bwd_tc_counter = native.LaunchCounter("flash_attn_bwd_wgmma")
+# the backward's per-row (log-sum-exp, delta) pairs are padded to this many rows
+_STAT_ROWS = 128
 
 
 def route(dtype: torch.dtype, d: int) -> str:
-    """The kernel a CUDA call with this dtype and head dim launches."""
+    """The kernels a CUDA call with this dtype and head dim launches,
+    forward and backward."""
     return "wgmma" if dtype == torch.bfloat16 and d in TC_HEAD_DIMS else "cuda_cores"
 
 
@@ -100,40 +121,58 @@ def flash_attention(
         raise NotImplementedError("non-causal padding path unused")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    return FlashAttention.apply(q, k, v, causal)
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    return FlashAttention.apply(q, k, v, causal, grad)
 
 
 class FlashAttention(torch.autograd.Function):
     """Forward: ``_forward`` (the kernel on CUDA, the plain version on the
-    CPU).  Backward: ``attention_bwd_ref`` from the saved inputs, on either
-    device.  ``flash_attention`` checks the arguments first; called
-    directly (as ``gradcheck`` does, in float64 on the CPU) it checks none."""
+    CPU), writing the log-sum-exp too when a gradient is wanted (``grad``;
+    by default, when an input needs one).  Backward: ``_backward`` from q,
+    k, v and the log-sum-exp.  ``flash_attention`` checks the arguments
+    first; called directly (as ``gradcheck`` does, in float64 on the CPU)
+    it checks none."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
+    def forward(ctx, q, k, v, causal: bool, grad: bool | None = None):
         ctx.causal = causal
-        ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v, causal)
+        if grad is None:
+            grad = any(ctx.needs_input_grad[:3])
+        out, lse = _forward(q, k, v, causal, grad)
+        if lse is not None:
+            ctx.save_for_backward(q, k, v, lse)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = attention_bwd_ref(q, k, v, do, causal=ctx.causal)
-        return dq, dk, dv, None
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, lse, do.to(q.dtype).contiguous(), ctx.causal)
+        return dq, dk, dv, None, None
 
 
-def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal).to(q.dtype)
-    b, s, h, d = q.shape
-    t = k.shape[1]
-    if b * s * h == 0:  # nothing to launch, nothing to count
-        return torch.empty_like(q)
+def _check_launch(q: torch.Tensor, *tensors: torch.Tensor) -> None:
+    b, s, h, _ = q.shape
     if s > 65535 * 64 or b * h >= 2**31:
         raise ValueError(f"flash_attention grid too large for B*H={b * h}, S={s}")
-    for x in (q, k, v):
+    for x in (q, *tensors):
         if x.data_ptr() % 16:
             raise ValueError("flash_attention takes 16-byte aligned q, k, v")
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+             grad: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(out in q's dtype, lse float32 (B, H, S) when ``grad``, else None)."""
+    if q.device.type == "cpu":
+        if grad:
+            out, lse = attention_lse_ref(q, k, v, causal=causal)
+            return out.to(q.dtype), lse
+        return attention_ref(q, k, v, causal=causal).to(q.dtype), None
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if grad else None
+    if b * s * h == 0:  # nothing to launch, nothing to count
+        return torch.empty_like(q), lse
+    _check_launch(q, k, v)
     path = route(q.dtype, d)
     entry = getattr(native.library(), ENTRIES[path])
     with torch.cuda.device(q.device):
@@ -141,6 +180,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) ->
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             b, s, t, h, k.shape[2], d, _DTYPES[q.dtype], int(causal),
             q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
             stream,
@@ -149,7 +189,46 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) ->
     counter.add()
     if path == "wgmma":
         tc_counter.add()
-    return out
+    return out, lse
+
+
+def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor,
+              do: torch.Tensor, causal: bool):
+    """(dq, dk, dv) in the inputs' dtype from the forward's log-sum-exp: the
+    plain version for a CPU tensor, else the backward kernels of ``route``
+    (one C call: the delta, dK/dV and dQ passes, and the fixed-order GQA
+    sum), or a raise."""
+    if q.device.type == "cpu":
+        return attention_bwd_lse_ref(q, k, v, lse, do, causal=causal)
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    if b * s * h == 0:
+        return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    _check_launch(q, k, v, do)
+    path = route(q.dtype, d)
+    entry = getattr(native.library(), BWD_ENTRIES[path])
+    with torch.cuda.device(q.device):
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        # (log-sum-exp, delta) per query row, padded; per-query-head float32
+        # dK and dV, summed over each group afterwards (none when H == KV)
+        stats = torch.empty((b * h, _round_up(s, _STAT_ROWS), 2), dtype=torch.float32,
+                            device=q.device)
+        part = (torch.empty((2, b, t, h, d), dtype=torch.float32, device=q.device)
+                if h != kv else None)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = entry(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            None if part is None else part.data_ptr(),
+            b, s, t, h, kv, d, _DTYPES[q.dtype], int(causal),
+            q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+            stream,
+        )
+    native.check(err, BWD_ENTRIES[path])
+    bwd_counter.add()
+    if path == "wgmma":
+        bwd_tc_counter.add()
+    return dq, dk, dv
 
 
 def flash_bytes(b: int, s: int, t: int, h: int, kv: int, d: int,

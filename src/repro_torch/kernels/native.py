@@ -55,14 +55,23 @@ _SIGNATURES = {
     # q_values (P, Q, D) f32, scratch i64 and its length, error word,
     # creation, P, C, Q, D, stream
     "merge_scan_i64": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _L, _I, _I, _I, _I, _P),
-    # q (B, S, H, D), k/v (B, T, KV, D), out (B, S, H, D); B, S, T, H, KV, D,
-    # dtype (0 f32, 1 bf16), causal, q strides (b, s, h), k/v strides (b, t, h),
-    # stream
-    "flash_attn_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+    # q (B, S, H, D), k/v (B, T, KV, D), out (B, S, H, D), lse (B, H, S) f32
+    # or null; B, S, T, H, KV, D, dtype (0 f32, 1 bf16), causal, q strides
+    # (b, s, h), k/v strides (b, t, h), stream
+    "flash_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _L, _L, _L, _L, _L, _L, _P),
-    # the same arguments; bf16 at D 64, 128, 256 on the tensor cores
-    "flash_attn_fwd_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+    # the same arguments; bf16 at D 64, 112, 128, 256 on the tensor cores
+    "flash_attn_fwd_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _L, _L, _L, _L, _L, _L, _P),
+    # q, k, v, lse, dO, dq, dk, dv; (log-sum-exp, delta) scratch f32 (B*H, S
+    # rounded up to 128, 2); per-query-head dK, dV scratch f32 (2, B, T, H,
+    # D) or null when H == KV; B, S, T, H, KV, D, dtype, causal, q/dO/dq
+    # strides (b, s, h), k/v/dk/dv strides (b, t, h), stream
+    "flash_attn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _P),
+    # the same arguments; bf16 at D 64, 112, 128, 256 on the tensor cores
+    "flash_attn_bwd_tc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -148,18 +148,20 @@ def test_flash_cpu_counts_no_launch():
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 256, "wgmma"),
     (torch.bfloat16, 16, "cuda_cores"), (torch.bfloat16, 32, "cuda_cores"),
-    (torch.bfloat16, 112, "cuda_cores"), (torch.float32, 112, "cuda_cores"),
+    (torch.bfloat16, 112, "wgmma"), (torch.float32, 112, "cuda_cores"),
     (torch.float32, 16, "cuda_cores"), (torch.float32, 32, "cuda_cores"),
     (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores"),
     (torch.float32, 256, "cuda_cores"),
 ])
 def test_flash_route_choice(dtype, d, want):
-    """bf16 at D 64/128/256 takes the tensor cores; float32, and bf16 at D
-    16/32/112, the exact CUDA-core kernel.  Both C entries take the same
-    arguments."""
+    """bf16 at D 64/112/128/256 takes the tensor cores; float32, and bf16 at
+    D 16/32, the exact CUDA-core kernel, forward and backward alike.  Both
+    routes' C entries take the same arguments."""
     assert tops.route(dtype, d) == want
     assert tops.ENTRIES == {"wgmma": "flash_attn_fwd_tc", "cuda_cores": "flash_attn_fwd"}
+    assert tops.BWD_ENTRIES == {"wgmma": "flash_attn_bwd_tc", "cuda_cores": "flash_attn_bwd"}
     assert (native._SIGNATURES["flash_attn_fwd_tc"] == native._SIGNATURES["flash_attn_fwd"])
+    assert (native._SIGNATURES["flash_attn_bwd_tc"] == native._SIGNATURES["flash_attn_bwd"])
 
 
 def _attention_bf16_p(q, k, v):
@@ -211,7 +213,8 @@ def cuda_device():
     (1, 2048, 8, 2, 128, torch.bfloat16),
     (1, 300, 8, 2, 64, torch.bfloat16),
     (1, 1000, 4, 1, 256, torch.bfloat16),
-    # zamba2's D=112 on the CUDA cores: 7 columns a thread, ragged S, GQA
+    # zamba2's D=112: bf16 on the tensor cores (padded to 128 by TMA's zero
+    # fill), ragged S; float32 on the CUDA cores (7 columns a thread), GQA
     (2, 1000, 4, 4, 112, torch.bfloat16),
     (1, 129, 8, 2, 112, torch.float32),
 ])

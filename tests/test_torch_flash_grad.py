@@ -1,9 +1,10 @@
-"""The flash attention's gradient (``ops.FlashAttention``): its backward,
-``ref.attention_bwd_ref``, against a float64 ``gradcheck``, against
-autograd through the plain forward, and against JAX's ``vjp`` of its
-attention oracle (the einsum path's gradient, which the port's training
-holds its flash path to).  On the card (``gpu``-marked) the forward is the
-kernel and the backward the same plain code.
+"""The flash attention's gradient (``ops.FlashAttention``): the einsum
+path's gradient ``ref.attention_bwd_ref`` against autograd through the plain
+forward and against JAX's ``vjp`` of its attention oracle (the gradient the
+port's training holds its flash path to); the ``Function``'s backward (on
+the CPU ``ref.attention_bwd_lse_ref`` from the saved output and
+log-sum-exp) against a float64 ``gradcheck`` and against that gradient.  On
+the card (``gpu``-marked) the forward and the backward are kernels.
 
 Tolerances: float32 gradients differ from autograd's and JAX's in summation
 order only: F32_TOL of each gradient's largest entry.  On the card with
@@ -20,7 +21,12 @@ import numpy as np  # noqa: E402
 
 from repro.kernels.flash_attn.ref import attention_ref as jref  # noqa: E402
 from repro_torch.kernels.flash_attn import ops  # noqa: E402
-from repro_torch.kernels.flash_attn.ref import attention_bwd_ref, attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attn.ref import (  # noqa: E402
+    attention_bwd_lse_ref,
+    attention_bwd_ref,
+    attention_lse_ref,
+    attention_ref,
+)
 
 F32_TOL, BF16_TOL = 1e-5, 2e-2
 
@@ -58,11 +64,14 @@ def test_flash_backward_matches_autograd_and_jax(b, s, h, kv, d):
         assert g.shape == w.shape and g.dtype == torch.float32
         _close(g, w, F32_TOL, f"d{name} vs autograd")
         _close(g, torch.from_numpy(np.array(wj)), F32_TOL, f"d{name} vs jax.vjp")
-    # through the wrapper on the CPU: the plain forward, the same backward
+    # through the wrapper on the CPU: the plain forward with its log-sum-exp,
+    # then the plain version of the backward kernels' contract on them
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     out = ops.flash_attention(*leaves)
-    for g, w in zip(torch.autograd.grad(out, leaves, do), got):
-        assert torch.equal(g, w)
+    lse_form = attention_bwd_lse_ref(q, k, v, attention_lse_ref(q, k, v)[1], do)
+    for g, w, e in zip(torch.autograd.grad(out, leaves, do), got, lse_form):
+        assert torch.equal(g, e)
+        _close(g, w, F32_TOL, "the Function's backward vs the einsum gradient")
 
 
 def test_flash_grad_in_bf16_on_cpu():
@@ -89,18 +98,20 @@ def cuda_device():
     (2, 100, 8, 2, 64, torch.float32),     # the CUDA-core route
 ])
 def test_flash_function_on_card(cuda_device, b, s, h, kv, d, dtype):
-    """The forward launches the kernel (counted once, on its route); the
-    backward's dq, dk, dv agree with autograd through the plain forward on
-    the same card."""
+    """The forward launches its kernel and the backward its backward kernel,
+    each counted once, both on the route ``ops.route`` names; dq, dk, dv
+    agree with autograd through the plain forward on the same card."""
     q, k, v, do = _rand(b, s, h, kv, d, seed=s, dtype=dtype, device=cuda_device)
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
-    before = ops.counter.launches, ops.tc_counter.launches
+    counters = (ops.counter, ops.tc_counter, ops.bwd_counter, ops.bwd_tc_counter)
+    before = [c.launches for c in counters]
     out = ops.flash_attention(*leaves)
     on_tc = ops.route(dtype, d) == "wgmma"
-    assert (ops.counter.launches, ops.tc_counter.launches) == (before[0] + 1, before[1] + on_tc)
+    assert [c.launches for c in counters] == [before[0] + 1, before[1] + on_tc, *before[2:]]
     grads = torch.autograd.grad(out, leaves, do)
     torch.cuda.synchronize()
-    assert (ops.counter.launches, ops.tc_counter.launches) == (before[0] + 1, before[1] + on_tc)
+    assert [c.launches for c in counters] == [before[0] + 1, before[1] + on_tc,
+                                              before[2] + 1, before[3] + on_tc]
     ref_leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     want = torch.autograd.grad(attention_ref(*ref_leaves), ref_leaves, do.float())
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL

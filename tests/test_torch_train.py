@@ -123,8 +123,8 @@ def test_train_loss_and_grads_match_jax(arch, impl, monkeypatch):
     tree, toks, want_loss, want_grads = _jax_loss_and_grads(arch)
     _, tc = _configs(arch, impl)
     calls = []
-    real = flash_ops.attention_bwd_ref
-    monkeypatch.setattr(flash_ops, "attention_bwd_ref",
+    real = flash_ops.attention_bwd_lse_ref
+    monkeypatch.setattr(flash_ops, "attention_bwd_lse_ref",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     model = lm_params_from_numpy(tc, tree, device="cpu").requires_grad_(True)
     named = dict(model.named_parameters())
