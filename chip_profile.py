@@ -26,8 +26,11 @@ one train step of ``chip_smoke.py``'s ``lm_moe_train``
 (deepseek-v2-lite-16b at full width cut to ``MOE_TRAIN_LAYERS`` layers, a
 4 x 2,048 batch): its forward + backward traced with the forward and the
 backward each split into those parts, then its AdamW update
-(``moe_train_trace``), with the peak memory of that depth's steps.  The
-untraced times are
+(``moe_train_trace``), with the peak memory of that depth's steps, and
+the same for one train step of mamba2-2.7b at full depth
+(``ssm_train_trace``), split into the input projection, the conv, the
+SSD's intra-chunk term, chunk states and inter-chunk loop, the gated norm,
+the output projection, the loss and the rest.  The untraced times are
 those ``chip_smoke.py`` prints.  Exits non-zero without a CUDA device.
 """
 
@@ -301,10 +304,10 @@ PART_OF = {"moe_expert_ffn": "expert_einsums", "moe_route": "dispatch",
 BACKWARD_NODE = "autograd::engine::evaluate_function"
 
 
-def train_split(tp, time_of) -> dict:
+def train_split(tp, time_of, part_of: dict = PART_OF) -> dict:
     """Device time of a traced forward + backward by phase and part.  Each
-    host op's own device time (``time_of``) goes to the innermost
-    ``TRAIN_RANGES`` range or backward node above it.  Under a range: that
+    host op's own device time (``time_of``) goes to the innermost range of
+    ``part_of`` (range label -> part) or backward node above it.  Under a range: that
     range's part, in the forward, or in the backward when a backward node
     is above the range (a checkpointed block recomputed).  Under a backward
     node first: the part of the forward op that created the node (matched
@@ -313,7 +316,7 @@ def train_split(tp, time_of) -> dict:
         """(range label or backward node, whether a backward node is above)."""
         first, node = None, e
         while node is not None:
-            if first is None and (node.name in PART_OF or node.name.startswith(BACKWARD_NODE)):
+            if first is None and (node.name in part_of or node.name.startswith(BACKWARD_NODE)):
                 first = node
             elif first is not None and node.name.startswith(BACKWARD_NODE):
                 return first, True
@@ -326,9 +329,9 @@ def train_split(tp, time_of) -> dict:
         top, in_bwd = owner(e)
         if e.sequence_nr >= 0 and not in_bwd and not (
                 top is not None and top.name.startswith(BACKWARD_NODE)):
-            fwd_part[e.sequence_nr] = PART_OF.get(getattr(top, "name", None), "rest")
-    split = {ph: dict.fromkeys(["mla", "dispatch", "expert_einsums", "shared_experts", "rest"],
-                               0.0) for ph in ("forward", "backward")}
+            fwd_part[e.sequence_nr] = part_of.get(getattr(top, "name", None), "rest")
+    parts = [*dict.fromkeys(part_of.values()), "rest"]
+    split = {ph: dict.fromkeys(parts, 0.0) for ph in ("forward", "backward")}
     for e in events:
         t = time_of(e)
         if not t:
@@ -339,7 +342,7 @@ def train_split(tp, time_of) -> dict:
         elif top.name.startswith(BACKWARD_NODE):
             split["backward"][fwd_part.get(top.sequence_nr, "rest")] += t
         else:
-            split["backward" if in_bwd else "forward"][PART_OF[top.name]] += t
+            split["backward" if in_bwd else "forward"][part_of[top.name]] += t
     return split
 
 
@@ -377,6 +380,67 @@ def moe_train_trace(card: str) -> None:
     named = dict(state.params.named_parameters())
     wall, ops = traced(lambda: optimizer.update(grads, state.opt, named), dev)
     cs.emit({"phase": "moe_train_trace", "card": card, "arch": cfg.name,
+             "layers": cfg.num_layers, "part": "optimizer",
+             **summary("one AdamW update (float32 moments)", wall, ops,
+                       device_launches=sum(v["count"] for v in ops.values())),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+
+# the parts of a Mamba2 train step (mamba2-2.7b): each function's range and
+# its part; the Mamba block's own ops (the output projection, dt's softplus,
+# the D skip, casts) are "out_proj", the block's norms and residual adds
+# "block_norms", ``_ssd_chunked``'s own (dt·A, x·dt, the cumsum, the sum of
+# the two terms) "ssd_other"; outside every range: the embedding, the final
+# norm and the head
+SSM_TRAIN_RANGES = (
+    ("ssm_in_proj", ssm_mod, "_split_proj"), ("ssm_conv", ssm_mod, "_causal_conv"),
+    ("ssd_intra", ssm_mod, "_ssd_intra"), ("ssd_states", ssm_mod, "_ssd_chunk_states"),
+    ("ssd_inter", ssm_mod, "_ssd_inter"), ("ssd", ssm_mod, "_ssd_chunked"),
+    ("ssm_gated_norm", ssm_mod, "_gated_norm"), ("mamba", ssm_mod, "mamba_forward"),
+    ("block", lm_mod, "_block_apply"), ("loss", lm_mod, "next_token_loss"),
+)
+SSM_PART_OF = {"ssm_in_proj": "in_proj", "ssm_conv": "conv", "ssd_intra": "ssd_intra_chunk",
+               "ssd_states": "ssd_chunk_states", "ssd_inter": "ssd_inter_chunk_loop",
+               "ssd": "ssd_other", "ssm_gated_norm": "gated_norm", "mamba": "out_proj",
+               "block": "block_norms", "loss": "loss"}
+
+
+def ssm_train_trace(card: str) -> None:
+    """One train step of ``chip_smoke.py``'s ``lm_ssm_train`` (mamba2-2.7b at
+    full depth, a 4 x 2,048 batch) after a warm-up step: ``loss_and_grads``
+    traced with each function of ``SSM_TRAIN_RANGES`` in a
+    ``record_function`` range of its name (for the trace only), its device
+    time split by ``train_split`` into ``SSM_PART_OF``'s parts and the rest
+    (embedding, final norm, head), forward and backward (the checkpointed
+    blocks' recompute counts as backward); then the AdamW update traced
+    alone, with the peak memory of the warm-up and the traced step."""
+    cfg = cs.get_config(cs.SSM_ARCH)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    optimizer = cs.lm_train.train_optimizer(cs.TRAIN_LR, cs.TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    state = cs.TrainState.create(cs.api.init_params(0, cfg, device=dev), optimizer)
+    batch = cs.api.make_dummy_batch(cfg, cs.TRAIN_BATCH, cs.TRAIN_SEQ, seed=3, device=dev)
+    state, _ = cs.make_train_step(cfg, optimizer)(state, batch)  # warm-up
+    grads = {}
+    real = {label: getattr(mod, name) for label, mod, name in SSM_TRAIN_RANGES}
+    for label, mod, name in SSM_TRAIN_RANGES:
+        setattr(mod, name, _in_range(label, real[label]))
+    try:
+        wall, tp = profiled(
+            lambda: grads.update(cs.loss_and_grads(state.params, batch, cfg)[1]), dev)
+    finally:
+        for label, mod, name in SSM_TRAIN_RANGES:
+            setattr(mod, name, real[label])
+    ops = device_ops(tp, ranges=real)
+    split = train_split(tp, lambda e: e.self_device_time_total / 1e3, SSM_PART_OF)
+    cs.emit({"phase": "ssm_train_trace", "card": card, "arch": cfg.name,
+             "layers": cfg.num_layers, "part": "fwd_bwd",
+             **summary(f"loss_and_grads at {cs.TRAIN_BATCH} x {cs.TRAIN_SEQ}", wall, ops,
+                       device_ms=split,
+                       device_launches=sum(v["count"] for v in ops.values()))})
+    named = dict(state.params.named_parameters())
+    wall, ops = traced(lambda: optimizer.update(grads, state.opt, named), dev)
+    cs.emit({"phase": "ssm_train_trace", "card": card, "arch": cfg.name,
              "layers": cfg.num_layers, "part": "optimizer",
              **summary("one AdamW update (float32 moments)", wall, ops,
                        device_launches=sum(v["count"] for v in ops.values())),
@@ -456,6 +520,8 @@ def main() -> int:
     train_trace(card)
     torch.cuda.empty_cache()
     moe_train_trace(card)
+    torch.cuda.empty_cache()
+    ssm_train_trace(card)
     print(card, flush=True)
     return 0
 

@@ -120,13 +120,29 @@ port's paths on the card through the entry points a user calls:
      backward; and the
      driver's kill at step 9 and resume (``train.main``, reduced gemma-2b, the
      JAX driver test's arguments), bit-identical to an uninterrupted run;
-  16. ``moe_backward``: ``moe_dispatch``'s layer and tokens (gemma-2b freed
+  16. ``lm_ssm_train`` and ``lm_hybrid_train``: the same train path at
+     mamba2-2.7b's full width and depth (64 layers, 2.83 B parameters) and
+     at zamba2-7b's full width cut to 48 of its 81 layers (8 groups of 6
+     and the shared block: 4.13 B parameters; all 81 need 80.4 GB of
+     weights, gradients and moments), 8 steps each: finite losses, peak
+     memory under the card's, zamba2's shared block launching the D=112
+     flash forward and backward kernels once a group a step on the tensor
+     cores (8 each).  mamba2: ``_ssd_chunked`` at one layer's full shape in
+     float32, its output and the gradients of x, dt, B and C against the
+     recurrence at dt from softplus(N(-2, 1)) and at dt·|A| = 0.5, where
+     the JAX package's decay expression gives a NaN gradient; the bf16
+     gradient at the trained state's first 8 layers against a float32 twin,
+     with weights one mantissa bit coarser falling outside the bound.
+     zamba2: the flash/xla gradient check at the trained state's first two
+     groups (12 layers).  Each: the driver's kill and resume on the reduced
+     config, bit-identical;
+  17. ``moe_backward``: ``moe_dispatch``'s layer and tokens (gemma-2b freed
      first), forward + backward: every gradient leaf of the sort dispatch
      (x, the float32 router, the expert stacks, the shared experts) within
      2^-5 of the largest entry of the einsum oracle's, the routing of the
      two identical, no host sync, the time beside three times the forward's
      bound;
-  17. ``lm_moe_train``: the train path at deepseek-v2-lite-16b's published
+  18. ``lm_moe_train``: the train path at deepseek-v2-lite-16b's published
      width (d_model 2,048, MLA R 512, 64 experts top-6 + 2 shared, F 1,408,
      vocab 102,400) cut to ``MOE_TRAIN_LAYERS`` layers (1 dense + 5 MoE:
      all 27 need 188 GB of weights, gradients and moments), seeded random bf16
@@ -136,20 +152,21 @@ port's paths on the card through the entry points a user calls:
      every recompute routing as its forward, no kernel launch, peak memory
      under the card's; then ``train.main``'s kill at step 9 and resume on
      reduced deepseek-v3 (MLA with query LoRA, MoE, MTP), bit-identical;
-  18. ``moe_train_parity``: reduced deepseek-v2-lite and reduced
+  19. ``moe_train_parity``: reduced deepseek-v2-lite and reduced
      deepseek-v3 in float32 (TF32 off), 4 train steps on the card against
      the same 4 on the CPU from the same weights: routing identical at
      every step, losses, parameters and moments within the CPU tests'
-     bounds;
-  19. the ``kernels`` line: launches, errors, times and bounds per kernel.
+     bounds; ``ssm_train_parity``: the same for reduced mamba2 and zamba2;
+  20. the ``kernels`` line: launches, errors, times and bounds per kernel.
 
 Each path (``scan_merge``, the main path, ``offline_retrieval``, ``geo``,
 ``lm_serve``, ``lm_prefill``, ``lm_ssm_serve``, ``lm_ssm_prefill``,
 ``lm_hybrid_serve``, ``lm_hybrid_prefill``, ``lm_moe_serve``, ``lm_moe_prefill``,
-``lm_train``, ``lm_moe_train``) runs with the launch counts zeroed just
-before it and read just after, and must have launched each kernel of its
-own path (``lm_moe_train``'s path launches none of them: MLA and the MoE
-dispatch are plain PyTorch, as they are XLA ops in the JAX package).
+``lm_train``, ``lm_ssm_train``, ``lm_hybrid_train``, ``lm_moe_train``) runs
+with the launch counts zeroed just before it and read just after, and must
+have launched each kernel of its own path (``lm_moe_train``'s and
+``lm_ssm_train``'s paths launch none of them: MLA, the MoE dispatch and the
+SSD are plain PyTorch, as they are XLA ops in the JAX package).
 
 Each phase prints one JSON line; any failed check raises, so the run exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -232,6 +249,7 @@ from repro_torch.launch.steps import (  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.layers import torch_dtype  # noqa: E402
 
 HOUR = 3_600_000
@@ -324,6 +342,33 @@ MOE_KILL_ARGS = ["--arch", "deepseek-v3-671b", *TRAIN_KILL_ARGS[2:]]
 TRAJ_TOL, PARAM_REL_RMS = 1e-4, 1e-3
 PARITY_ARCHS = ("deepseek-v2-lite-16b", "deepseek-v3-671b")
 PARITY_STEPS, PARITY_BATCH, PARITY_SEQ = 4, 4, 64
+# lm_ssm_train and lm_hybrid_train: mamba2-2.7b at its full depth (64 layers,
+# 2.83 B parameters, 34.0 GB at 12 B a parameter), zamba2-7b cut from 81
+# layers to 8 groups of 6 and no tail (4.13 B parameters; all 81 hold 6.70 B,
+# 80.4 GB at 12 B a parameter before any activation)
+HYBRID_TRAIN_LAYERS = 48
+# zamba2's flash/xla gradient check runs the trained state's first two
+# groups and its shared block: the xla path keeps float32 S x S scores of 32
+# heads (2.1 GB a group at 4 x 2,048), which 48 layers cannot hold
+HYBRID_CHECK_LAYERS = 12
+# mamba2's bf16 gradient against a float32 twin of the same weights (TF32
+# off) at the trained state's first SSM_TWIN_LAYERS layers, each leaf in
+# relative RMS.  The first full-width run (H100, the state after 9 updates)
+# measured a worst leaf of 0.0872 (tail.0's d_skip, a float32 weight whose
+# gradient sums over every token; median 0.0044) and 0.1767 with the weights
+# rounded to SSM_CONTROL_BITS mantissa bits; the next (after 8 updates, as
+# now) 0.0324 and 0.2397.  The bound sits between the readings and the
+# controls, and the control must fall outside it
+SSM_TWIN_LAYERS = 8
+SSM_GRAD_REL_RMS = 0.12
+SSM_KILL_ARGS = ["--arch", SSM_ARCH, *TRAIN_KILL_ARGS[2:]]
+HYBRID_KILL_ARGS = ["--arch", HYBRID_ARCH, *TRAIN_KILL_ARGS[2:]]
+SSM_PARITY_ARCHS = (SSM_ARCH, HYBRID_ARCH)
+# ssd_gradient: the chunked SSD against the recurrence (ssd_reference) at one
+# mamba2 layer's shape in float32 (TF32 off): the output and the gradients of
+# x, dt, B and C within SSD_GRAD_TOL of each one's largest entry, the CPU
+# tests' bound (tests/test_torch_ssm.py)
+SSD_GRAD_TOL = 1e-4
 L2_FLUSH_BYTES = 128 << 20  # written before a launch to empty the 50 MB L2
 SLEEP_CYCLES = 50_000_000  # a sleep kernel of about 25 ms on an H100
 COUNTERS = (lookup_ops.counter, rolling_ops.counter, pit_ops.counter, merge_ops.counter,
@@ -2309,6 +2354,145 @@ def phase_lm_train(cfg, rng, device: str = "cuda") -> dict:
     the flash/xla gradient check, the flash backward alone, and the
     driver's kill and resume."""
     cfg = dataclasses.replace(cfg, attn_impl="pallas_flash")
+    run = train_steps(cfg, device)
+    state, batch, launches = run.pop("state"), run.pop("batch"), run["launches"]
+    n_params = sum(p.numel() for p in state.params.parameters())
+    want = 2 * cfg.num_layers * TRAIN_STEPS
+    check(launches["flash_attn"] == launches["flash_attn_wgmma"] == want,
+          f"{2 * cfg.num_layers} flash launches a step (forward and recompute), all on the "
+          f"tensor cores ({TRAIN_STEPS} steps)")
+    check(launches["flash_attn_bwd"] == launches["flash_attn_bwd_wgmma"] == want // 2,
+          f"{cfg.num_layers} flash backward launches a step, all on the tensor cores "
+          f"({TRAIN_STEPS} steps)")
+
+    # one state and batch: flash against xla, then the optimizer alone (it
+    # updates the state in place, so it goes last).  The cache is emptied
+    # first: the loop leaves its blocks cut to its own sizes, and the 7.8 GiB
+    # float32 logits need a fresh one
+    torch.cuda.empty_cache()
+    flash_m, flash_g = loss_and_grads(state.params, batch, cfg)
+    torch.cuda.empty_cache()
+    before = read_counts()["flash_attn"]
+    xla_m, xla_g = loss_and_grads(state.params, batch, dataclasses.replace(cfg, attn_impl="xla"))
+    torch.cuda.synchronize()
+    check(read_counts()["flash_attn"] == before, "the xla step launches no flash")
+    opt_s = optimizer_seconds(state, run["optimizer"], flash_g)
+    lf, lx = float(flash_m["lm_loss"]), float(xla_m["lm_loss"])
+    grads = leaf_agreement(flash_g, xla_g)
+    check(np.isfinite(lf) and abs(lf - lx) <= TRAIN_LOSS_RTOL * abs(lx),
+          f"flash loss within {TRAIN_LOSS_RTOL} of the xla loss")
+    check(grads["max_rel_rms"] <= TRAIN_GRAD_REL_RMS,
+          f"every flash gradient leaf within {TRAIN_GRAD_REL_RMS} relative RMS of xla's")
+    del flash_g, xla_g, state, batch
+    torch.cuda.empty_cache()
+
+    bwd = check_flash_backward(TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads,
+                               cfg.head_dim, rng, f"lm_train: B={TRAIN_BATCH} S=T={TRAIN_SEQ} "
+                               f"H={cfg.num_heads} KV={cfg.num_kv_heads} D={cfg.head_dim} bf16 "
+                               f"({cfg.name})", device=device)
+    t0 = time.perf_counter()
+    resume = kill_and_resume(ROOT / "build" / "lm_train_ckpt", device)
+    resume_s = time.perf_counter() - t0
+
+    row = {
+        "phase": "lm_train", "arch": cfg.name, "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+        "head_dim": cfg.head_dim, "vocab": cfg.vocab_size, "params": n_params,
+        **train_readings(run, n_params, opt_s), "mfu_formula": "6 * params * tokens / step_s / 989e12",
+        "bound_s": 8 * n_params * TRAIN_BATCH * TRAIN_SEQ / BF16_OPS_PER_S,
+        "vs_xla": {"loss": lf, "xla_loss": lx, **grads},
+        "flash_backward_ms": bwd["ms"], "flash_backward_plain_ms": bwd["plain_ms"],
+        "sdpa_bwd_ms": bwd["library_ms"], "sdpa_fwd_bwd_ms": bwd["library_fwd_bwd_ms"],
+        "kill_resume": {**resume, "seconds": resume_s},
+    }
+    emit(row)
+    return {"row": row, "backward": bwd}
+
+
+# -- the SSM and hybrid train path -------------------------------------------------
+def jax_decay(cum: torch.Tensor) -> torch.Tensor:
+    """The JAX package's intra-chunk decay, ``where(tri, exp(diff), 0)``:
+    ``exp`` before the mask, so its gradient is 0 x inf = NaN where diff
+    overflows."""
+    q = cum.shape[2]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=cum.device))
+    return torch.where(tri[None, None, :, :, None], torch.exp(diff), 0.0)
+
+
+def check_ssd_gradient(cfg, rng, device: str = "cuda") -> dict:
+    """``_ssd_chunked`` at one layer's shape of ``cfg`` (mamba2-2.7b: B=1,
+    L=TRAIN_SEQ, 80 heads of 64, state 128, chunk 256) in float32 against the
+    recurrence ``ssd_reference``: y and the gradients of x, dt, B and C of
+    sum(y·gy) + sum(s·gs) (seeded cotangents) within SSD_GRAD_TOL of each
+    one's largest entry.  Two cases, A = -1: dt = softplus(N(-2, 1)), and
+    dt = 0.5, where Σ dt·|A| over a chunk reaches 127.5 and the JAX
+    package's decay expression (``jax_decay``, swapped in) gives a NaN
+    gradient, which is checked too."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is off")
+    b, l, h, p, g, n = 1, TRAIN_SEQ, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state
+    up = lambda *shape: torch.from_numpy(rng.standard_normal(shape, np.float32)).to(device)  # noqa: E731
+    xs, bs, cs, gy, gs = up(b, l, h, p), up(b, l, g, n), up(b, l, g, n), up(b, l, h, p), up(b, h, p, n)
+    a = -torch.ones(h, device=device)
+    cases = {"dt=softplus(N(-2,1)), A=-1": torch.nn.functional.softplus(up(b, l, h) - 2.0),
+             "dt=0.5, A=-1": torch.full((b, l, h), 0.5, device=device)}
+
+    def run(fn, dt):
+        leaves = [t.clone().requires_grad_(True) for t in (xs, dt, bs, cs)]
+        y, st = fn(leaves[0], leaves[1], a, leaves[2], leaves[3])
+        grads = torch.autograd.grad((y * gy).sum() + (st * gs).sum(), leaves)
+        return y.detach(), grads
+
+    chunked = lambda *t: ssm_mod._ssd_chunked(*t, cfg)  # noqa: E731
+    out = {}
+    for label, dt in cases.items():
+        t0 = time.perf_counter()
+        y, grads = run(chunked, dt)
+        y_ref, ref = run(ssm_mod.ssd_reference, dt)
+        real = ssm_mod._intra_decay
+        ssm_mod._intra_decay = jax_decay
+        try:
+            _, jax_grads = run(chunked, dt)
+        finally:
+            ssm_mod._intra_decay = real
+        torch.cuda.synchronize()
+        row = {"max_cum_diff": float((dt * -a).reshape(b, -1, cfg.ssm_chunk, h)[:, :, 1:]
+                                     .sum(2).max()),
+               "seconds": time.perf_counter() - t0}
+        for name, got, want in (("y", y, y_ref), *zip(("dx", "ddt", "dB", "dC"), grads, ref)):
+            err, scale = float((got - want).abs().max()), float(want.abs().max())
+            row[name] = {"max_abs_err": err, "max_abs": scale, "rel": err / scale}
+            check(bool(torch.isfinite(got).all()), f"SSD {name} finite ({label})")
+            check(err <= SSD_GRAD_TOL * scale,
+                  f"SSD {name} within {SSD_GRAD_TOL} of the recurrence's ({label})")
+        row["jax_expression_grad_finite"] = all(bool(torch.isfinite(t).all()) for t in jax_grads)
+        out[label] = row
+        del y, grads, y_ref, ref, jax_grads
+    check(not out["dt=0.5, A=-1"]["jax_expression_grad_finite"],
+          "the JAX package's decay expression gives a NaN gradient at dt*|A| = 0.5")
+    torch.cuda.empty_cache()
+    return {"shape": f"B={b} L={l} H={h} P={p} G={g} N={n} chunk={cfg.ssm_chunk} float32",
+            "tol": SSD_GRAD_TOL, "cases": out}
+
+
+def sub_model(state: TrainState, cfg):
+    """An ``LM`` of ``cfg`` (a cut depth) holding the trained weights of the
+    same names: the first layers (or groups and the shared block), the
+    embedding, the final norm and the head."""
+    model = lm_mod.LM(cfg, None, device=state.params.device)
+    full = dict(state.params.named_parameters())
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(full[name])
+    return model.requires_grad_(True)
+
+
+def train_steps(cfg, device: str) -> dict:
+    """``TRAIN_STEPS`` AdamW steps of ``cfg`` at TRAIN_BATCH x TRAIN_SEQ on
+    the driver's data plane and optimizer (``launch/train.py``), seeded bf16
+    weights and float32 moments, with the launch counts zeroed just before
+    and read just after: the state, the first batch, the optimizer and the
+    readings."""
     t0 = time.perf_counter()
     fs, loader = lm_train.build_data_plane(cfg, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0,
                                            device=device)
@@ -2319,7 +2503,6 @@ def phase_lm_train(cfg, rng, device: str = "cuda") -> dict:
         check(b["tokens"].shape == (TRAIN_BATCH, TRAIN_SEQ), "the loader batch is 4 x 2,048")
         check(bool((b["__max_event_ts__"] <= b["__observation_ts__"]).all()),
               "no token from after the loader's clock")
-
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = api.init_params(0, cfg, device=device)
@@ -2327,9 +2510,7 @@ def phase_lm_train(cfg, rng, device: str = "cuda") -> dict:
     state = TrainState.create(params, optimizer)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in params.parameters())
     train_step = make_train_step(cfg, optimizer)
-
     reset_counts()
     losses, step_s = [], []
     for b in batches:
@@ -2342,72 +2523,168 @@ def phase_lm_train(cfg, rng, device: str = "cuda") -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
     check(all(np.isfinite(losses)), "the training losses are finite")
-    want = 2 * cfg.num_layers * TRAIN_STEPS
-    check(launches["flash_attn"] == launches["flash_attn_wgmma"] == want,
-          f"{2 * cfg.num_layers} flash launches a step (forward and recompute), all on the "
-          f"tensor cores ({TRAIN_STEPS} steps)")
-    check(launches["flash_attn_bwd"] == launches["flash_attn_bwd_wgmma"] == want // 2,
-          f"{cfg.num_layers} flash backward launches a step, all on the tensor cores "
-          f"({TRAIN_STEPS} steps)")
     check(peak_gb < card_gb, "peak memory under the card's")
-
-    # one state and batch: flash against xla, then the optimizer alone (it
-    # updates the state in place, so it goes last).  The cache is emptied
-    # first: the loop leaves its blocks cut to its own sizes, and the 7.8 GiB
-    # float32 logits need a fresh one
-    torch.cuda.empty_cache()
     batch = {"tokens": torch.as_tensor(batches[0]["tokens"], device=device)}
-    flash_m, flash_g = loss_and_grads(state.params, batch, cfg)
-    torch.cuda.empty_cache()
-    before = read_counts()["flash_attn"]
-    xla_m, xla_g = loss_and_grads(state.params, batch, dataclasses.replace(cfg, attn_impl="xla"))
-    torch.cuda.synchronize()
-    check(read_counts()["flash_attn"] == before, "the xla step launches no flash")
+    return {"state": state, "batch": batch, "optimizer": optimizer, "losses": losses,
+            "step_s": step_s, "launches": launches, "peak_gb": peak_gb, "card_gb": card_gb,
+            "plane_s": plane_s, "init_s": init_s, "loader_clock_h": loader.clock / HOUR}
+
+
+def train_readings(run: dict, n_params: int, opt_s: float) -> dict:
+    """A train row's readings from ``train_steps``' ``run``: the step's
+    median over steps 1-7 (the first compiles and warms the allocator),
+    tokens/s, the MFU of 6·N·tokens, the optimizer's seconds and share, the
+    peak memory and the launches."""
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = float(np.median(run["step_s"][1:]))
+    return {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+            "loader_clock_h": run["loader_clock_h"], "plane_s": run["plane_s"],
+            "init_s": run["init_s"], "losses": run["losses"], "first_step_s": run["step_s"][0],
+            "step_s": steady, "step_s_all": run["step_s"], "train_tokens_per_s": tokens / steady,
+            "mfu": 6 * n_params * tokens / steady / BF16_OPS_PER_S,
+            "optimizer_s": opt_s, "optimizer_share": opt_s / steady,
+            "peak_gb": run["peak_gb"], "card_gb": run["card_gb"], "launches": run["launches"]}
+
+
+def optimizer_seconds(state: TrainState, optimizer, grads: dict) -> float:
+    """Seconds of one AdamW update of ``state`` with ``grads``, alone (it
+    updates the state in place)."""
     named = dict(state.params.named_parameters())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    optimizer.update(flash_g, state.opt, named)
+    optimizer.update(grads, state.opt, named)
     torch.cuda.synchronize()
-    opt_s = time.perf_counter() - t0
+    return time.perf_counter() - t0
+
+
+def twin_gradient_check(state: TrainState, cfg, batch: dict) -> dict:
+    """mamba2's bf16 gradient at the trained state's first SSM_TWIN_LAYERS
+    layers against a float32 twin of the same weights (TF32 off): every
+    leaf within SSM_GRAD_REL_RMS relative RMS.  The control: the same bf16
+    gradient with the weights rounded to SSM_CONTROL_BITS explicit mantissa
+    bits must fall outside the bound."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is off")
+    cut = dataclasses.replace(cfg, num_layers=SSM_TWIN_LAYERS)
+    model = sub_model(state, cut)
+    twin, cut32 = float32_twin(model, cut)
+    _, got = loss_and_grads(model, batch, cut)
+    _, want = loss_and_grads(twin.requires_grad_(True), batch, cut32)
+    agreement = leaf_agreement(got, want)
+    del got
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(round_mantissa(p.float(), SSM_CONTROL_BITS))
+    _, coarse = loss_and_grads(model, batch, cut)
+    control = leaf_agreement(coarse, want)
+    del model, twin, want, coarse
+    torch.cuda.empty_cache()
+    check(agreement["max_rel_rms"] <= SSM_GRAD_REL_RMS,
+          f"every bf16 gradient leaf within {SSM_GRAD_REL_RMS} relative RMS of the float32 "
+          f"twin's ({SSM_TWIN_LAYERS} layers)")
+    check(control["max_rel_rms"] > SSM_GRAD_REL_RMS,
+          f"the control ({SSM_CONTROL_BITS} mantissa bits) falls outside {SSM_GRAD_REL_RMS}")
+    return {"layers": SSM_TWIN_LAYERS, "bound": SSM_GRAD_REL_RMS, **agreement,
+            "control_mantissa_bits": SSM_CONTROL_BITS, "control": control}
+
+
+def flash_xla_gradient_check(state: TrainState, cfg, batch: dict) -> dict:
+    """zamba2's flash step against its xla step at the trained state's first
+    HYBRID_CHECK_LAYERS layers (their groups, the shared block, the
+    embedding, the final norm and the head) on one batch: the loss within
+    TRAIN_LOSS_RTOL and every gradient leaf within TRAIN_GRAD_REL_RMS
+    relative RMS, ``lm_train``'s bounds."""
+    cut = dataclasses.replace(cfg, num_layers=HYBRID_CHECK_LAYERS)
+    model = sub_model(state, cut)
+    flash_m, flash_g = loss_and_grads(model, batch, cut)
+    torch.cuda.empty_cache()
+    before = read_counts()["flash_attn"]
+    xla_m, xla_g = loss_and_grads(model, batch, dataclasses.replace(cut, attn_impl="xla"))
+    torch.cuda.synchronize()
+    check(read_counts()["flash_attn"] == before, "the xla step launches no flash")
     lf, lx = float(flash_m["lm_loss"]), float(xla_m["lm_loss"])
     grads = leaf_agreement(flash_g, xla_g)
+    del model, flash_g, xla_g
+    torch.cuda.empty_cache()
     check(np.isfinite(lf) and abs(lf - lx) <= TRAIN_LOSS_RTOL * abs(lx),
           f"flash loss within {TRAIN_LOSS_RTOL} of the xla loss")
     check(grads["max_rel_rms"] <= TRAIN_GRAD_REL_RMS,
           f"every flash gradient leaf within {TRAIN_GRAD_REL_RMS} relative RMS of xla's")
-    del flash_g, xla_g, state, params, named
-    torch.cuda.empty_cache()
+    return {"layers": HYBRID_CHECK_LAYERS, "loss": lf, "xla_loss": lx, **grads}
 
-    bwd = check_flash_backward(TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads,
-                               cfg.head_dim, rng, f"lm_train: B={TRAIN_BATCH} S=T={TRAIN_SEQ} "
-                               f"H={cfg.num_heads} KV={cfg.num_kv_heads} D={cfg.head_dim} bf16 "
-                               f"({cfg.name})", device=device)
+
+def phase_lm_ssm_train(cfg, rng, device: str = "cuda", layers: int | None = None) -> dict:
+    """The train path of an SSM (mamba2) or hybrid (zamba2) config at its
+    published width, cut to ``layers`` layers if given (whole groups), on the
+    card: ``train_steps``, then the family's gradient check (mamba2: the
+    full-shape SSD gradient and the bf16/float32-twin check with its
+    control; zamba2, with ``attn_impl="pallas_flash"``: one flash forward
+    and one flash backward launch a group a step, all on the tensor cores,
+    and the flash/xla check) and the driver's kill and resume on the
+    reduced config.  The MFU's 6·N·tokens leaves out the SSD's
+    chunk-quadratic work (and zamba2's attention scores)."""
+    t_phase = time.perf_counter()
+    published = cfg.num_layers
+    hybrid = bool(cfg.hybrid_attn_period)
+    cfg = dataclasses.replace(cfg, num_layers=layers or published,
+                              attn_impl="pallas_flash" if hybrid else cfg.attn_impl)
+    plan = lm_mod._layer_plan(cfg)
+    check(plan["tail"] == 0 or not hybrid, "the cut keeps whole groups")
+    counts = cfg.param_counts()
+    run = train_steps(cfg, device)
+    state, batch, launches = run.pop("state"), run.pop("batch"), run["launches"]
+    n_params = sum(p.numel() for p in state.params.parameters())
+    family = "lm_hybrid_train" if hybrid else "lm_ssm_train"
+    if hybrid:
+        want = plan["groups"] * TRAIN_STEPS
+        check(launches["flash_attn"] == launches["flash_attn_wgmma"] == want,
+              f"{plan['groups']} flash launches a step (the shared block once a group, not "
+              f"recomputed), all on the tensor cores ({TRAIN_STEPS} steps)")
+        check(launches["flash_attn_bwd"] == launches["flash_attn_bwd_wgmma"] == want,
+              f"{plan['groups']} flash backward launches a step, all on the tensor cores "
+              f"({TRAIN_STEPS} steps)")
+        check(sum(launches.values()) == 4 * want, "no other kernel of the port launched")
+        t0 = time.perf_counter()
+        grad_check = {"flash_vs_xla": flash_xla_gradient_check(state, cfg, batch)}
+    else:
+        check(not any(launches.values()), "the SSM train path launches none of the kernels")
+        t0 = time.perf_counter()
+        grad_check = {"bf16_vs_float32_twin": twin_gradient_check(state, cfg, batch)}
+    grad_check["seconds"] = time.perf_counter() - t0
+    opt_s = optimizer_seconds(state, run["optimizer"], loss_and_grads(state.params, batch, cfg)[1])
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not hybrid:
+        grad_check["ssd_gradient"] = check_ssd_gradient(cfg, rng, device)
     t0 = time.perf_counter()
-    resume = kill_and_resume(ROOT / "build" / "lm_train_ckpt", device)
+    resume = kill_and_resume(ROOT / "build" / f"{family}_ckpt", device,
+                             HYBRID_KILL_ARGS if hybrid else SSM_KILL_ARGS)
     resume_s = time.perf_counter() - t0
 
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    steady = float(np.median(step_s[1:]))
+    full = get_config(cfg.name).param_counts()["total"]
     row = {
-        "phase": "lm_train", "arch": cfg.name, "layers": cfg.num_layers,
-        "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
-        "head_dim": cfg.head_dim, "vocab": cfg.vocab_size, "params": n_params,
-        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
-        "loader_clock_h": loader.clock / HOUR, "plane_s": plane_s, "init_s": init_s,
-        "losses": losses, "first_step_s": step_s[0], "step_s": steady, "step_s_all": step_s,
-        "train_tokens_per_s": tokens / steady,
-        "mfu": 6 * n_params * tokens / steady / BF16_OPS_PER_S,
-        "mfu_formula": "6 * params * tokens / step_s / 989e12",
-        "bound_s": 8 * n_params * tokens / BF16_OPS_PER_S,
-        "optimizer_s": opt_s, "optimizer_share": opt_s / steady,
-        "peak_gb": peak_gb, "card_gb": card_gb, "launches": launches,
-        "vs_xla": {"loss": lf, "xla_loss": lx, **grads},
-        "flash_backward_ms": bwd["ms"], "flash_backward_plain_ms": bwd["plain_ms"],
-        "sdpa_bwd_ms": bwd["library_ms"], "sdpa_fwd_bwd_ms": bwd["library_fwd_bwd_ms"],
-        "kill_resume": {**resume, "seconds": resume_s},
+        "phase": family, "arch": cfg.name, "layers": cfg.num_layers,
+        "published_layers": published,
+        "depth_cut": None if cfg.num_layers == published else (
+            f"{cfg.num_layers} of {published} layers ({plan['groups']} groups of "
+            f"{plan['group_len']}, no tail): {int(full):,} parameters at full depth need "
+            f"{12 * full / 1e9:.1f} GB at 12 B a parameter"),
+        "d_model": cfg.d_model, "ssm_heads": cfg.ssm_heads, "ssm_head_dim": cfg.ssm_head_dim,
+        "ssm_state": cfg.ssm_state, "ssm_chunk": cfg.ssm_chunk, "vocab": cfg.vocab_size,
+        "params": n_params, "params_formula": counts["total"],
+        **train_readings(run, n_params, opt_s),
+        "mfu_formula": "6 * params * tokens / step_s / 989e12 (leaves out the SSD's "
+                       "chunk-quadratic work" + ("; counts the shared block's weights once, "
+                                                 "though each group applies them, and leaves "
+                                                 "out its attention scores)" if hybrid else ")"),
+        **grad_check, "kill_resume": {**resume, "arch": cfg.name, "seconds": resume_s},
+        "seconds": time.perf_counter() - t_phase,
     }
+    if hybrid:
+        row.update(groups=plan["groups"], group_len=plan["group_len"], heads=cfg.num_heads,
+                   head_dim=cfg.head_dim, d_ff=cfg.d_ff)
     emit(row)
-    return {"row": row, "backward": bwd}
+    return {"row": row}
 
 
 def phase_moe_backward(cfg, device: str, forward: dict) -> dict:
@@ -2583,16 +2860,18 @@ def phase_lm_moe_train(cfg, layers: int, device: str = "cuda") -> dict:
     return {"row": row}
 
 
-def phase_moe_train_parity(device: str = "cuda") -> dict:
-    """``PARITY_STEPS`` train steps of each of ``PARITY_ARCHS``, reduced and in
+def phase_train_parity(device: str = "cuda", archs=PARITY_ARCHS,
+                       phase: str = "moe_train_parity") -> dict:
+    """``PARITY_STEPS`` train steps of each of ``archs``, reduced and in
     float32, on the card (TF32 off) and on the CPU from the same weights
     (the card's seeded draw carried over with ``lm_params_from_numpy``) and
-    the same seeded batches: every dispatch of every step routed alike
-    (``idx_k`` and ``keep``), every metric within TRAJ_TOL (relative), each
-    parameter and moment leaf within PARAM_REL_RMS relative RMS."""
+    the same seeded batches: for MoE configs every dispatch of every step
+    routed alike (``idx_k`` and ``keep``); every metric within TRAJ_TOL
+    (relative), each parameter and moment leaf within PARAM_REL_RMS
+    relative RMS."""
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is off")
     rows = {}
-    for arch in PARITY_ARCHS:
+    for arch in archs:
         cfg = dataclasses.replace(get_config(arch, reduced=True), param_dtype="float32",
                                   compute_dtype="float32")
         tree = lm_params_to_numpy(api.init_params(0, cfg, device=device))
@@ -2606,19 +2885,23 @@ def phase_moe_train_parity(device: str = "cuda") -> dict:
             step, metrics, routes = make_train_step(cfg, optimizer), [], []
             for b in batches:
                 tokens = torch.from_numpy(b).to(dev)
-                (state, m), seen = observe("_dispatch_indices",
-                                           lambda: step(state, {"tokens": tokens}))
+                if cfg.moe:
+                    (state, m), seen = observe("_dispatch_indices",
+                                               lambda: step(state, {"tokens": tokens}))
+                    routes.append(routes_of(seen))
+                else:
+                    state, m = step(state, {"tokens": tokens})
                 metrics.append({k: float(v) for k, v in m.items()})
-                routes.append(routes_of(seen))
             runs.append((metrics, routes, train_state_to_numpy(state)))
         (card_m, card_r, card_s), (cpu_m, cpu_r, cpu_s) = runs
-        check(all(len(a) == len(b) > 0 for a, b in zip(card_r, cpu_r)),
-              "the same dispatches each step")
-        flipped = [sum(int((ci != hi).sum()) for (ci, _), (hi, _) in zip(a, b))
-                   for a, b in zip(card_r, cpu_r)]
-        keep_diff = [sum(int((ck != hk).sum()) for (_, ck), (_, hk) in zip(a, b))
-                     for a, b in zip(card_r, cpu_r)]
-        check(not any(flipped) and not any(keep_diff), "routing identical at every step")
+        if cfg.moe:
+            check(all(len(a) == len(b) > 0 for a, b in zip(card_r, cpu_r)),
+                  "the same dispatches each step")
+            flipped = [sum(int((ci != hi).sum()) for (ci, _), (hi, _) in zip(a, b))
+                       for a, b in zip(card_r, cpu_r)]
+            keep_diff = [sum(int((ck != hk).sum()) for (_, ck), (_, hk) in zip(a, b))
+                         for a, b in zip(card_r, cpu_r)]
+            check(not any(flipped) and not any(keep_diff), "routing identical at every step")
         loss_rel = max(abs(c[k] - h[k]) / abs(h[k]) for c, h in zip(card_m, cpu_m)
                        for k in h if k != "aux_loss")
         aux_abs = max(abs(c["aux_loss"] - h["aux_loss"]) for c, h in zip(card_m, cpu_m))
@@ -2635,9 +2918,11 @@ def phase_moe_train_parity(device: str = "cuda") -> dict:
               f"parameters and moments within {PARAM_REL_RMS} relative RMS of the CPU's")
         rows[arch] = {"metrics_card": card_m, "max_loss_rel_err": loss_rel,
                       "max_aux_abs_err": aux_abs, "max_leaf_rel_rms": rel[worst],
-                      "worst_leaf": worst, "flipped_assignments_per_step": flipped,
-                      "dispatches_per_step": len(card_r[0])}
-    row = {"phase": "moe_train_parity", "steps": PARITY_STEPS, "batch": PARITY_BATCH,
+                      "worst_leaf": worst}
+        if cfg.moe:
+            rows[arch].update(flipped_assignments_per_step=flipped,
+                              dispatches_per_step=len(card_r[0]))
+    row = {"phase": phase, "steps": PARITY_STEPS, "batch": PARITY_BATCH,
            "seq": PARITY_SEQ, "dtype": "float32", "tf32": False, "traj_tol": TRAJ_TOL,
            "param_rel_rms_tol": PARAM_REL_RMS, "archs": rows}
     emit(row)
@@ -2862,11 +3147,28 @@ def main() -> int:
     del trained
     torch.cuda.empty_cache()
 
+    # the SSM and hybrid families: training at full width
+    ssm_trained = phase_lm_ssm_train(get_config(SSM_ARCH), rng)["row"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid_trained = phase_lm_ssm_train(get_config(HYBRID_ARCH), rng,
+                                        layers=HYBRID_TRAIN_LAYERS)["row"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    bwd_by_phase = {"lm_train (D=256)": launches["flash_attn_bwd"],
+                    "lm_hybrid_train (D=112)": hybrid_trained["launches"]["flash_attn_bwd"]}
+    launches["flash_attn"] += hybrid_trained["launches"]["flash_attn"]
+    launches["flash_attn_bwd"] += hybrid_trained["launches"]["flash_attn_bwd"]
+    for family, row in (("ssm", ssm_trained), ("hybrid", hybrid_trained)):
+        lm_row[family].update({"train_" + k: row[k] for k in (
+            "layers", "step_s", "train_tokens_per_s", "mfu", "peak_gb")})
+
     moe_bwd = phase_moe_backward(moe_cfg, "cuda", moe_row)
     torch.cuda.empty_cache()
     moe_trained = phase_lm_moe_train(moe_cfg, MOE_TRAIN_LAYERS)["row"]
     torch.cuda.empty_cache()
-    phase_moe_train_parity("cuda")
+    phase_train_parity("cuda")
+    phase_train_parity("cuda", SSM_PARITY_ARCHS, "ssm_train_parity")
     lm_row["moe"].update({"train_" + k: moe_trained[k] for k in (
         "layers", "step_s", "train_tokens_per_s", "mfu", "peak_gb")})
     lm_row["moe"]["backward_ms"] = moe_bwd["ms"]
@@ -2900,6 +3202,7 @@ def main() -> int:
         })
     kernels[-2]["head_dim_112"] = {k: flash_112[k] for k in (
         "shape", "route", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    kernels[-1]["launches_by_phase"] = bwd_by_phase
     kernels[-1]["library_fwd_bwd_ms"] = main_bwd["library_fwd_bwd_ms"]
     kernels[-1]["other_shapes"] = [{k: r[k] for k in (
         "shape", "route", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -54,9 +54,9 @@ def make_train_step(
     """fwd+bwd+update.  ``num_microbatches`` > 1 accumulates float32
     gradients over batch slices and takes their mean, as the JAX step's
     ``lax.scan`` does (activation memory 1/µ of the full batch, the same
-    math); the metrics are the last slice's.  The dense and the MLA + MoE
-    (with MTP) configs train; it raises ``NotImplementedError`` for the SSM,
-    hybrid, encoder/decoder and vision-prefix configs, not ported yet.
+    math); the metrics are the last slice's.  The dense, MLA + MoE (with
+    MTP), SSM and hybrid configs train; it raises ``NotImplementedError``
+    for the encoder/decoder and vision-prefix configs, not ported yet.
 
     The step consumes its state, as the JAX driver's donated state is
     consumed: the optimizer writes the new weights into ``state.params`` and

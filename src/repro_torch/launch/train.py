@@ -11,11 +11,12 @@ checkpoint (train state + scheduler state + loader clock) and continues to
 the JAX package's, so a run started by either package resumes in the other.
 
 The port trains on one device (the card unless ``main`` is given
-``device="cpu"``): ``--mesh`` takes only ``1x1``.  It trains the dense and
-the MLA + MoE configs (``--arch deepseek-v2-lite-16b``, and
-``deepseek-v3-671b`` with its MTP loss); the SSM and hybrid configs (served,
-not trained yet), and the encoder/decoder and vision-prefix ones (not ported
-yet), raise.
+``device="cpu"``): ``--mesh`` takes only ``1x1``.  It trains the dense,
+the MLA + MoE (``--arch deepseek-v2-lite-16b``, and ``deepseek-v3-671b``
+with its MTP loss), the SSM (``--arch mamba2-2.7b``) and the hybrid
+(``--arch zamba2-7b``) configs; the encoder/decoder and vision-prefix ones
+(not ported yet) raise.  An SSM config's ``--seq`` must be a multiple of its
+SSD chunk (8 in the reduced configs, 256 at full size).
 """
 
 from __future__ import annotations

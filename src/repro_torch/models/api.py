@@ -5,9 +5,8 @@
 Everything downstream (steps, the serving driver, tests) talks to these
 functions.  Each one that allocates takes ``device=`` (default ``"cuda"``,
 resolved by ``device.resolve_device``: no card, no silent CPU).
-``train_loss`` raises for the SSM and hybrid configs, which serve but do
-not train yet; the encoder/decoder assembly is not ported either (ROADMAP
-queue 1, item 4): its entry points raise ``NotImplementedError``.
+The encoder/decoder assembly is not ported yet (ROADMAP queue 1, item 4):
+its entry points raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

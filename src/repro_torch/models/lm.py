@@ -32,11 +32,13 @@ MoE no-drop (one group of the batch, capacity factor E/k), MLA absorbed
 against its compressed cache, and a Mamba block as one recurrent step on
 its conv ring and SSM state.  Serving ignores the ``mtp`` subtree, as the
 JAX package does; ``train_loss`` runs it (the MTP loss branch, one extra
-block predicting the token after next).  The dense and the MLA + MoE
-configs train; the SSM and hybrid configs serve but raise
-``NotImplementedError`` in training, and the encoder/decoder and
-vision-prefix configs raise in serving and training alike (ROADMAP queue 1,
-item 4).
+block predicting the token after next).  The dense, MLA + MoE, SSM and
+hybrid configs serve and train; the encoder/decoder and vision-prefix
+configs raise ``NotImplementedError`` in serving and training alike
+(ROADMAP queue 1, item 4).  A hybrid config's gradient flows through each
+group's checkpointed Mamba blocks and through the one shared block, whose
+weights collect a gradient from every group (autograd sums them in a fixed
+order).
 """
 
 from __future__ import annotations
@@ -71,7 +73,6 @@ __all__ = [
 ]
 
 _UNPORTED = ("encoder_decoder", "vision_prefix")
-_UNTRAINED = ("ssm", "hybrid_attn_period")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -85,15 +86,9 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a config family the port does not train yet: the unported
-    families, and the SSM and hybrid ones, which it serves only."""
+    """Raise for a config family the port does not train yet: the
+    unported ones, as ``check_supported``."""
     check_supported(cfg)
-    on = [f for f in _UNTRAINED if getattr(cfg, f)]
-    if on:
-        raise NotImplementedError(
-            f"{cfg.name}: training of {', '.join(on)} not ported yet (ROADMAP queue 1, "
-            "item 4); the port trains the dense and MLA + MoE configs"
-        )
 
 
 # =============================================================================

@@ -14,6 +14,16 @@ Shapes (per block):
   SSD over x (B,L,H,P), A (H,), B/C (B,L,G,N), dt (B,L,H)
   gated RMSNorm, out_proj (DI, D)
 
+The intra-chunk decay exp(cum_i - cum_j) is masked to the lower triangle
+before ``exp``, as exp(where(tri, diff, -inf)).  Above the diagonal diff is
+>= 0 and grows with the chunk: the JAX package's where(tri, exp(diff), 0)
+overflows there once Σ dt·|A| over a chunk passes 88.7 (float32), and its
+gradient is then 0 x inf = NaN, though the forward masks the inf away.
+Masking first gives the same forward, bit for bit (exp(-inf) is 0 and the
+kept entries are the same diff), and a gradient equal to JAX's wherever
+JAX's is finite (``tests/test_torch_ssm.py``).  The other exponents,
+total - cum, cum and total, are <= 0 and cannot overflow.
+
 Decode keeps a conv ring (B, W-1, DI+2GN) and the SSM state (B, H, P, N) in
 float32: O(1) memory per token.  ``mamba_decode`` updates both in the state
 dict in place (JAX returns new arrays) and returns the same dict.
@@ -102,6 +112,17 @@ def _split_xbc(xbc: torch.Tensor, cfg: ModelConfig):
     return xs, bs, cs
 
 
+def _intra_decay(cum: torch.Tensor) -> torch.Tensor:
+    """decay[b,c,i,j,h] = exp(cum_i - cum_j) for i >= j, else 0, from the
+    inclusive cumsum ``cum`` (B,NC,Q,H) of dt·A: masked before ``exp`` (see
+    the module docstring)."""
+    q = cum.shape[2]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B,NC,Qi,Qj,H)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=cum.device))
+    diff = torch.where(tri[None, None, :, :, None], diff, -torch.inf)  # frees the unmasked
+    return torch.exp(diff)
+
+
 def _ssd_chunked(xs, dt, a, bs, cs, cfg: ModelConfig):
     """SSD: xs (B,L,H,P) fp32, dt (B,L,H) fp32 (post-softplus), a (H,)
     negative, bs/cs (B,L,G,N) fp32.  Returns y (B,L,H,P) fp32 and the final
@@ -125,40 +146,46 @@ def _ssd_chunked(xs, dt, a, bs, cs, cfg: ModelConfig):
     cum = torch.cumsum(da_c, dim=2)                     # (B,NC,Q,H) inclusive
     total = cum[:, :, -1:, :]                           # (B,NC,1,H)
 
-    # -- intra-chunk (attention-like) ------------------------------------------
-    # decay[i,j] = exp(cum_i - cum_j) for i >= j
-    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B,NC,Qi,Qj,H)
-    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xs.device))
-    decay = torch.where(tri[None, None, :, :, None], torch.exp(diff), 0.0)
-    del diff
+    y_intra = _ssd_intra(c_c, b_c, x_c, cum, rep)
+    s_c = _ssd_chunk_states(b_c, x_c, cum, total, rep)
+    y_inter, s = _ssd_inter(s_c, c_c, cum, total, rep)
+    y = (y_intra + y_inter).reshape(b, l, h, p)
+    return y, s
+
+
+def _ssd_intra(c_c, b_c, x_c, cum, rep: int) -> torch.Tensor:
+    """The intra-chunk (attention-like) term (B,NC,Q,H,P): y_i = sum_{j<=i}
+    C_i·B_j exp(cum_i - cum_j) x_j dt_j within each chunk."""
+    decay = _intra_decay(cum)                                # (B,NC,Qi,Qj,H)
     cb = torch.einsum("bcign,bcjgn->bcgij", c_c, b_c)        # (B,NC,G,Qi,Qj)
     cb = torch.repeat_interleave(cb, rep, dim=2)             # (B,NC,H,Qi,Qj)
     scores = cb * decay.movedim(-1, 2)                       # (B,NC,H,Qi,Qj)
     del cb, decay
-    y_intra = torch.einsum("bchij,bcjhp->bcihp", scores, x_c)
-    del scores
+    return torch.einsum("bchij,bcjhp->bcihp", scores, x_c)
 
-    # -- chunk states ----------------------------------------------------------
-    # S_c = sum_j exp(total - cum_j) B_j (x_j dt_j)
+
+def _ssd_chunk_states(b_c, x_c, cum, total, rep: int) -> torch.Tensor:
+    """Each chunk's state (B,NC,H,P,N): S_c = sum_j exp(total - cum_j) B_j
+    (x_j dt_j)."""
     w_state = torch.exp(total - cum)                         # (B,NC,Q,H)
     b_h = torch.repeat_interleave(b_c, rep, dim=3)           # (B,NC,Q,H,N)
-    s_c = torch.einsum("bcjhn,bcjhp->bchpn", b_h, x_c * w_state[..., None])
-    del b_h
+    return torch.einsum("bcjhn,bcjhp->bchpn", b_h, x_c * w_state[..., None])
 
-    # -- inter-chunk scan, in chunk order ----------------------------------------
+
+def _ssd_inter(s_c, c_c, cum, total, rep: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The inter-chunk scan, in chunk order (JAX's ``lax.scan``): the state
+    entering each chunk, then y_inter[i] = exp(cum_i) C_i·S_prev (B,NC,Q,H,P)
+    and the final state (B,H,P,N)."""
+    b, nc, h, p, n = s_c.shape
     chunk_decay = torch.exp(total[:, :, 0, :])               # (B,NC,H)
-    s = torch.zeros((b, h, p, n), dtype=torch.float32, device=xs.device)
+    s = torch.zeros((b, h, p, n), dtype=torch.float32, device=s_c.device)
     s_prevs = []
     for c in range(nc):
         s_prevs.append(s)
         s = s * chunk_decay[:, c][..., None, None] + s_c[:, c]
     s_prev = torch.stack(s_prevs, dim=1)                     # (B,NC,H,P,N)
-
-    # y_inter[i] = exp(cum_i) * C_i . S_prev
     c_h = torch.repeat_interleave(c_c, rep, dim=3)           # (B,NC,Q,H,N)
-    y_inter = torch.einsum("bcihn,bchpn->bcihp", c_h, s_prev) * torch.exp(cum)[..., None]
-    y = (y_intra + y_inter).reshape(b, l, h, p)
-    return y, s
+    return torch.einsum("bcihn,bchpn->bcihp", c_h, s_prev) * torch.exp(cum)[..., None], s
 
 
 def ssd_reference(xs, dt, a, bs, cs):
@@ -190,8 +217,14 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     y = y + params["d_skip"][None, None, :, None] * xs.float()
     b, l = x.shape[:2]
     y = y.reshape(b, l, cfg.d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z.float()).to(x.dtype), params["gate_norm"], cfg.norm_eps)
+    y = _gated_norm(params, y, z, cfg)
     return reduce_boundary(y, x.dtype) @ params["w_out"]
+
+
+def _gated_norm(params, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """RMSNorm of y gated by silu(z): silu in float32, the product in y's
+    dtype."""
+    return rms_norm(y * F.silu(z.float()).to(y.dtype), params["gate_norm"], cfg.norm_eps)
 
 
 def init_mamba_state(cfg: ModelConfig, batch: int, dtype: torch.dtype = torch.bfloat16,
@@ -230,5 +263,4 @@ def mamba_decode(params, x: torch.Tensor, state: dict,
     y = torch.einsum("bhn,bhpn->bhp", c_h, ssm)
     y = y + params["d_skip"][None, :, None] * xs[:, 0].float()
     y = y.reshape(x.shape[0], 1, cfg.d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z.float()).to(x.dtype), params["gate_norm"], cfg.norm_eps)
-    return y @ params["w_out"], state
+    return _gated_norm(params, y, z, cfg) @ params["w_out"], state

@@ -3,7 +3,10 @@ guarantees (atomic, ``keep_last``, bfloat16 as a ``uint16`` view, the same
 leaf paths), and checkpoints that cross between the packages: one the JAX
 driver wrote resumes in the port's driver, and the reverse; and a reduced
 deepseek-v3 train state (the nested ``mtp`` subtree, the float32 routers in
-a bfloat16 model, each leaf's m and v) crossing both ways bit for bit.
+a bfloat16 model, each leaf's m and v) and reduced mamba2 and zamba2 train
+states (the (L, ...) stacked tail, zamba2's (G, L, ...) stacked ``groups``
+and its ``shared_attn`` block, weights and float32 moments alike) crossing
+both ways bit for bit.
 
 Tolerance of the cross-package runs: the reduced gemma-2b the drivers train
 is bfloat16, and the two frameworks round bfloat16 intermediates at
@@ -169,6 +172,63 @@ def test_port_deepseek_v3_state_restores_in_jax(tmp_path):
     assert str(jstate.params["tail"]["ffn"]["w_gate"].dtype) == "bfloat16"
     want = train_state_to_numpy(state)
     assert float(np.abs(want["opt"]["m"]["mtp"]["block"]["ffn"]["router"]).max()) > 0
+    _same(_as_numpy(jstate), want)
+
+
+SSM_ARCHS = ["mamba2-2.7b", "zamba2-7b"]
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_jax_ssm_state_restores_in_the_port(tmp_path, arch):
+    """A JAX ``TrainState`` of the reduced SSM or hybrid config, its moments
+    seeded nonzero, saved by the JAX manager: the port restores every leaf
+    bit for bit, zamba2's (G, L) ``groups`` moments and ``shared_attn``
+    moments included."""
+    import jax.numpy as jnp
+    from repro.launch.steps import TrainState
+
+    tmpl = _jax_template(False, arch, seed=4)
+    rng = np.random.default_rng(4)
+    draw = lambda a: jnp.asarray(rng.standard_normal(a.shape, np.float32) * 1e-3)  # noqa: E731
+    opt = dict(tmpl.opt, count=jnp.int32(3), m=jax.tree.map(draw, tmpl.opt["m"]),
+               v=jax.tree.map(lambda a: jnp.abs(draw(a)), tmpl.opt["v"]))
+    jstate = TrainState(tmpl.params, opt, jnp.int32(3))
+    jmanager.save_checkpoint(tmp_path, 3, jstate, extra={"loader": {"clock": 2}})
+    leaves = json.loads((tmp_path / "step_00000003" / "manifest.json").read_text())["leaves"]
+    cfg = get_config(arch, reduced=True)
+    if cfg.hybrid_attn_period:
+        g, per = cfg.num_layers // cfg.hybrid_attn_period, cfg.hybrid_attn_period
+        assert leaves["opt/m/groups/mixer/w_in"]["shape"][:2] == [g, per]
+        assert leaves["opt/v/shared_attn/attn/wq"]["dtype"] == "float32"
+        assert leaves["params/shared_attn/mlp/w_up"]["dtype"] == "bfloat16"
+    tmpl_port = steps.TrainState.create(api.init_params(1, cfg, device="cpu"),
+                                        adamw.adamw(1e-3))
+    got, extra = manager.restore_checkpoint(tmp_path, 3, tmpl_port)
+    assert extra == {"loader": {"clock": 2}} and int(got.step) == 3
+    _same(train_state_to_numpy(got), _as_numpy(jstate))
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_port_ssm_state_restores_in_jax(tmp_path, arch):
+    """The reverse: a port state of the reduced SSM or hybrid config after
+    two train steps, saved by the port's manager, restores in the JAX
+    manager bit for bit."""
+    cfg = get_config(arch, reduced=True)
+    opt = adamw.adamw(1e-3)
+    state = steps.TrainState.create(api.init_params(3, cfg, device="cpu"), opt)
+    step = steps.make_train_step(cfg, opt)
+    rng = np.random.default_rng(3)
+    for _ in range(2):
+        state, _ = step(state, {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32))})
+    manager.save_checkpoint(tmp_path, 2, state)
+    jstate, _ = jmanager.restore_checkpoint(tmp_path, 2, _jax_template(False, arch))
+    want = train_state_to_numpy(state)
+    if cfg.hybrid_attn_period:
+        assert np.shape(jstate.opt["m"]["groups"]["mixer"]["w_in"])[:2] == (
+            cfg.num_layers // cfg.hybrid_attn_period, cfg.hybrid_attn_period)
+        assert float(np.abs(want["opt"]["m"]["shared_attn"]["attn"]["wq"]).max()) > 0
+        assert float(np.abs(want["opt"]["v"]["groups"]["mixer"]["a_log"]).max()) > 0
     _same(_as_numpy(jstate), want)
 
 

@@ -9,7 +9,18 @@ scan and the recurrence sum in other orders (and the two frameworks'
 ``cumsum`` and einsums in their own), so they agree to 1e-4, as in the JAX
 tests.  Stepping decode over a sequence against the full-sequence forward
 sums the state another way again, with the conv taken in float32: 2e-3, the
-JAX test's bound."""
+JAX test's bound.
+
+The overflow case (dt = 0.5, A = -30 at chunk 8, so Σ dt·|A| over a chunk
+reaches 105 > 88.7): JAX's ``where(tri, exp(diff), 0)`` has a NaN gradient
+there (a reference fault); the port masks diff before ``exp``, and its
+gradient is held to the recurrence's within GRAD_TOL of each leaf's largest
+entry, the bound of the train tests' gradient leaves: in float32 for x, dt,
+B and C, and in float64 for every input.  A's float32 gradient is only
+checked finite: its true value carries exp(-15) factors (about 1e-5), while
+the chunked form reaches it as a sum of O(1) terms that cancel (each
+diagonal decay's +cum_i and -cum_i), so float32 leaves rounding noise of a
+few 1e-6 there, in JAX's formulation as in the port's."""
 
 import pytest
 
@@ -26,6 +37,7 @@ from repro_torch.models.config import ModelConfig  # noqa: E402
 
 TOL = 1e-4
 STEP_TOL = 2e-3
+GRAD_TOL = 1e-4
 
 
 def _cfgs(chunk=16, groups=1):
@@ -67,6 +79,60 @@ def test_ssd_chunk_must_divide_length():
     _, tc = _cfgs(16)
     with pytest.raises(AssertionError, match="chunk"):
         ssm._ssd_chunked(*_t(_ssd_inputs(1, 40, 4, 8, 1, 8)), tc)
+
+
+def _jax_decay(cum: torch.Tensor) -> torch.Tensor:
+    """The JAX package's intra-chunk decay, ``where(tri, exp(diff), 0)``."""
+    q = cum.shape[2]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool))
+    return torch.where(tri[None, None, :, :, None], torch.exp(diff), 0.0)
+
+
+def test_ssd_gradient_is_finite_where_jax_overflows(monkeypatch):
+    """dt = 0.5, A = -30 at chunk 8: JAX's gradient has NaN leaves (the
+    reference's fault); the port's is finite and matches the gradient
+    through the recurrence; the port's forward equals, bit for bit, the one
+    with JAX's decay expression, whose gradient is NaN in the port too."""
+    jc, tc = _cfgs(8, 2)
+    xs, _, _, bs, cs = _ssd_inputs(2, 32, 4, 8, 2, 8, seed=21)
+    dt = np.full((2, 32, 4), 0.5, np.float32)
+    a = np.full((4,), -30.0, np.float32)
+    arrays = (xs, dt, a, bs, cs)
+    rng = np.random.default_rng(22)
+    gy = rng.standard_normal((2, 32, 4, 8)).astype(np.float32)
+    gs = rng.standard_normal((2, 4, 8, 8)).astype(np.float32)
+
+    def jloss(*args):
+        y, s = jssm._ssd_chunked(*args, jc)
+        return jnp.sum(y * gy) + jnp.sum(s * gs)
+
+    jgrads = jax.grad(jloss, argnums=tuple(range(5)))(*(jnp.asarray(x) for x in arrays))
+    assert any(np.isnan(np.asarray(g)).any() for g in jgrads), "JAX's gradient overflows"
+
+    def port(fn, dtype=torch.float32):
+        leaves = [torch.from_numpy(x).to(dtype).requires_grad_(True) for x in arrays]
+        y, s = fn(*leaves)
+        loss = (y * torch.from_numpy(gy)).sum() + (s * torch.from_numpy(gs)).sum()
+        return y.detach(), torch.autograd.grad(loss, leaves)
+
+    chunked = lambda *t: ssm._ssd_chunked(*t, tc)  # noqa: E731
+    y, grads = port(chunked)
+    y_ref, ref = port(ssm.ssd_reference)
+    np.testing.assert_allclose(y.numpy(), y_ref.numpy(), rtol=TOL, atol=TOL)
+    assert all(torch.isfinite(g).all() for g in grads)
+    names = ("xs", "dt", "a", "bs", "cs")
+    for dtype, checked in ((torch.float32, ("xs", "dt", "bs", "cs")), (torch.float64, names)):
+        if dtype == torch.float64:
+            (_, grads), (_, ref) = port(chunked, dtype), port(ssm.ssd_reference, dtype)
+        for name, g, w in zip(names, grads, ref):
+            if name in checked:
+                err, scale = float((g - w).abs().max()), float(w.abs().max())
+                assert err <= GRAD_TOL * scale, f"{dtype} d{name}: {err} > {GRAD_TOL} x {scale}"
+    monkeypatch.setattr(ssm, "_intra_decay", _jax_decay)
+    y_jax_expr, grads_jax_expr = port(lambda *t: ssm._ssd_chunked(*t, tc))
+    assert torch.equal(y, y_jax_expr)
+    assert any(torch.isnan(g).any() for g in grads_jax_expr)
 
 
 def _block(groups=1, chunk=16, seed=0):

@@ -1,9 +1,10 @@
 """Port's training path against the JAX package: ``train_loss`` and every
-gradient leaf on the reduced dense configs and the reduced MLA + MoE configs
-(deepseek-v2-lite; deepseek-v3 with its MTP branch), JAX weights carried
-over with ``convert``; the train step over 4 steps with one and two
-microbatches; and the driver (``launch/train.py``): kill-and-resume
-bit-identical, a loss that falls, one device only.  The MoE cases first
+gradient leaf on the reduced dense configs, the reduced MLA + MoE configs
+(deepseek-v2-lite; deepseek-v3 with its MTP branch) and the reduced SSM
+(mamba2) and hybrid (zamba2) configs, JAX weights carried over with
+``convert``; the train step over 4 steps with one and two microbatches; and
+the driver (``launch/train.py``): kill-and-resume bit-identical, a loss that
+falls, one device only.  The MoE cases first
 assert that both packages routed alike: each dispatch's ``idx_k`` and
 ``keep``, in call order, equal.
 
@@ -43,6 +44,8 @@ from repro_torch.convert import (  # noqa: E402
 from repro_torch.kernels.flash_attn import ops as flash_ops  # noqa: E402
 from repro_torch.launch import steps, train  # noqa: E402
 from repro_torch.models import api, losses, moe  # noqa: E402
+from repro_torch.models import lm as lm_mod  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.optim import adamw, schedules  # noqa: E402
 
 GRAD_TOL = 1e-4
@@ -50,6 +53,10 @@ TRAJ_TOL = 1e-4
 PARAM_REL_RMS = 1e-3
 ARCHS = ["phi3-medium-14b", "qwen1.5-4b", "gemma-2b", "gemma3-1b"]
 MOE_ARCHS = ["deepseek-v2-lite-16b", "deepseek-v3-671b"]
+SSM_ARCHS = ["mamba2-2.7b", "zamba2-7b"]
+# (arch, the port's attn_impl) of the gradient test: mamba2 has no attention
+GRAD_CASES = ([(a, impl) for a in ARCHS for impl in ("xla", "pallas_flash")]
+              + [("mamba2-2.7b", "xla"), ("zamba2-7b", "xla"), ("zamba2-7b", "pallas_flash")])
 # the JAX driver test's arguments (tests/integration/test_train_driver.py)
 ARGS = ["--arch", "gemma-2b", "--steps", "12", "--batch", "2", "--seq", "32",
         "--ckpt-every", "4", "--log-every", "100"]
@@ -117,8 +124,13 @@ def _jax_loss_and_grads(arch):
     return _JAX_GRADS[arch]
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas_flash"])
-@pytest.mark.parametrize("arch", ARCHS)
+def _attention_calls(cfg) -> int:
+    """Full-sequence attention calls of a forward: one a layer, one a group
+    (the shared block) for a hybrid config, none for pure SSM."""
+    return lm_mod._layer_plan(cfg)["groups"] if cfg.ssm else cfg.num_layers
+
+
+@pytest.mark.parametrize("arch,impl", GRAD_CASES)
 def test_train_loss_and_grads_match_jax(arch, impl, monkeypatch):
     tree, toks, want_loss, want_grads = _jax_loss_and_grads(arch)
     _, tc = _configs(arch, impl)
@@ -137,10 +149,13 @@ def test_train_loss_and_grads_match_jax(arch, impl, monkeypatch):
     for name, g in grads.items():
         assert g.dtype == torch.float32
         _leaf_close(g.numpy(), want[name], GRAD_TOL, f"{arch} {impl} grad {name}")
-    # the flash Function's backward ran once a flash layer (gemma3's
-    # windowed layers take the einsum path, as in JAX)
-    flash_layers = 0 if (impl == "xla" or tc.sliding_window) else tc.num_layers
-    assert len(calls) == flash_layers
+    # the flash Function's backward ran once a flash call: a layer, or the
+    # shared block once a group (gemma3's windowed layers take the einsum
+    # path, as in JAX)
+    flash_calls = 0 if (impl == "xla" or tc.sliding_window) else _attention_calls(tc)
+    assert len(calls) == flash_calls
+    assert (flash_calls > 0) == (arch != "mamba2-2.7b" and impl == "pallas_flash"
+                                 and not tc.sliding_window)
 
 
 def test_tail_blocks_are_recomputed_in_the_backward(monkeypatch):
@@ -166,9 +181,43 @@ def test_tail_blocks_are_recomputed_in_the_backward(monkeypatch):
     assert len(calls) == 2 * tc.num_layers
 
 
-@pytest.mark.parametrize("micro", [1, 2])
-def test_train_step_matches_jax_over_4_steps(micro):
-    jc, tc = _configs("gemma-2b")
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_blocks_are_recomputed_and_the_shared_block_is_not(arch, monkeypatch):
+    """Under a gradient each group and tail Mamba block's ``mamba_forward``
+    runs once in the forward and once more in the backward (``jax.checkpoint``
+    of JAX's layer and tail scan bodies); zamba2's shared block is not
+    checkpointed, as in JAX: its flash forward runs once a group in the
+    forward and not again, and its flash backward once a group."""
+    _, tc = _configs(arch, "pallas_flash")
+    tree, toks, _, _ = _jax_loss_and_grads(arch)
+    model = lm_params_from_numpy(tc, tree, device="cpu").requires_grad_(True)
+    calls = {"mamba": 0, "flash": 0, "flash_bwd": 0}
+
+    def counted(key, fn):
+        def wrapped(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(ssm_mod, "mamba_forward", counted("mamba", ssm_mod.mamba_forward))
+    monkeypatch.setattr(flash_ops, "_forward", counted("flash", flash_ops._forward))
+    monkeypatch.setattr(flash_ops, "attention_bwd_lse_ref",
+                        counted("flash_bwd", flash_ops.attention_bwd_lse_ref))
+    groups = lm_mod._layer_plan(tc)["groups"]
+    loss, _ = lm_mod.train_loss(model, {"tokens": toks}, tc)
+    assert calls == {"mamba": tc.num_layers, "flash": groups, "flash_bwd": 0}
+    loss.backward()
+    assert calls == {"mamba": 2 * tc.num_layers, "flash": groups, "flash_bwd": groups}
+    assert (groups, lm_mod._layer_plan(tc)["tail"]) == ((2, 1) if tc.hybrid_attn_period
+                                                        else (0, tc.num_layers))
+
+
+def _trajectory_matches_jax(arch, micro):
+    """4 train steps of the reduced ``arch`` in float32 with ``micro``
+    microbatches against JAX's jitted step from the same weights: each
+    step's loss within TRAJ_TOL, every parameter and moment leaf within
+    PARAM_REL_RMS relative RMS after the last."""
+    jc, tc = _configs(arch)
     kw = dict(weight_decay=0.01, grad_clip=1.0)
     jopt = jadamw.adamw(jsched.warmup_cosine(3e-3, 2, 4), **kw)
     topt = adamw.adamw(schedules.warmup_cosine(3e-3, 2, 4), **kw)
@@ -194,7 +243,21 @@ def test_train_step_matches_jax_over_4_steps(micro):
         assert set(g) == set(w)
         for name in g:
             rel = np.linalg.norm(g[name] - w[name]) / max(np.linalg.norm(w[name]), 1e-30)
-            assert rel <= PARAM_REL_RMS, f"µ={micro} {part} {name}: rel RMS {rel}"
+            assert rel <= PARAM_REL_RMS, f"{arch} µ={micro} {part} {name}: rel RMS {rel}"
+
+
+@pytest.mark.parametrize("micro", [1, 2])
+def test_train_step_matches_jax_over_4_steps(micro):
+    _trajectory_matches_jax("gemma-2b", micro)
+
+
+@pytest.mark.parametrize("micro", [1, 2])
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_train_step_matches_jax_over_4_steps(arch, micro):
+    """Reduced mamba2 (chunk 8: 2 chunks of the 16-token rows) and zamba2
+    (2 groups of 3 Mamba blocks, the shared block after each, a tail of
+    1)."""
+    _trajectory_matches_jax(arch, micro)
 
 
 def _jax_routes(fn, *args):
@@ -386,6 +449,23 @@ def test_driver_kill_and_resume_bit_identical(tmp_path):
     np.testing.assert_allclose(resumed["losses"], ref["losses"][9:], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_driver_kill_and_resume_bit_identical(arch, tmp_path):
+    """The driver on reduced mamba2 and zamba2 (the JAX driver test's
+    arguments): a loss that falls, and the kill at step 9 and resume
+    bit-identical."""
+    args = ["--arch", arch, *ARGS[2:]]
+    ref = train.main(args + ["--ckpt-dir", str(tmp_path / "uninterrupted")], device="cpu")
+    assert ref["steps_run"] == 12 and ref["last_loss"] < ref["first_loss"]
+    killed = str(tmp_path / "killed")
+    with pytest.raises(SystemExit) as e:
+        train.main(args + ["--ckpt-dir", killed, "--kill-at", "9"], device="cpu")
+    assert e.value.code == 17
+    resumed = train.main(args + ["--ckpt-dir", killed], device="cpu")
+    assert resumed["start_step"] == 9
+    np.testing.assert_allclose(resumed["losses"], ref["losses"][9:], rtol=0, atol=0)
+
+
 def test_driver_loss_decreases_over_training():
     res = train.main(ARGS, device="cpu")
     assert res["last_loss"] < res["first_loss"]
@@ -395,7 +475,7 @@ def test_driver_refuses_a_mesh_and_unported_families():
     for mesh in ("2x1", "1x2", "4x2"):
         with pytest.raises(ValueError, match="one device"):
             train.main(ARGS + ["--mesh", mesh], device="cpu")
-    for arch in ("whisper-tiny", "pixtral-12b", "mamba2-2.7b", "zamba2-7b"):
+    for arch in ("whisper-tiny", "pixtral-12b"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train.main(["--arch", arch, "--steps", "1", "--batch", "2", "--seq", "16"],
                        device="cpu")
@@ -442,6 +522,52 @@ def test_moe_driver_kill_and_resume_on_card(cuda_device, tmp_path):
     resumed = train.main(MOE_ARGS + ["--ckpt-dir", str(tmp_path / "b")], device=cuda_device)
     assert resumed["start_step"] == 9
     np.testing.assert_allclose(resumed["losses"], ref["losses"][9:], rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_driver_kill_and_resume_on_card(cuda_device, arch, tmp_path):
+    """``chip_smoke.py``'s ``lm_ssm_train``/``lm_hybrid_train`` resume on the
+    card: the SSD's ``repeat_interleave`` (its backward a sum over the
+    expanded dimension), the conv and the shared block's gradient summed
+    over groups keep a step bit-reproducible."""
+    args = ["--arch", arch, *ARGS[2:]]
+    ref = train.main(args + ["--ckpt-dir", str(tmp_path / "a")], device=cuda_device)
+    with pytest.raises(SystemExit):
+        train.main(args + ["--ckpt-dir", str(tmp_path / "b"), "--kill-at", "9"],
+                   device=cuda_device)
+    resumed = train.main(args + ["--ckpt-dir", str(tmp_path / "b")], device=cuda_device)
+    assert resumed["start_step"] == 9
+    np.testing.assert_allclose(resumed["losses"], ref["losses"][9:], rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_train_step_on_card_matches_cpu(cuda_device, arch, monkeypatch):
+    """``chip_smoke.py``'s ``ssm_train_parity``: 4 float32 train steps of
+    reduced mamba2 and zamba2 on the card (TF32 off) against the same steps
+    on the CPU from the same weights and batches."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    jc, tc = _configs(arch)
+    tree = jax.tree.map(np.asarray, japi.init_params(jax.random.PRNGKey(3), jc))
+    opt = adamw.adamw(schedules.warmup_cosine(3e-3, 2, 4), weight_decay=0.01)
+    runs = []
+    for dev in ("cpu", cuda_device):
+        state = steps.TrainState.create(lm_params_from_numpy(tc, tree, device=dev), opt)
+        step, losses = steps.make_train_step(tc, opt), []
+        for i in range(4):
+            toks = torch.from_numpy(_tokens(tc, 4, 16, seed=100 + i)).to(dev)
+            state, m = step(state, {"tokens": toks})
+            losses.append(float(m["total_loss"]))
+        runs.append((losses, train_state_to_numpy(state)))
+    (cl, cs), (gl, gs) = runs
+    np.testing.assert_allclose(gl, cl, rtol=TRAJ_TOL, atol=0)
+    for part in ("params", "m", "v"):
+        g = _port_named(gs[part] if part == "params" else gs["opt"][part])
+        c = _port_named(cs[part] if part == "params" else cs["opt"][part])
+        for name in c:
+            rel = np.linalg.norm(g[name] - c[name]) / max(np.linalg.norm(c[name]), 1e-30)
+            assert rel <= PARAM_REL_RMS, f"{part} {name}: rel RMS {rel}"
 
 
 @pytest.mark.gpu
