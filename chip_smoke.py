@@ -55,12 +55,13 @@ port's paths on the card through the entry points a user calls:
      shape (B=4, S=2,048, H=40, KV=10, D=128, bf16), a ragged float32 GQA
      shape, an MQA D=256 shape, a ragged bf16 D=128 shape, and zamba2's
      shared-block shape (B=4, S=2,048, H=KV=32, D=112, bf16) and a ragged
-     one (S=T=1,000), beside ``scaled_dot_product_attention``; each check
+     one (S=T=1,000), and pixtral's prefill shape (B=4, S=T=3,072 of 1,024
+     patches and 2,048 tokens, H=32, KV=8, D=128, bf16), beside ``scaled_dot_product_attention``; each check
      asserts its route (bf16 at D 64/112/128/256 on the tensor cores,
      ``wgmma``; float32 on the CUDA cores).  Then ``flash_backward``: the
      backward kernel of each route at phi3's and zamba2's prefill shapes, a
-     ragged bf16 shape and a float32 one (and gemma-2b's in ``lm_train``),
-     its dq, dk, dv within FLASH_TOL of autograd through the plain forward,
+     ragged bf16 shape and a float32 one (gemma-2b's in ``lm_train``,
+     pixtral's in ``lm_vlm_train``), its dq, dk, dv within FLASH_TOL of autograd through the plain forward,
      two calls bit-equal, beside the plain backward and
      ``scaled_dot_product_attention``'s backward;
   8. ``lm_serve``: the ported LM request path (``launch/serve.py``) at
@@ -91,21 +92,38 @@ port's paths on the card through the entry points a user calls:
      the prefill with ``attn_impl="pallas_flash"`` against ``"xla"``, 13
      flash launches a forward on the tensor-core route, and the same float32
      twin reference and control;
-  12. ``moe_dispatch``: one MoE layer at deepseek-v2-lite-16b's widths (D
+  12. ``lm_audio_serve`` and ``lm_audio_prefill``: ``lm_serve``'s request
+     path at whisper-tiny's full width and depth (4 + 4 layers, d_model
+     384, 6 heads of 64, 1,500 frames, vocab 51,865; 73.2 MB of bf16
+     weights, decoder positions sized to the published 448-token context):
+     zero frames through the encoder, the cross K/V attached to the cache,
+     then the stepped prefill and decode, a step's bound one read of the
+     weights and of the cross and self K/V; then ``make_prefill_step`` on
+     the served prompts over the same frames against the stepped logits,
+     and at 4 x 448 loader tokens over 1,500 seeded frames each, timed;
+     no kernel but the GET's (the JAX package's whisper attention is its
+     einsum path everywhere);
+  13. ``lm_vlm_serve`` and ``lm_vlm_prefill``: the same at pixtral-12b's
+     full width (40 layers, d_model 5,120, GQA 32/8, D 128, vocab 131,072;
+     24.5 GB), served text-only as the JAX driver does; the prefill on
+     4 x (1,024 seeded patch embeddings + 2,048 loader tokens), S=3,072,
+     ``pallas_flash`` against ``xla``, 40 flash launches a forward on the
+     tensor cores;
+  14. ``moe_dispatch``: one MoE layer at deepseek-v2-lite-16b's widths (D
      2,048, 64 experts top-6, F 1,408, two shared experts; seeded bf16
      weights) on 4 x 2,048 tokens in groups of 2,048 at capacity factor
      1.25 (capacity 240): ``moe_apply`` against its GShard einsum oracle,
      the share of assignments dropped (above 0), ``_dispatch_indices`` on
      the card byte-identical to the CPU, and ``moe_apply`` sync-free;
-  13. ``lm_moe_serve``: ``lm_serve``'s request path and checks at
+  15. ``lm_moe_serve``: ``lm_serve``'s request path and checks at
      deepseek-v2-lite-16b's full width (27 layers, MLA, 64 experts; random
      bf16 weights from a seed, 31.4 GB) on a serving plane of its own:
      absorbed-MLA decode and no-drop MoE, no flash launch;
-  14. ``lm_moe_prefill``: ``make_prefill_step`` on that model, no-drop on
+  16. ``lm_moe_prefill``: ``make_prefill_step`` on that model, no-drop on
      the served prompts against the stepped prefill's logits, then at
      capacity factor 1.25 on a 4 x 2,048 loader batch with each MoE layer's
      dropped share;
-  15. ``lm_train``: the ported train path (``launch/train.py``'s data plane
+  17. ``lm_train``: the ported train path (``launch/train.py``'s data plane
      and optimizer, ``make_train_step``) at gemma-2b's full width (18
      layers, d_model 2,048, MQA 8/1, head_dim 256, vocab 256,000; 2.51 B
      random bf16 weights from a seed), ``attn_impl="pallas_flash"``: 8 AdamW
@@ -120,7 +138,7 @@ port's paths on the card through the entry points a user calls:
      backward; and the
      driver's kill at step 9 and resume (``train.main``, reduced gemma-2b, the
      JAX driver test's arguments), bit-identical to an uninterrupted run;
-  16. ``lm_ssm_train`` and ``lm_hybrid_train``: the same train path at
+  18. ``lm_ssm_train`` and ``lm_hybrid_train``: the same train path at
      mamba2-2.7b's full width and depth (64 layers, 2.83 B parameters) and
      at zamba2-7b's full width cut to 48 of its 81 layers (8 groups of 6
      and the shared block: 4.13 B parameters; all 81 need 80.4 GB of
@@ -136,13 +154,23 @@ port's paths on the card through the entry points a user calls:
      zamba2: the flash/xla gradient check at the trained state's first two
      groups (12 layers).  Each: the driver's kill and resume on the reduced
      config, bit-identical;
-  17. ``moe_backward``: ``moe_dispatch``'s layer and tokens (gemma-2b freed
+  19. ``lm_vlm_train``: pixtral-12b at full width cut to 10 of its 40
+     layers (4.07 B parameters; all 40 need 147 GB at 12 B a parameter),
+     ``pallas_flash``, 8 steps at 4 x (1,024 patches + 2,048 tokens): 20
+     flash forward launches a step (forward and recompute) and 10 backward
+     ones, all on the tensor cores at S=T=3,072; the flash/xla gradient
+     check at the trained state's first 2 layers; the flash backward alone
+     at this shape against autograd through the plain forward;
+  20. ``lm_audio_train``: whisper-tiny at full size, 8 steps at 8 x 448
+     tokens over 1,500 frames, no kernel launched; the driver's kill and
+     resume on reduced whisper, bit-identical;
+  21. ``moe_backward``: ``moe_dispatch``'s layer and tokens (gemma-2b freed
      first), forward + backward: every gradient leaf of the sort dispatch
      (x, the float32 router, the expert stacks, the shared experts) within
      2^-5 of the largest entry of the einsum oracle's, the routing of the
      two identical, no host sync, the time beside three times the forward's
      bound;
-  18. ``lm_moe_train``: the train path at deepseek-v2-lite-16b's published
+  22. ``lm_moe_train``: the train path at deepseek-v2-lite-16b's published
      width (d_model 2,048, MLA R 512, 64 experts top-6 + 2 shared, F 1,408,
      vocab 102,400) cut to ``MOE_TRAIN_LAYERS`` layers (1 dense + 5 MoE:
      all 27 need 188 GB of weights, gradients and moments), seeded random bf16
@@ -152,21 +180,26 @@ port's paths on the card through the entry points a user calls:
      every recompute routing as its forward, no kernel launch, peak memory
      under the card's; then ``train.main``'s kill at step 9 and resume on
      reduced deepseek-v3 (MLA with query LoRA, MoE, MTP), bit-identical;
-  19. ``moe_train_parity``: reduced deepseek-v2-lite and reduced
+  23. ``moe_train_parity``: reduced deepseek-v2-lite and reduced
      deepseek-v3 in float32 (TF32 off), 4 train steps on the card against
      the same 4 on the CPU from the same weights: routing identical at
      every step, losses, parameters and moments within the CPU tests'
-     bounds; ``ssm_train_parity``: the same for reduced mamba2 and zamba2;
-  20. the ``kernels`` line: launches, errors, times and bounds per kernel.
+     bounds; ``ssm_train_parity``: the same for reduced mamba2 and zamba2,
+     ``encdec_vlm_train_parity`` for reduced whisper and pixtral (with
+     seeded frames or patch embeddings);
+  24. the ``kernels`` line: launches, errors, times and bounds per kernel.
 
 Each path (``scan_merge``, the main path, ``offline_retrieval``, ``geo``,
 ``lm_serve``, ``lm_prefill``, ``lm_ssm_serve``, ``lm_ssm_prefill``,
-``lm_hybrid_serve``, ``lm_hybrid_prefill``, ``lm_moe_serve``, ``lm_moe_prefill``,
-``lm_train``, ``lm_ssm_train``, ``lm_hybrid_train``, ``lm_moe_train``) runs
+``lm_hybrid_serve``, ``lm_hybrid_prefill``, ``lm_audio_serve``,
+``lm_audio_prefill``, ``lm_vlm_serve``, ``lm_vlm_prefill``, ``lm_moe_serve``,
+``lm_moe_prefill``, ``lm_train``, ``lm_ssm_train``, ``lm_hybrid_train``,
+``lm_vlm_train``, ``lm_audio_train``, ``lm_moe_train``) runs
 with the launch counts zeroed just before it and read just after, and must
-have launched each kernel of its own path (``lm_moe_train``'s and
-``lm_ssm_train``'s paths launch none of them: MLA, the MoE dispatch and the
-SSD are plain PyTorch, as they are XLA ops in the JAX package).
+have launched each kernel of its own path (``lm_moe_train``'s,
+``lm_ssm_train``'s and ``lm_audio_train``'s paths launch none of them:
+MLA, the MoE dispatch, the SSD and whisper's attention are plain PyTorch,
+as they are XLA ops in the JAX package).
 
 Each phase prints one JSON line; any failed check raises, so the run exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -247,6 +280,7 @@ from repro_torch.launch.steps import (  # noqa: E402
     make_train_step,
 )
 from repro_torch.models import api  # noqa: E402
+from repro_torch.models import encdec as encdec_mod  # noqa: E402
 from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
@@ -369,6 +403,25 @@ SSM_PARITY_ARCHS = (SSM_ARCH, HYBRID_ARCH)
 # x, dt, B and C within SSD_GRAD_TOL of each one's largest entry, the CPU
 # tests' bound (tests/test_torch_ssm.py)
 SSD_GRAD_TOL = 1e-4
+# the last two families.  whisper-tiny at full width and depth (4 + 4 layers,
+# d_model 384, 6 heads of 64, 1,500 frames, vocab 51,865): its learned
+# decoder positions sized to the published decoder context, 448 tokens,
+# which lm_audio_prefill runs 4 of over 1,500 frames and lm_audio_train 8
+AUDIO_ARCH = "whisper-tiny"
+AUDIO_CONTEXT = 448
+AUDIO_PREFILL_BATCH, AUDIO_TRAIN_BATCH = 4, 8
+AUDIO_KILL_ARGS = ["--arch", AUDIO_ARCH, *TRAIN_KILL_ARGS[2:]]
+# pixtral-12b at full width (40 layers, d_model 5,120, GQA 32/8, D 128, vocab
+# 131,072; 1,024 patches of 1,024): prefill and train at 4 x (1,024 patches
+# + 2,048 tokens), S = T = 3,072.  Training cuts the depth to
+# VLM_TRAIN_LAYERS: 4.07 B parameters, 48.9 GB at 12 B a parameter (all 40
+# layers need 147 GB); the flash/xla gradient check runs the trained
+# state's first VLM_CHECK_LAYERS layers (xla keeps 4.8 GB of float32
+# scores a layer at this shape)
+VLM_ARCH = "pixtral-12b"
+VLM_TRAIN_LAYERS = 10
+VLM_CHECK_LAYERS = 2
+LAST_PARITY_ARCHS = (AUDIO_ARCH, VLM_ARCH)
 L2_FLUSH_BYTES = 128 << 20  # written before a launch to empty the 50 MB L2
 SLEEP_CYCLES = 50_000_000  # a sleep kernel of about 25 ms on an H100
 COUNTERS = (lookup_ops.counter, rolling_ops.counter, pit_ops.counter, merge_ops.counter,
@@ -1849,6 +1902,8 @@ def logits_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
 def recurrent_state_bytes(cfg, batch: int) -> int:
     """The bytes of every Mamba layer's decode state (the float32 SSM state
     and the conv ring) for ``batch`` requests; 0 without SSM layers."""
+    if not cfg.ssm:
+        return 0
     cache = lm_mod.init_cache(cfg, batch, 1, device=torch.device("meta"))
     layers = [*cache.get("prefix", []), *(lc for g in cache.get("groups", []) for lc in g),
               *cache.get("tail", [])]
@@ -1856,22 +1911,37 @@ def recurrent_state_bytes(cfg, batch: int) -> int:
                if k in ("conv", "ssm"))
 
 
+def encdec_cache_bytes(cfg, batch: int, max_len: int) -> int:
+    """The bytes of an encoder/decoder's decode cache for ``batch``
+    requests: every layer's cross K/V over the encoder's frames and its self
+    K/V of ``max_len`` positions; 0 for a decoder-only config."""
+    if not cfg.encoder_decoder:
+        return 0
+    cache = encdec_mod.init_cache(cfg, batch, max_len, device=torch.device("meta"))
+    return sum(t.numel() * t.element_size() for k, t in cache.items() if k != "t")
+
+
 def phase_lm_serve(cfg, device: str, phase: str = "lm_serve") -> dict:
     """The ported request path at full width: the context GET through the
-    online store, stepped prefill of the 32-token contexts, greedy decode.
-    A decode step's bound is one read of every weight (the MoE decode reads
-    every expert's, as the JAX formulation does), plus, for the SSM and
-    hybrid families, one read and one write of every Mamba layer's state."""
+    online store, stepped prefill of the 32-token contexts, greedy decode;
+    an encoder/decoder encodes zero frames and attaches the cross K/V
+    first (its learned positions sized to AUDIO_CONTEXT, so the same model
+    runs ``lm_audio_prefill``).  A decode step's bound is one read of every
+    weight (the MoE decode reads every expert's, as the JAX formulation
+    does), plus, for the SSM and hybrid families, one read and one write of
+    every Mamba layer's state, and for the encoder/decoder one read of its
+    cross and self K/V."""
     t0 = time.perf_counter()
     plane = build_serving_plane(cfg, seed=0, device=device)
     plane_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = api.init_params(0, cfg, device=device)
+    params = api.init_params(0, cfg, max_decode_len=AUDIO_CONTEXT, device=device)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weight_gb = sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9
     state_gb = recurrent_state_bytes(cfg, LM_REQUESTS) / 1e9
+    kv_gb = encdec_cache_bytes(cfg, LM_REQUESTS, plane[2].chunk_len + LM_NEW_TOKENS) / 1e9
     reset_counts()
     out = serve(cfg, requests=LM_REQUESTS, new_tokens=LM_NEW_TOKENS, seed=0, device=device,
                 params=params, plane=plane, keep_logits=True)
@@ -1902,10 +1972,13 @@ def phase_lm_serve(cfg, device: str, phase: str = "lm_serve") -> dict:
         "new_tokens": LM_NEW_TOKENS, "online_lookup_ms": out["online_lookup_ms"],
         "stepped_prefill_ms": out["prefill_ms"],
         "decode_ms_per_step": decode_ms / LM_NEW_TOKENS, "state_gb": state_gb,
-        "decode_bound_ms": (weight_gb + 2 * state_gb) * 1e9 / HBM_BYTES_PER_S * 1e3,
+        "decode_bound_ms": (weight_gb + 2 * state_gb + kv_gb) * 1e9 / HBM_BYTES_PER_S * 1e3,
         "decode_tokens_per_s": LM_REQUESTS * LM_NEW_TOKENS / decode_ms * 1e3,
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
     }
+    if cfg.encoder_decoder:
+        row.update(encoder_layers=cfg.encoder_layers, frames=cfg.encoder_seq,
+                   encode_ms=out["encode_ms"], kv_gb=kv_gb)
     emit(row)
     return {"row": row, "params": params, "plane": plane, "out": out}
 
@@ -1993,8 +2066,11 @@ def phase_lm_prefill(cfg, served: dict, kernel_ms: float, phase: str = "lm_prefi
     bounds.  (ii) On a 4 x 2,048 loader batch against ``attn_impl="xla"``,
     or, with no attention in the model (mamba2), against the same forward
     at half the SSD chunk (twice the chunks through the inter-chunk scan).
-    Each attention call launches flash on the route ``flash_ops.route``
-    names (``kernel_ms`` is that kernel's time at this shape)."""
+    A vision-prefix config's (ii) puts ``num_patches`` seeded patch
+    embeddings before the 2,048 tokens, and its tokens/s counts every
+    position.  Each attention call launches flash on the route
+    ``flash_ops.route`` names (``kernel_ms`` is that kernel's time at this
+    shape)."""
     params, out = served["params"], served["out"]
     flash = make_prefill_step(dataclasses.replace(cfg, attn_impl="pallas_flash"))
     calls = attention_calls(cfg)
@@ -2011,6 +2087,12 @@ def phase_lm_prefill(cfg, served: dict, kernel_ms: float, phase: str = "lm_prefi
     check(tokens.shape == (PREFILL_BATCH, PREFILL_SEQ), "the loader batch is 4 x 2,048")
     check(bool((batch["__max_event_ts__"] <= batch["__observation_ts__"]).all()),
           "no token from after the loader's clock")
+    long_batch, n_prefix = {"tokens": tokens}, 0
+    if cfg.vision_prefix:
+        long_batch["patch_embeds"] = api.make_dummy_batch(
+            cfg, PREFILL_BATCH, 1, seed=0, device=params.device)["patch_embeds"]
+        n_prefix = cfg.num_patches
+    seq = PREFILL_SEQ + n_prefix
 
     if cfg.ssm:
         refs = float32_references(params, cfg, [out["prompts"], tokens[:1, :SSM_PREFIX]],
@@ -2024,12 +2106,12 @@ def phase_lm_prefill(cfg, served: dict, kernel_ms: float, phase: str = "lm_prefi
     short = flash(params, {"tokens": out["prompts"]})
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    long = flash(params, {"tokens": tokens})
+    long = flash(params, long_batch)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     reps, t0 = 2, time.perf_counter()
     for _ in range(reps):
-        flash(params, {"tokens": tokens})
+        flash(params, long_batch)
     torch.cuda.synchronize()
     forward_s = (time.perf_counter() - t0) / reps
     launches = read_counts()
@@ -2040,13 +2122,13 @@ def phase_lm_prefill(cfg, served: dict, kernel_ms: float, phase: str = "lm_prefi
           f"{calls} flash launches per forward, all on the {route} route ({forwards} forwards)")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    ref = xla(params, {"tokens": tokens})
+    ref = xla(params, long_batch)
     torch.cuda.synchronize()
     xla_s = time.perf_counter() - t0
     check(read_counts()["flash_attn"] == launches["flash_attn"],
           f"the {ref_label} path launches no flash")
     check(short.shape == out["prompt_logits"].shape and long.shape == ref.shape
-          == (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab_size), "logits of the expected shapes")
+          == (PREFILL_BATCH, seq, cfg.vocab_size), "logits of the expected shapes")
     vs_reference = {"forward": logits_agreement(short, served_ref)}
     if refs:
         vs_reference["stepped_prefill"] = logits_agreement(out["prompt_logits"], served_ref)
@@ -2066,9 +2148,10 @@ def phase_lm_prefill(cfg, served: dict, kernel_ms: float, phase: str = "lm_prefi
               f"falls outside {bounds[0]} relative RMS or {bounds[1]} top-1 agreement")
     check(within(vs_xla, LOGITS_REL_RMS, LOGITS_TOP1), f"flash prefill within "
           f"{LOGITS_REL_RMS} relative RMS and {LOGITS_TOP1} top-1 agreement of the {ref_label} path")
-    n_tok = PREFILL_BATCH * PREFILL_SEQ
+    n_tok = PREFILL_BATCH * seq
     row = {
-        "phase": phase, "arch": cfg.name, "batch": PREFILL_BATCH, "seq": PREFILL_SEQ,
+        "phase": phase, "arch": cfg.name, "batch": PREFILL_BATCH, "seq": seq,
+        "patches": n_prefix, "text_tokens": PREFILL_SEQ,
         "loader_clock_h": loader.clock / HOUR, "batch_s": batch_s,
         "reference": reference, "bounds": bounds, "vs_reference": vs_reference,
         "vs_xla_reference": ref_label, "vs_xla": vs_xla,
@@ -2083,6 +2166,66 @@ def phase_lm_prefill(cfg, served: dict, kernel_ms: float, phase: str = "lm_prefi
         row.update(ssd_chunks=PREFILL_SEQ // cfg.ssm_chunk, reference_s=refs["seconds"],
                    control_mantissa_bits=SSM_CONTROL_BITS, control=control,
                    forward_vs_stepped_prefill_bf16=logits_agreement(short, out["prompt_logits"]))
+    emit(row)
+    return {"row": row}
+
+
+def phase_lm_audio_prefill(cfg, served: dict) -> dict:
+    """``make_prefill_step`` on the served encoder/decoder: (i) the served
+    prompts over the same zero frames, against the stepped prefill's logits
+    at every prompt position, within the LOGITS bounds; (ii) the published
+    decoder context, AUDIO_PREFILL_BATCH x AUDIO_CONTEXT loader tokens, over
+    as many seeded frame sequences of ``cfg.encoder_seq`` frames, timed:
+    finite logits of the expected shape, no kernel launched (whisper's
+    attention is the einsum path, as in the JAX package)."""
+    params, out = served["params"], served["out"]
+    step = make_prefill_step(cfg)
+    t0 = time.perf_counter()
+    batch, loader = prefill_batch(served["plane"], AUDIO_CONTEXT, AUDIO_PREFILL_BATCH)
+    batch_s = time.perf_counter() - t0
+    tokens = torch.as_tensor(batch["tokens"], device=params.device)
+    check(tokens.shape == (AUDIO_PREFILL_BATCH, AUDIO_CONTEXT), "the loader batch is 4 x 448")
+    frames = api.make_dummy_batch(cfg, AUDIO_PREFILL_BATCH, 1, seed=0,
+                                  device=params.device)["frames"]
+    zeros = torch.zeros((LM_REQUESTS, cfg.encoder_seq, cfg.d_model), device=params.device)
+    reset_counts()
+    short = step(params, {"tokens": out["prompts"], "frames": zeros})
+    vs_stepped = logits_agreement(short, out["prompt_logits"])
+    check(short.shape == out["prompt_logits"].shape, "logits of the stepped prefill's shape")
+    check(vs_stepped["rel_rms_err"] <= LOGITS_REL_RMS and vs_stepped["top1_agree"] >= LOGITS_TOP1,
+          f"the forward within {LOGITS_REL_RMS} relative RMS and {LOGITS_TOP1} top-1 "
+          "agreement of the stepped prefill")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    long = step(params, {"tokens": tokens, "frames": frames})
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    check(long.shape == (AUDIO_PREFILL_BATCH, AUDIO_CONTEXT, cfg.vocab_size)
+          and bool(torch.isfinite(long).all()), "finite logits of the expected shape")
+    reps, t0 = 3, time.perf_counter()
+    for _ in range(reps):
+        step(params, {"tokens": tokens, "frames": frames})
+    torch.cuda.synchronize()
+    forward_s = (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        api.encode_memory(params, frames, cfg)
+    torch.cuda.synchronize()
+    encode_s = (time.perf_counter() - t0) / reps
+    launches = read_counts()
+    check(not any(launches.values()), "the encoder/decoder launches none of the kernels")
+    n_tok = AUDIO_PREFILL_BATCH * AUDIO_CONTEXT
+    row = {
+        "phase": "lm_audio_prefill", "arch": cfg.name, "batch": AUDIO_PREFILL_BATCH,
+        "seq": AUDIO_CONTEXT, "frames": cfg.encoder_seq, "loader_clock_h": loader.clock / HOUR,
+        "batch_s": batch_s, "vs_stepped_prefill": vs_stepped,
+        "bounds": (LOGITS_REL_RMS, LOGITS_TOP1), "first_forward_s": first_s,
+        "forward_s": forward_s, "encoder_s": encode_s,
+        "prefill_tokens_per_s": n_tok / forward_s,
+        "frames_per_s": AUDIO_PREFILL_BATCH * cfg.encoder_seq / encode_s,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
+    }
     emit(row)
     return {"row": row}
 
@@ -2487,22 +2630,32 @@ def sub_model(state: TrainState, cfg):
     return model.requires_grad_(True)
 
 
-def train_steps(cfg, device: str) -> dict:
-    """``TRAIN_STEPS`` AdamW steps of ``cfg`` at TRAIN_BATCH x TRAIN_SEQ on
-    the driver's data plane and optimizer (``launch/train.py``), seeded bf16
-    weights and float32 moments, with the launch counts zeroed just before
-    and read just after: the state, the first batch, the optimizer and the
-    readings."""
+def train_steps(cfg, device: str, batch_size: int | None = None, seq: int | None = None) -> dict:
+    """``TRAIN_STEPS`` AdamW steps of ``cfg`` at ``batch_size`` x ``seq``
+    tokens (by default TRAIN_BATCH x TRAIN_SEQ) on the driver's data plane and optimizer (``launch/train.py``),
+    seeded bf16 weights and float32 moments, with the launch counts zeroed
+    just before and read just after: the state, the first batch, the
+    optimizer and the readings.  An encoder/decoder's ``frames`` and a
+    vision prefix's ``patch_embeds`` come from ``make_dummy_batch(seed=step)``,
+    as in the driver."""
+    batch_size, seq = batch_size or TRAIN_BATCH, seq or TRAIN_SEQ
     t0 = time.perf_counter()
-    fs, loader = lm_train.build_data_plane(cfg, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0,
+    fs, loader = lm_train.build_data_plane(cfg, seq_len=seq, batch=batch_size, seed=0,
                                            device=device)
     fill_history(loader, 6)
-    batches = [loader.sample_batch(step) for step in range(TRAIN_STEPS)]
-    plane_s = time.perf_counter() - t0
-    for b in batches:
-        check(b["tokens"].shape == (TRAIN_BATCH, TRAIN_SEQ), "the loader batch is 4 x 2,048")
+    batches = []
+    for step in range(TRAIN_STEPS):
+        b = loader.sample_batch(step)
+        check(b["tokens"].shape == (batch_size, seq),
+              f"the loader batch is {batch_size} x {seq:,}")
         check(bool((b["__max_event_ts__"] <= b["__observation_ts__"]).all()),
               "no token from after the loader's clock")
+        model_batch = {"tokens": torch.as_tensor(b["tokens"], device=device)}
+        if cfg.encoder_decoder or cfg.vision_prefix:
+            dummy = api.make_dummy_batch(cfg, batch_size, seq, seed=step, device=device)
+            model_batch.update((k, dummy[k]) for k in ("frames", "patch_embeds") if k in dummy)
+        batches.append(model_batch)
+    plane_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = api.init_params(0, cfg, device=device)
@@ -2515,7 +2668,7 @@ def train_steps(cfg, device: str) -> dict:
     losses, step_s = [], []
     for b in batches:
         t0 = time.perf_counter()
-        state, metrics = train_step(state, {"tokens": torch.as_tensor(b["tokens"], device=device)})
+        state, metrics = train_step(state, b)
         losses.append(float(metrics["lm_loss"]))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
@@ -2524,24 +2677,25 @@ def train_steps(cfg, device: str) -> dict:
     card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
     check(all(np.isfinite(losses)), "the training losses are finite")
     check(peak_gb < card_gb, "peak memory under the card's")
-    batch = {"tokens": torch.as_tensor(batches[0]["tokens"], device=device)}
-    return {"state": state, "batch": batch, "optimizer": optimizer, "losses": losses,
+    return {"state": state, "batch": batches[0], "optimizer": optimizer, "losses": losses,
             "step_s": step_s, "launches": launches, "peak_gb": peak_gb, "card_gb": card_gb,
-            "plane_s": plane_s, "init_s": init_s, "loader_clock_h": loader.clock / HOUR}
+            "plane_s": plane_s, "init_s": init_s, "loader_clock_h": loader.clock / HOUR,
+            "batch_size": batch_size, "seq": seq}
 
 
-def train_readings(run: dict, n_params: int, opt_s: float) -> dict:
+def train_readings(run: dict, n_params: int, opt_s: float, flops: float | None = None) -> dict:
     """A train row's readings from ``train_steps``' ``run``: the step's
     median over steps 1-7 (the first compiles and warms the allocator),
-    tokens/s, the MFU of 6·N·tokens, the optimizer's seconds and share, the
-    peak memory and the launches."""
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens/s, the MFU of ``flops`` a step (by default 6·N·tokens), the
+    optimizer's seconds and share, the peak memory and the launches."""
+    tokens = run["batch_size"] * run["seq"]
+    flops = 6 * n_params * tokens if flops is None else flops
     steady = float(np.median(run["step_s"][1:]))
-    return {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+    return {"batch": run["batch_size"], "seq": run["seq"], "steps": TRAIN_STEPS,
             "loader_clock_h": run["loader_clock_h"], "plane_s": run["plane_s"],
             "init_s": run["init_s"], "losses": run["losses"], "first_step_s": run["step_s"][0],
             "step_s": steady, "step_s_all": run["step_s"], "train_tokens_per_s": tokens / steady,
-            "mfu": 6 * n_params * tokens / steady / BF16_OPS_PER_S,
+            "mfu": flops / steady / BF16_OPS_PER_S,
             "optimizer_s": opt_s, "optimizer_share": opt_s / steady,
             "peak_gb": run["peak_gb"], "card_gb": run["card_gb"], "launches": run["launches"]}
 
@@ -2587,13 +2741,14 @@ def twin_gradient_check(state: TrainState, cfg, batch: dict) -> dict:
             "control_mantissa_bits": SSM_CONTROL_BITS, "control": control}
 
 
-def flash_xla_gradient_check(state: TrainState, cfg, batch: dict) -> dict:
-    """zamba2's flash step against its xla step at the trained state's first
-    HYBRID_CHECK_LAYERS layers (their groups, the shared block, the
-    embedding, the final norm and the head) on one batch: the loss within
-    TRAIN_LOSS_RTOL and every gradient leaf within TRAIN_GRAD_REL_RMS
-    relative RMS, ``lm_train``'s bounds."""
-    cut = dataclasses.replace(cfg, num_layers=HYBRID_CHECK_LAYERS)
+def flash_xla_gradient_check(state: TrainState, cfg, batch: dict,
+                             layers: int = HYBRID_CHECK_LAYERS) -> dict:
+    """The flash step against the xla step at the trained state's first
+    ``layers`` layers (zamba2: their groups and the shared block; and the
+    embedding, the final norm, the head, pixtral's ``vision_proj``) on one
+    batch: the loss within TRAIN_LOSS_RTOL and every gradient leaf within
+    TRAIN_GRAD_REL_RMS relative RMS, ``lm_train``'s bounds."""
+    cut = dataclasses.replace(cfg, num_layers=layers)
     model = sub_model(state, cut)
     flash_m, flash_g = loss_and_grads(model, batch, cut)
     torch.cuda.empty_cache()
@@ -2609,7 +2764,7 @@ def flash_xla_gradient_check(state: TrainState, cfg, batch: dict) -> dict:
           f"flash loss within {TRAIN_LOSS_RTOL} of the xla loss")
     check(grads["max_rel_rms"] <= TRAIN_GRAD_REL_RMS,
           f"every flash gradient leaf within {TRAIN_GRAD_REL_RMS} relative RMS of xla's")
-    return {"layers": HYBRID_CHECK_LAYERS, "loss": lf, "xla_loss": lx, **grads}
+    return {"layers": layers, "loss": lf, "xla_loss": lx, **grads}
 
 
 def phase_lm_ssm_train(cfg, rng, device: str = "cuda", layers: int | None = None) -> dict:
@@ -2683,6 +2838,104 @@ def phase_lm_ssm_train(cfg, rng, device: str = "cuda", layers: int | None = None
     if hybrid:
         row.update(groups=plan["groups"], group_len=plan["group_len"], heads=cfg.num_heads,
                    head_dim=cfg.head_dim, d_ff=cfg.d_ff)
+    emit(row)
+    return {"row": row}
+
+
+def phase_lm_vlm_train(cfg, rng, device: str = "cuda") -> dict:
+    """pixtral's train path at its published width cut to VLM_TRAIN_LAYERS,
+    ``attn_impl="pallas_flash"``, 8 steps at TRAIN_BATCH x (``num_patches``
+    patches + TRAIN_SEQ tokens): each layer's flash forward twice a step
+    (the forward and the recompute of the checkpointed layer) and its
+    backward once, all on the tensor cores at S = T = 3,072; then the
+    flash/xla gradient check at VLM_CHECK_LAYERS layers and the flash
+    backward alone at this shape against autograd through the plain
+    forward.  The MFU counts 6·N per position through the backbone,
+    patches and tokens alike."""
+    t_phase = time.perf_counter()
+    published = cfg.num_layers
+    cfg = dataclasses.replace(cfg, num_layers=VLM_TRAIN_LAYERS, attn_impl="pallas_flash")
+    run = train_steps(cfg, device)
+    state, batch, launches = run.pop("state"), run.pop("batch"), run["launches"]
+    n_params = sum(p.numel() for p in state.params.parameters())
+    want = cfg.num_layers * TRAIN_STEPS
+    check(launches["flash_attn"] == launches["flash_attn_wgmma"] == 2 * want,
+          f"{2 * cfg.num_layers} flash launches a step (forward and recompute), all on the "
+          f"tensor cores ({TRAIN_STEPS} steps)")
+    check(launches["flash_attn_bwd"] == launches["flash_attn_bwd_wgmma"] == want,
+          f"{cfg.num_layers} flash backward launches a step, all on the tensor cores "
+          f"({TRAIN_STEPS} steps)")
+    check(sum(launches.values()) == 6 * want, "no other kernel of the port launched")
+    t0 = time.perf_counter()
+    grad_check = flash_xla_gradient_check(state, cfg, batch, VLM_CHECK_LAYERS)
+    grad_check["seconds"] = time.perf_counter() - t0
+    opt_s = optimizer_seconds(state, run["optimizer"], loss_and_grads(state.params, batch, cfg)[1])
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq = cfg.num_patches + TRAIN_SEQ
+    bwd = check_flash_backward(TRAIN_BATCH, seq, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                               rng, f"lm_vlm_train: B={TRAIN_BATCH} S=T={seq:,} "
+                               f"H={cfg.num_heads} KV={cfg.num_kv_heads} D={cfg.head_dim} bf16 "
+                               f"({cfg.name}, {cfg.num_patches:,} patches + {TRAIN_SEQ:,} "
+                               "tokens)", device=device)
+    positions = TRAIN_BATCH * seq
+    readings = train_readings(run, n_params, opt_s, 6 * n_params * positions)
+    full = get_config(cfg.name).param_counts()["total"]
+    row = {
+        "phase": "lm_vlm_train", "arch": cfg.name, "layers": cfg.num_layers,
+        "published_layers": published,
+        "depth_cut": f"{cfg.num_layers} of {published} layers: {int(full):,} parameters at "
+                     f"full depth need {12 * full / 1e9:.1f} GB at 12 B a parameter",
+        "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+        "head_dim": cfg.head_dim, "vocab": cfg.vocab_size, "patches": cfg.num_patches,
+        "vision_dim": cfg.vision_dim, "params": n_params, **readings,
+        "positions_per_s": positions / readings["step_s"],
+        "mfu_formula": "6 * params * (patches + tokens) / step_s / 989e12",
+        "free_gb": run["card_gb"] - run["peak_gb"], "flash_vs_xla": grad_check,
+        "flash_backward_ms": bwd["ms"], "flash_backward_plain_ms": bwd["plain_ms"],
+        "sdpa_bwd_ms": bwd["library_ms"], "seconds": time.perf_counter() - t_phase,
+    }
+    emit(row)
+    return {"row": row, "backward": bwd}
+
+
+def phase_lm_audio_train(cfg, device: str = "cuda") -> dict:
+    """whisper's train path at full width and depth, 8 steps at
+    AUDIO_TRAIN_BATCH x AUDIO_CONTEXT tokens over as many sequences of
+    ``cfg.encoder_seq`` frames: finite losses, no kernel launched; then the
+    driver's kill and resume on the reduced config.  The MFU counts 6·N per
+    position: the encoder's parameters over the frames, the rest (decoder
+    and tied embedding) over the tokens."""
+    t_phase = time.perf_counter()
+    run = train_steps(cfg, device, AUDIO_TRAIN_BATCH, AUDIO_CONTEXT)
+    state, batch, launches = run.pop("state"), run.pop("batch"), run["launches"]
+    check(not any(launches.values()), "the encoder/decoder train path launches none of the "
+          "kernels")
+    named = dict(state.params.named_parameters())
+    n_params = sum(p.numel() for p in named.values())
+    n_enc = sum(p.numel() for n, p in named.items() if n.startswith(("enc.", "enc_ln.")))
+    frames = AUDIO_TRAIN_BATCH * cfg.encoder_seq
+    tokens = AUDIO_TRAIN_BATCH * AUDIO_CONTEXT
+    flops = 6 * (n_enc * frames + (n_params - n_enc) * tokens)
+    opt_s = optimizer_seconds(state, run["optimizer"], loss_and_grads(state.params, batch, cfg)[1])
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    resume = kill_and_resume(ROOT / "build" / "lm_audio_train_ckpt", device, AUDIO_KILL_ARGS)
+    resume_s = time.perf_counter() - t0
+    row = {
+        "phase": "lm_audio_train", "arch": cfg.name, "encoder_layers": cfg.encoder_layers,
+        "layers": cfg.num_layers, "d_model": cfg.d_model, "heads": cfg.num_heads,
+        "head_dim": cfg.head_dim, "vocab": cfg.vocab_size, "frames": cfg.encoder_seq,
+        "params": n_params, "encoder_params": n_enc,
+        **train_readings(run, n_params, opt_s, flops),
+        "mfu_formula": "6 * (encoder params * frames + other params * tokens) / step_s / "
+                       "989e12 (leaves out the attention scores)",
+        "kill_resume": {**resume, "arch": cfg.name, "seconds": resume_s},
+        "seconds": time.perf_counter() - t_phase,
+    }
     emit(row)
     return {"row": row}
 
@@ -2865,7 +3118,8 @@ def phase_train_parity(device: str = "cuda", archs=PARITY_ARCHS,
     """``PARITY_STEPS`` train steps of each of ``archs``, reduced and in
     float32, on the card (TF32 off) and on the CPU from the same weights
     (the card's seeded draw carried over with ``lm_params_from_numpy``) and
-    the same seeded batches: for MoE configs every dispatch of every step
+    the same seeded batches (with frames or patch embeddings where the
+    family takes them): for MoE configs every dispatch of every step
     routed alike (``idx_k`` and ``keep``); every metric within TRAJ_TOL
     (relative), each parameter and moment leaf within PARAM_REL_RMS
     relative RMS."""
@@ -2876,21 +3130,29 @@ def phase_train_parity(device: str = "cuda", archs=PARITY_ARCHS,
                                   compute_dtype="float32")
         tree = lm_params_to_numpy(api.init_params(0, cfg, device=device))
         rng = np.random.default_rng(7)
-        batches = [rng.integers(0, cfg.vocab_size, (PARITY_BATCH, PARITY_SEQ), dtype=np.int32)
-                   for _ in range(PARITY_STEPS)]
+        batches = []
+        for _ in range(PARITY_STEPS):
+            b = {"tokens": rng.integers(0, cfg.vocab_size, (PARITY_BATCH, PARITY_SEQ),
+                                        dtype=np.int32)}
+            if cfg.encoder_decoder:
+                b["frames"] = rng.standard_normal(
+                    (PARITY_BATCH, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+            if cfg.vision_prefix:
+                b["patch_embeds"] = rng.standard_normal(
+                    (PARITY_BATCH, cfg.num_patches, cfg.vision_dim)).astype(np.float32)
+            batches.append(b)
         optimizer = lm_train.train_optimizer(TRAIN_LR, PARITY_STEPS)
         runs = []
         for dev in (device, "cpu"):
             state = TrainState.create(lm_params_from_numpy(cfg, tree, device=dev), optimizer)
             step, metrics, routes = make_train_step(cfg, optimizer), [], []
             for b in batches:
-                tokens = torch.from_numpy(b).to(dev)
+                tb = {k: torch.from_numpy(x).to(dev) for k, x in b.items()}
                 if cfg.moe:
-                    (state, m), seen = observe("_dispatch_indices",
-                                               lambda: step(state, {"tokens": tokens}))
+                    (state, m), seen = observe("_dispatch_indices", lambda: step(state, tb))
                     routes.append(routes_of(seen))
                 else:
-                    state, m = step(state, {"tokens": tokens})
+                    state, m = step(state, tb)
                 metrics.append({k: float(v) for k, v in m.items()})
             runs.append((metrics, routes, train_state_to_numpy(state)))
         (card_m, card_r, card_s), (cpu_m, cpu_r, cpu_s) = runs
@@ -2904,7 +3166,8 @@ def phase_train_parity(device: str = "cuda", archs=PARITY_ARCHS,
             check(not any(flipped) and not any(keep_diff), "routing identical at every step")
         loss_rel = max(abs(c[k] - h[k]) / abs(h[k]) for c, h in zip(card_m, cpu_m)
                        for k in h if k != "aux_loss")
-        aux_abs = max(abs(c["aux_loss"] - h["aux_loss"]) for c, h in zip(card_m, cpu_m))
+        aux_abs = max(abs(c.get("aux_loss", 0.0) - h.get("aux_loss", 0.0))
+                      for c, h in zip(card_m, cpu_m))
         check(loss_rel <= TRAJ_TOL, f"losses within {TRAJ_TOL} of the CPU's")
         rel = {}
         for part in ("params", "m", "v"):
@@ -3082,8 +3345,12 @@ def main() -> int:
                     "zamba2 prefill: B=4 S=T=2,048 H=KV=32 D=112 bf16 (shared block)", rng),
         check_flash(2, 1000, 32, 32, 112, torch.bfloat16, "wgmma",
                     "ragged bf16 B=2 S=T=1,000 H=KV=32 D=112", rng),
+        check_flash(PREFILL_BATCH, 1024 + PREFILL_SEQ, 32, 8, 128, torch.bfloat16, "wgmma",
+                    "pixtral prefill: B=4 S=T=3,072 (1,024 patches + 2,048 tokens) H=32 KV=8 "
+                    "D=128 bf16", rng),
     ]
     main_flash, flash_112 = checks["flash_attn"][0], checks["flash_attn"][4]
+    flash_vlm = checks["flash_attn"][6]
     checks["flash_attn_bwd"] = [
         check_flash_backward(PREFILL_BATCH, PREFILL_SEQ, 40, 10, 128, rng,
                              "B=4 S=T=2,048 H=40 KV=10 D=128 bf16 (phi3-medium-14b)"),
@@ -3122,6 +3389,30 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    # the last two families: whisper's encoder/decoder, pixtral's vision prefix
+    audio_cfg = get_config(AUDIO_ARCH)
+    audio_served = phase_lm_serve(audio_cfg, "cuda", phase="lm_audio_serve")
+    launches["online_lookup"] += audio_served["row"]["launches"]["online_lookup"]
+    audio_prefill = phase_lm_audio_prefill(audio_cfg, audio_served)["row"]
+    lm_row["audio"] = {k: audio_served["row"][k] for k in (
+        "weight_gb", "kv_gb", "encode_ms", "decode_ms_per_step", "decode_bound_ms")}
+    lm_row["audio"]["prefill_tokens_per_s"] = audio_prefill["prefill_tokens_per_s"]
+    del audio_served, audio_prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+    vlm_cfg = get_config(VLM_ARCH)
+    vlm_served = phase_lm_serve(vlm_cfg, "cuda", phase="lm_vlm_serve")
+    launches["online_lookup"] += vlm_served["row"]["launches"]["online_lookup"]
+    vlm_prefill = phase_lm_prefill(vlm_cfg, vlm_served, flash_vlm["ms"],
+                                   phase="lm_vlm_prefill")["row"]
+    launches["flash_attn"] += vlm_prefill["launches"]["flash_attn"]
+    lm_row["vlm"] = {k: vlm_served["row"][k] for k in (
+        "weight_gb", "decode_ms_per_step", "decode_bound_ms")}
+    lm_row["vlm"]["prefill_tokens_per_s"] = vlm_prefill["prefill_tokens_per_s"]
+    del vlm_served, vlm_prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+
     moe_cfg = get_config(MOE_ARCH)
     moe_row = phase_moe_dispatch(moe_cfg, "cuda")
     torch.cuda.empty_cache()
@@ -3155,11 +3446,22 @@ def main() -> int:
                                         layers=HYBRID_TRAIN_LAYERS)["row"]
     gc.collect()
     torch.cuda.empty_cache()
+    vlm_trained = phase_lm_vlm_train(vlm_cfg, rng)
+    checks["flash_attn_bwd"].append(vlm_trained["backward"])
+    vlm_trained = vlm_trained["row"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    audio_trained = phase_lm_audio_train(audio_cfg)["row"]
+    gc.collect()
+    torch.cuda.empty_cache()
     bwd_by_phase = {"lm_train (D=256)": launches["flash_attn_bwd"],
-                    "lm_hybrid_train (D=112)": hybrid_trained["launches"]["flash_attn_bwd"]}
-    launches["flash_attn"] += hybrid_trained["launches"]["flash_attn"]
-    launches["flash_attn_bwd"] += hybrid_trained["launches"]["flash_attn_bwd"]
-    for family, row in (("ssm", ssm_trained), ("hybrid", hybrid_trained)):
+                    "lm_hybrid_train (D=112)": hybrid_trained["launches"]["flash_attn_bwd"],
+                    "lm_vlm_train (D=128)": vlm_trained["launches"]["flash_attn_bwd"]}
+    for row in (hybrid_trained, vlm_trained):
+        launches["flash_attn"] += row["launches"]["flash_attn"]
+        launches["flash_attn_bwd"] += row["launches"]["flash_attn_bwd"]
+    for family, row in (("ssm", ssm_trained), ("hybrid", hybrid_trained),
+                        ("vlm", vlm_trained), ("audio", audio_trained)):
         lm_row[family].update({"train_" + k: row[k] for k in (
             "layers", "step_s", "train_tokens_per_s", "mfu", "peak_gb")})
 
@@ -3169,6 +3471,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_parity("cuda")
     phase_train_parity("cuda", SSM_PARITY_ARCHS, "ssm_train_parity")
+    phase_train_parity("cuda", LAST_PARITY_ARCHS, "encdec_vlm_train_parity")
     lm_row["moe"].update({"train_" + k: moe_trained[k] for k in (
         "layers", "step_s", "train_tokens_per_s", "mfu", "peak_gb")})
     lm_row["moe"]["backward_ms"] = moe_bwd["ms"]
@@ -3202,11 +3505,13 @@ def main() -> int:
         })
     kernels[-2]["head_dim_112"] = {k: flash_112[k] for k in (
         "shape", "route", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    kernels[-2]["pixtral_shape"] = {k: flash_vlm[k] for k in (
+        "shape", "route", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     kernels[-1]["launches_by_phase"] = bwd_by_phase
     kernels[-1]["library_fwd_bwd_ms"] = main_bwd["library_fwd_bwd_ms"]
     kernels[-1]["other_shapes"] = [{k: r[k] for k in (
         "shape", "route", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "library_fwd_bwd_ms")} for r in checks["flash_attn_bwd"][:-1]]
+        "library_fwd_bwd_ms")} for r in checks["flash_attn_bwd"] if r is not main_bwd]
     print(json.dumps({"kernels": kernels}), flush=True)
     emit({"card": card, "get_batch": GET_BATCH, "get_p50_ms": prof_row["get_p50_ms"],
           "get_p99_ms": prof_row["get_p99_ms"], "lm": lm_row, "geo_s": geo_s,

@@ -10,13 +10,16 @@ part of that state: ``keys_full`` carries the same keys as int64.
 (the record-schema columns an ``OfflineStore.read`` returns) into a port
 ``OfflineStore``; ``offline_history_to_numpy`` reads it back out.
 
-``lm_params_from_numpy`` builds a port ``LM`` from the JAX package's
-parameter tree (numpy leaves; the scanned ``tail`` holds layer-leading
-arrays and a hybrid config's ``groups`` group- then layer-leading (G, L,
-...) ones, unstacked here into one block per layer; ``shared_attn`` and
-``mtp`` are subtrees), and ``lm_params_to_numpy`` gives the tree back;
-``kv_cache_to_numpy`` gives a decode cache in the JAX package's layout.  bfloat16 leaves come back as
-float32 (exact), since numpy has no bfloat16 of its own.
+``lm_params_from_numpy`` builds a port model from the JAX package's
+parameter tree (numpy leaves): an ``LM`` (the scanned ``tail`` holds
+layer-leading arrays and a hybrid config's ``groups`` group- then
+layer-leading (G, L, ...) ones, unstacked here into one block per layer;
+``shared_attn``, ``mtp`` and ``vision_proj`` sit at the top), or for an
+encoder/decoder config an ``EncDec`` (``enc`` and ``dec`` layer-leading like
+``tail``; ``pos_dec``'s rows size it).  ``lm_params_to_numpy`` gives the
+tree back; ``kv_cache_to_numpy`` gives a decode cache in the JAX package's
+layout.  bfloat16 leaves come back as float32 (exact), since numpy has no
+bfloat16 of its own.
 
 ``train_state_from_numpy`` and ``train_state_to_numpy`` do the same for a
 whole ``TrainState``: the tree of the JAX package's ``TrainState``
@@ -47,7 +50,9 @@ from repro_torch.core.table import Table
 from repro_torch.device import resolve_device
 from repro_torch.kernels.online_lookup.ops import partition_of
 from repro_torch.launch.steps import TrainState
+from repro_torch.models.api import Model
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.lm import LM
 
 __all__ = [
@@ -201,11 +206,18 @@ def _stack_leaf(xs: list, stack):
     return stack(xs)
 
 
+# the layer lists held stacked layer-leading: the LM's ``tail``, an
+# encoder/decoder's ``enc`` and ``dec``
+_STACKED = ("tail", "enc", "dec")
+
+
 def _jax_tree(named, stack) -> dict:
     """The JAX package's tree of port-named leaves (``(name, leaf)`` pairs):
-    ``prefix`` a list of blocks, the per-layer leaves of ``tail`` stacked
-    layer-leading with ``stack``, those of ``groups`` stacked (G, L, ...)."""
-    top, prefix, groups, tail = {}, {}, {}, {}
+    ``prefix`` a list of blocks, the per-layer leaves of ``tail``, ``enc``
+    and ``dec`` stacked layer-leading with ``stack``, those of ``groups``
+    stacked (G, L, ...)."""
+    top, prefix, groups = {}, {}, {}
+    stacked: dict = {k: {} for k in _STACKED}
     for name, x in named:
         head, _, rest = name.partition(".")
         if head == "prefix":
@@ -214,9 +226,9 @@ def _jax_tree(named, stack) -> dict:
         elif head == "groups":
             g, i, path = rest.split(".", 2)
             groups.setdefault(path, {}).setdefault(int(g), {})[int(i)] = x
-        elif head == "tail":
+        elif head in stacked:
             j, _, path = rest.partition(".")
-            tail.setdefault(path, {})[int(j)] = x
+            stacked[head].setdefault(path, {})[int(j)] = x
         else:
             top[name] = x
     top = _nest(top)  # top-level subtrees (``mtp``, ``shared_attn``) nest like a block
@@ -227,9 +239,10 @@ def _jax_tree(named, stack) -> dict:
             k: _stack_leaf([_stack_leaf([v[g][i] for i in sorted(v[g])], stack)
                             for g in sorted(v)], stack)
             for k, v in groups.items()})
-    if tail:
-        top["tail"] = _nest({k: _stack_leaf([v[j] for j in sorted(v)], stack)
-                             for k, v in tail.items()})
+    for head, layers in stacked.items():
+        if layers:
+            top[head] = _nest({k: _stack_leaf([v[j] for j in sorted(v)], stack)
+                               for k, v in layers.items()})
     return top
 
 
@@ -241,30 +254,36 @@ def _unstack(v, index: tuple):
 
 def _port_named(tree: dict) -> dict:
     """The inverse of ``_jax_tree``: port parameter name -> leaf, the stacked
-    leaves of ``groups`` and ``tail`` split into one per layer."""
+    leaves of ``groups``, ``tail``, ``enc`` and ``dec`` split into one per
+    layer."""
     flat = dict(_leaves({k: v for k, v in tree.items()
-                         if k not in ("prefix", "groups", "tail")}))
+                         if k not in ("prefix", "groups", *_STACKED)}))
     for i, bp in enumerate(tree.get("prefix", [])):
         flat.update((f"prefix.{i}.{k}", v) for k, v in _leaves(bp))
     for k, v in _leaves(tree.get("groups", {})):
         n_g, n_l = np.shape(v["q"] if isinstance(v, dict) else v)[:2]
         flat.update((f"groups.{g}.{i}.{k}", _unstack(v, (g, i)))
                     for g in range(n_g) for i in range(n_l))
-    for k, v in _leaves(tree.get("tail", {})):
-        n_l = np.shape(v["q"] if isinstance(v, dict) else v)[0]
-        flat.update((f"tail.{j}.{k}", _unstack(v, (j,))) for j in range(n_l))
+    for head in _STACKED:
+        for k, v in _leaves(tree.get(head, {})):
+            n_l = np.shape(v["q"] if isinstance(v, dict) else v)[0]
+            flat.update((f"{head}.{j}.{k}", _unstack(v, (j,))) for j in range(n_l))
     return flat
 
 
 def lm_params_from_numpy(cfg: ModelConfig, tree: dict, *,
-                         device: str | torch.device = "cuda") -> LM:
-    """A port ``LM`` holding the JAX package's weights ``tree`` (the dict
-    ``lm.init_params`` returns, leaves as numpy arrays or tensors), each
-    cast to its parameter's dtype (``cfg.param_dtype``; an MoE router stays
-    float32) on ``device``.  Raises if the tree's names or shapes are not
-    the model's."""
+                         device: str | torch.device = "cuda") -> Model:
+    """A port model holding the JAX package's weights ``tree`` (the dict
+    ``api.init_params`` returns, leaves as numpy arrays or tensors): an
+    ``LM``, or an ``EncDec`` with as many decoder positions as the tree's
+    ``pos_dec`` for an encoder/decoder config; each leaf cast to its
+    parameter's dtype (``cfg.param_dtype``; an MoE router stays float32) on
+    ``device``.  Raises if the tree's names or shapes are not the model's."""
     dev = resolve_device(device)
-    model = LM(cfg, None, device=dev)
+    if cfg.encoder_decoder:
+        model = EncDec(cfg, None, max_pos=np.shape(tree["pos_dec"])[0], device=dev)
+    else:
+        model = LM(cfg, None, device=dev)
     flat = _port_named(tree)
     state = dict(model.named_parameters())
     if set(flat) != set(state):
@@ -279,15 +298,16 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict, *,
     return model
 
 
-def lm_params_to_numpy(model: LM) -> dict:
+def lm_params_to_numpy(model: Model) -> dict:
     """The JAX package's parameter tree of ``model``: per-layer blocks of
-    ``tail`` stacked into layer-leading arrays, ``prefix`` a list."""
+    ``tail``, ``enc`` and ``dec`` stacked into layer-leading arrays,
+    ``prefix`` a list."""
     return _jax_tree(((n, _numpy(p)) for n, p in model.named_parameters()), np.stack)
 
 
 def _state_tree(state: TrainState, leaf) -> dict:
     """``state`` in the JAX ``TrainState``'s tree, each tensor through ``leaf``
-    and the tail stacked with ``torch.stack``."""
+    and the stacked layers with ``torch.stack``."""
     def moments(tree: dict) -> dict:
         return _jax_tree(((n, _map(leaf, x)) for n, x in tree.items()), torch.stack)
 
@@ -350,8 +370,11 @@ def kv_cache_to_numpy(cache: dict) -> dict:
     """A decode cache in the JAX package's layout: ``t`` an int32 scalar,
     ``prefix`` and ``shared`` lists of layer caches, ``groups`` stacked
     (G, L, ...), ``tail`` stacked layer-leading (KV, MLA or Mamba caches
-    alike)."""
+    alike); an encoder/decoder's ``self_k``, ``self_v``, ``mem_k`` and
+    ``mem_v``, already stacked."""
     out = {"t": np.int32(cache["t"])}
+    if "self_k" in cache:
+        return {**out, **{k: _numpy(v) for k, v in cache.items() if k != "t"}}
     for part in ("prefix", "shared"):
         if part in cache:
             out[part] = [{k: _numpy(v) for k, v in lc.items()} for lc in cache[part]]

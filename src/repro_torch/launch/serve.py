@@ -14,9 +14,11 @@ equal the offline store's latest record for the session.
     python -m repro_torch.launch.serve --arch gemma3-1b   # reduced config, on the card
 
 ``main`` runs the reduced config of ``--arch`` on the card, as the JAX
-package's ``main`` does; ``serve`` takes any config the port runs (dense,
-MLA + MoE, SSM, hybrid; a full one, or a float32 one with converted weights)
-and a device.
+package's ``main`` does; ``serve`` takes any config (a full one, or a
+float32 one with converted weights) and a device.  An encoder/decoder
+(whisper) first encodes zero frames (B, encoder_seq, D), as the JAX driver
+does, and attaches the memory's cross K/V to the decode cache; a
+vision-prefix config (pixtral) serves text-only, as there.
 """
 
 from __future__ import annotations
@@ -82,6 +84,14 @@ def serve(cfg, *, requests: int = 8, new_tokens: int = 16, seed: int = 0,
     if params is None:
         params = api.init_params(seed, cfg, max_decode_len=max_len, device=dev)
     cache = api.init_cache(cfg, requests, max_len, device=dev)
+    encode_ms = None
+    if cfg.encoder_decoder:
+        t0 = time.perf_counter()
+        frames = torch.zeros((requests, cfg.encoder_seq, cfg.d_model), device=dev)
+        memory = api.encode_memory(params, frames, cfg)
+        cache = api.attach_memory(cache, memory, params, cfg)
+        _sync(dev)
+        encode_ms = (time.perf_counter() - t0) * 1e3
 
     # prefill by stepping the prompt (reference path), then decode new tokens
     toks = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
@@ -106,6 +116,7 @@ def serve(cfg, *, requests: int = 8, new_tokens: int = 16, seed: int = 0,
         "requests": requests,
         "context_hits": int(found.sum()),
         "online_lookup_ms": lookup_ms,
+        "encode_ms": encode_ms,  # the encoder and the cross K/V (enc-dec only)
         "prefill_ms": prefill_ms,
         "decode_ms_total": decode_ms,  # stepped prefill + decode, as in the JAX driver
         "tokens_generated": int(new_tokens * requests),

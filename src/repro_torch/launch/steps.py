@@ -13,8 +13,8 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.models import api
+from repro_torch.models.api import Model
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import LM, check_trainable
 from repro_torch.optim.adamw import Optimizer
 
 __all__ = ["TrainState", "loss_and_grads", "make_prefill_step", "make_serve_step",
@@ -23,10 +23,11 @@ __all__ = ["TrainState", "loss_and_grads", "make_prefill_step", "make_serve_step
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (its weights made trainable), the optimizer state over its
-    named parameters, and the step count (an int32 0-d tensor)."""
+    """The model (an ``LM`` or an ``EncDec``, its weights made trainable),
+    the optimizer state over its named parameters, and the step count (an
+    int32 0-d tensor)."""
 
-    params: LM
+    params: Model
     opt: Any
     step: torch.Tensor
 
@@ -34,12 +35,12 @@ class TrainState:
         self.params.requires_grad_(True)
 
     @staticmethod
-    def create(params: LM, optimizer: Optimizer) -> "TrainState":
+    def create(params: Model, optimizer: Optimizer) -> "TrainState":
         return TrainState(params, optimizer.init(dict(params.named_parameters())),
                           torch.zeros((), dtype=torch.int32, device=params.device))
 
 
-def loss_and_grads(params: LM, batch: dict, cfg: ModelConfig) -> tuple[dict, dict]:
+def loss_and_grads(params: Model, batch: dict, cfg: ModelConfig) -> tuple[dict, dict]:
     """(metrics, gradients by parameter name) of ``api.train_loss`` on one
     batch: fwd + bwd, no update."""
     named = dict(params.named_parameters())
@@ -54,16 +55,14 @@ def make_train_step(
     """fwd+bwd+update.  ``num_microbatches`` > 1 accumulates float32
     gradients over batch slices and takes their mean, as the JAX step's
     ``lax.scan`` does (activation memory 1/µ of the full batch, the same
-    math); the metrics are the last slice's.  The dense, MLA + MoE (with
-    MTP), SSM and hybrid configs train; it raises ``NotImplementedError``
-    for the encoder/decoder and vision-prefix configs, not ported yet.
+    math; a batch's ``frames`` or ``patch_embeds`` are sliced with its
+    tokens); the metrics are the last slice's.  Every config family trains.
 
     The step consumes its state, as the JAX driver's donated state is
     consumed: the optimizer writes the new weights into ``state.params`` and
     the new float32 moments into ``state.opt`` in place (one copy of each,
     not two), and the returned state holds the same model and optimizer
     state.  A caller that needs the state from before a step rebuilds it."""
-    check_trainable(cfg)
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         if num_microbatches == 1:
@@ -95,6 +94,8 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
 
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
+    """Full-sequence logits of ``batch``: its ``tokens``, and its ``frames``
+    (encoder/decoder) or ``patch_embeds`` (vision prefix) if given."""
     def prefill_step(params, batch):
         return api.forward_logits(params, batch, cfg)
 

@@ -11,12 +11,15 @@ checkpoint (train state + scheduler state + loader clock) and continues to
 the JAX package's, so a run started by either package resumes in the other.
 
 The port trains on one device (the card unless ``main`` is given
-``device="cpu"``): ``--mesh`` takes only ``1x1``.  It trains the dense,
-the MLA + MoE (``--arch deepseek-v2-lite-16b``, and ``deepseek-v3-671b``
-with its MTP loss), the SSM (``--arch mamba2-2.7b``) and the hybrid
-(``--arch zamba2-7b``) configs; the encoder/decoder and vision-prefix ones
-(not ported yet) raise.  An SSM config's ``--seq`` must be a multiple of its
-SSD chunk (8 in the reduced configs, 256 at full size).
+``device="cpu"``): ``--mesh`` takes only ``1x1``.  It trains every config:
+the dense, the MLA + MoE (``--arch deepseek-v2-lite-16b``, and
+``deepseek-v3-671b`` with its MTP loss), the SSM (``--arch mamba2-2.7b``),
+the hybrid (``--arch zamba2-7b``), the encoder/decoder (``--arch
+whisper-tiny``) and the vision-prefix (``--arch pixtral-12b``) ones.  The
+last two take each step's ``frames`` or ``patch_embeds`` from
+``api.make_dummy_batch(seed=step)``, as the JAX driver does.  An SSM
+config's ``--seq`` must be a multiple of its SSD chunk (8 in the reduced
+configs, 256 at full size).
 """
 
 from __future__ import annotations
@@ -115,6 +118,9 @@ def main(argv=None, *, device: str | torch.device = "cuda") -> dict:
             raise SystemExit(17)
         batch = loader.sample_batch(step)
         model_batch = {"tokens": torch.as_tensor(batch["tokens"], device=dev)}
+        if cfg.encoder_decoder or cfg.vision_prefix:
+            dummy = api.make_dummy_batch(cfg, args.batch, args.seq, seed=step, device=dev)
+            model_batch.update((k, dummy[k]) for k in ("frames", "patch_embeds") if k in dummy)
         state, metrics = train_step(state, model_batch)
         losses.append(float(metrics["lm_loss"]))
         if step % args.log_every == 0:

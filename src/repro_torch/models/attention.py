@@ -26,6 +26,7 @@ __all__ = [
     "attention",
     "attention_decode",
     "init_kv_cache",
+    "cross_attn_init",
     "cross_attention",
     "make_mask",
 ]
@@ -216,6 +217,19 @@ def attention_decode(
 
 
 # -- cross attention (whisper decoder) ------------------------------------------
+def cross_attn_init(gen, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
+                    device: Optional[torch.device] = None) -> dict:
+    """``wq``, ``wk``, ``wv`` (D, H·hd) and ``wo`` (H·hd, D): every head has
+    its own key and value, and there is no bias."""
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    return {
+        "wq": dense_init(gen, (d, h * hd), dtype=dtype, device=device),
+        "wk": dense_init(gen, (d, h * hd), dtype=dtype, device=device),
+        "wv": dense_init(gen, (d, h * hd), dtype=dtype, device=device),
+        "wo": dense_init(gen, (h * hd, d), fan_in=h * hd, dtype=dtype, device=device),
+    }
+
+
 def cross_attention(params, x: torch.Tensor, memory: torch.Tensor,
                     cfg: ModelConfig) -> torch.Tensor:
     """x (B,S,D) attends to encoder memory (B,T,D); no positions (whisper

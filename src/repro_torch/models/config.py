@@ -6,10 +6,9 @@ local:global sliding-window attention, plus the enc-dec (whisper) and
 vision-prefix (pixtral) assemblies.  Param-count helpers feed the roofline's
 MODEL_FLOPS = 6·N(active)·D term.
 
-Copied from the JAX package.  The port's models/lm.py runs the dense, the
-MLA + MoE (+MTP), the SSM and the hybrid decoder-only configs (the last two
-serve only); the enc-dec and vision-prefix families raise
-NotImplementedError there.
+Copied from the JAX package.  The port's models/lm.py runs every
+decoder-only config (the vision prefix included) and models/encdec.py the
+enc-dec one; models/api.py dispatches between them.
 """
 
 from __future__ import annotations

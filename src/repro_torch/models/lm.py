@@ -32,13 +32,18 @@ MoE no-drop (one group of the batch, capacity factor E/k), MLA absorbed
 against its compressed cache, and a Mamba block as one recurrent step on
 its conv ring and SSM state.  Serving ignores the ``mtp`` subtree, as the
 JAX package does; ``train_loss`` runs it (the MTP loss branch, one extra
-block predicting the token after next).  The dense, MLA + MoE, SSM and
-hybrid configs serve and train; the encoder/decoder and vision-prefix
-configs raise ``NotImplementedError`` in serving and training alike
-(ROADMAP queue 1, item 4).  A hybrid config's gradient flows through each
-group's checkpointed Mamba blocks and through the one shared block, whose
-weights collect a gradient from every group (autograd sums them in a fixed
-order).
+block predicting the token after next).  A hybrid config's gradient flows
+through each group's checkpointed Mamba blocks and through the one shared
+block, whose weights collect a gradient from every group (autograd sums
+them in a fixed order).
+
+A vision-prefix config (pixtral) holds ``vision_proj`` (vision_dim, D): a
+batch's ``patch_embeds`` (B, P, vision_dim), projected in the compute dtype,
+go before the token embeddings, positions run over the whole sequence (so
+flash runs causal over patches and tokens alike), and ``train_loss`` drops
+the prefix's logits.  Decoding is text-only, as in JAX.  The
+encoder/decoder (whisper) is ``models/encdec.py``; ``models/api.py``
+dispatches between the two.
 """
 
 from __future__ import annotations
@@ -62,8 +67,6 @@ __all__ = [
     "Block",
     "LM",
     "SharedAttnBlock",
-    "check_supported",
-    "check_trainable",
     "decode_step",
     "forward",
     "init_cache",
@@ -71,25 +74,6 @@ __all__ = [
     "prefill",
     "train_loss",
 ]
-
-_UNPORTED = ("encoder_decoder", "vision_prefix")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a config family the port does not run yet."""
-    on = [f for f in _UNPORTED if getattr(cfg, f)]
-    if on:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(on)} not ported yet (ROADMAP queue 1, item 4); "
-            "the port runs the dense, MLA + MoE, SSM and hybrid decoder-only configs"
-        )
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a config family the port does not train yet: the
-    unported ones, as ``check_supported``."""
-    check_supported(cfg)
-
 
 # =============================================================================
 # init
@@ -154,7 +138,6 @@ class LM(ParamModule):
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator] = None, *,
                  device: Optional[torch.device] = None) -> None:
-        check_supported(cfg)
         dtype = torch_dtype(cfg.param_dtype)
         dev = gen.device if gen is not None else device
         plan = _layer_plan(cfg)
@@ -179,6 +162,10 @@ class LM(ParamModule):
             self.shared_attn = SharedAttnBlock(gen, cfg, dtype=dtype, device=dev)
         self.tail = nn.ModuleList(
             Block(gen, cfg, dtype=dtype, device=dev) for _ in range(plan["tail"]))
+        if cfg.vision_prefix:
+            self.register_parameter("vision_proj", nn.Parameter(
+                dense_init(gen, (cfg.vision_dim, cfg.d_model), dtype=dtype, device=dev),
+                requires_grad=False))
         if cfg.mtp_depth:
             # MTP depth-1 (deepseek-v3): the training loss runs it, serving
             # does not
@@ -238,9 +225,12 @@ def _tokens(params: LM, tokens) -> torch.Tensor:
 
 
 def _embed_inputs(params: LM, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Token embedding.  Returns (x, positions)."""
+    """Token (+ optional vision-prefix) embedding.  Returns (x, positions)."""
     cdt = torch_dtype(cfg.compute_dtype)
     x = F.embedding(_tokens(params, batch["tokens"]), params["embed"]).to(cdt)
+    if cfg.vision_prefix and "patch_embeds" in batch:
+        patches = torch.as_tensor(batch["patch_embeds"], device=params.device).to(cdt)
+        x = torch.cat([(patches @ params["vision_proj"]).to(cdt), x], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     return x, positions
 
@@ -266,7 +256,6 @@ def forward(params: LM, batch: dict,
     logits, aux_loss summed over the stack).  While a gradient is recorded,
     each tail and group block is recomputed in the backward
     (``jax.checkpoint`` of the JAX scan bodies)."""
-    check_supported(cfg)
     x, positions = _embed_inputs(params, cfg, batch)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters())
@@ -310,14 +299,15 @@ def train_loss(params: LM, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor,
     """Next-token loss plus the MoE aux loss summed over the stack (zero for
     the dense configs) and, with MTP, 0.3 x the MTP loss plus its block's
     aux.  Returns (total, metrics): ``lm_loss``, ``aux_loss``, ``mtp_loss``
-    (MTP configs only) and ``total_loss``, as the JAX package's."""
-    check_trainable(cfg)
+    (MTP configs only) and ``total_loss``, as the JAX package's.  The
+    logits of a vision prefix are dropped: the loss is the tokens'."""
     pre_final, logits, aux = forward(params, batch, cfg)
     tokens = _tokens(params, batch["tokens"])
-    loss = next_token_loss(logits, tokens)
+    n_prefix = logits.shape[1] - tokens.shape[1]
+    loss = next_token_loss(logits[:, n_prefix:], tokens)
     metrics = {"lm_loss": loss, "aux_loss": aux}
     if cfg.mtp_depth:
-        mtp_loss, mtp_aux = _mtp_loss(params, pre_final, tokens, cfg)
+        mtp_loss, mtp_aux = _mtp_loss(params, pre_final[:, n_prefix:], tokens, cfg)
         metrics["mtp_loss"] = mtp_loss
         loss = loss + 0.3 * mtp_loss
         aux = aux + mtp_aux
@@ -349,7 +339,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     block (``shared``).  As in the JAX package, an attention tail keeps
     full-length caches when any of its layers is global, and ring buffers
     only when all are local."""
-    check_supported(cfg)
     dtype = torch_dtype(cfg.compute_dtype)
     plan = _layer_plan(cfg)
     cache: dict[str, Any] = {"t": 0}
@@ -418,7 +407,6 @@ def decode_step(params: LM, cache: dict, tokens_new,
                 cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """One decode step for the whole stack.  tokens_new (B, 1).  Updates
     ``cache`` in place and returns (logits (B, 1, V), cache)."""
-    check_supported(cfg)
     cdt = torch_dtype(cfg.compute_dtype)
     t = cache["t"]
     x = params["embed"][_tokens(params, tokens_new)].to(cdt)

@@ -5,8 +5,9 @@ driver wrote resumes in the port's driver, and the reverse; and a reduced
 deepseek-v3 train state (the nested ``mtp`` subtree, the float32 routers in
 a bfloat16 model, each leaf's m and v) and reduced mamba2 and zamba2 train
 states (the (L, ...) stacked tail, zamba2's (G, L, ...) stacked ``groups``
-and its ``shared_attn`` block, weights and float32 moments alike) crossing
-both ways bit for bit.
+and its ``shared_attn`` block, weights and float32 moments alike) and
+reduced whisper and pixtral train states (``enc``/``dec`` stacked like the
+tail, ``pos_dec``, ``vision_proj``) crossing both ways bit for bit.
 
 Tolerance of the cross-package runs: the reduced gemma-2b the drivers train
 is bfloat16, and the two frameworks round bfloat16 intermediates at
@@ -229,6 +230,75 @@ def test_port_ssm_state_restores_in_jax(tmp_path, arch):
             cfg.num_layers // cfg.hybrid_attn_period, cfg.hybrid_attn_period)
         assert float(np.abs(want["opt"]["m"]["shared_attn"]["attn"]["wq"]).max()) > 0
         assert float(np.abs(want["opt"]["v"]["groups"]["mixer"]["a_log"]).max()) > 0
+    _same(_as_numpy(jstate), want)
+
+
+LAST_FAMILIES = ["whisper-tiny", "pixtral-12b"]
+
+
+def _family_batch(cfg, rng) -> dict:
+    """Tokens, and the ``frames`` or ``patch_embeds`` the family takes."""
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32))}
+    if cfg.encoder_decoder:
+        batch["frames"] = torch.from_numpy(
+            rng.standard_normal((2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    if cfg.vision_prefix:
+        batch["patch_embeds"] = torch.from_numpy(
+            rng.standard_normal((2, cfg.num_patches, cfg.vision_dim)).astype(np.float32))
+    return batch
+
+
+@pytest.mark.parametrize("arch", LAST_FAMILIES)
+def test_jax_last_family_state_restores_in_the_port(tmp_path, arch):
+    """A JAX ``TrainState`` of reduced whisper (``enc`` and ``dec`` stacked
+    layer-leading, ``pos_dec``, the LayerNorms' ``g`` and ``b``) or pixtral
+    (``vision_proj``), its moments seeded nonzero, saved by the JAX manager:
+    the port restores every leaf bit for bit."""
+    import jax.numpy as jnp
+    from repro.launch.steps import TrainState
+
+    tmpl = _jax_template(False, arch, seed=6)
+    rng = np.random.default_rng(6)
+    draw = lambda a: jnp.asarray(rng.standard_normal(a.shape, np.float32) * 1e-3)  # noqa: E731
+    opt = dict(tmpl.opt, count=jnp.int32(2), m=jax.tree.map(draw, tmpl.opt["m"]),
+               v=jax.tree.map(lambda a: jnp.abs(draw(a)), tmpl.opt["v"]))
+    jstate = TrainState(tmpl.params, opt, jnp.int32(2))
+    jmanager.save_checkpoint(tmp_path, 2, jstate, extra={"loader": {"clock": 1}})
+    leaves = json.loads((tmp_path / "step_00000002" / "manifest.json").read_text())["leaves"]
+    cfg = get_config(arch, reduced=True)
+    if cfg.encoder_decoder:
+        assert leaves["params/dec/cross_attn/wk"]["shape"][0] == cfg.num_layers
+        assert leaves["opt/m/enc/ln1/g"]["shape"] == [cfg.encoder_layers, cfg.d_model]
+    else:
+        assert leaves["opt/v/vision_proj"]["shape"] == [cfg.vision_dim, cfg.d_model]
+    tmpl_port = steps.TrainState.create(api.init_params(1, cfg, device="cpu"),
+                                        adamw.adamw(1e-3))
+    got, extra = manager.restore_checkpoint(tmp_path, 2, tmpl_port)
+    assert extra == {"loader": {"clock": 1}} and int(got.step) == 2
+    _same(train_state_to_numpy(got), _as_numpy(jstate))
+
+
+@pytest.mark.parametrize("arch", LAST_FAMILIES)
+def test_port_last_family_state_restores_in_jax(tmp_path, arch):
+    """The reverse: a port state of reduced whisper or pixtral after two
+    train steps, saved by the port's manager, restores in the JAX manager
+    bit for bit."""
+    cfg = get_config(arch, reduced=True)
+    opt = adamw.adamw(1e-3)
+    state = steps.TrainState.create(api.init_params(3, cfg, device="cpu"), opt)
+    step = steps.make_train_step(cfg, opt)
+    rng = np.random.default_rng(3)
+    for _ in range(2):
+        state, _ = step(state, _family_batch(cfg, rng))
+    manager.save_checkpoint(tmp_path, 2, state)
+    jstate, _ = jmanager.restore_checkpoint(tmp_path, 2, _jax_template(False, arch))
+    want = train_state_to_numpy(state)
+    key = ("dec", "cross_attn", "wq") if cfg.encoder_decoder else ("vision_proj",)
+    m = want["opt"]["m"]
+    for k in key:
+        m = m[k]
+    assert float(np.abs(m).max()) > 0
     _same(_as_numpy(jstate), want)
 
 

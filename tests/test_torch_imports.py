@@ -59,6 +59,7 @@ def test_port_imports_without_jax_or_repro():
         "repro_torch.optim.schedules", "repro_torch.checkpoint.manager",
         "repro_torch.launch.steps", "repro_torch.launch.train",
         "repro_torch.models.mla", "repro_torch.models.moe", "repro_torch.models.ssm",
+        "repro_torch.models.encdec",
     }
     assert expected <= set(res["modules"])
 

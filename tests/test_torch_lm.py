@@ -38,16 +38,18 @@ from repro_torch.convert import (  # noqa: E402
 )
 from repro_torch.kernels.flash_attn import ops as flash_ops  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
-from repro_torch.models import api, attention, layers, lm  # noqa: E402
+from repro_torch.models import api, attention, encdec, layers, lm  # noqa: E402
 
 TOL = 1e-4
 # absolute, on logits up to ~4.5 (bfloat16 step 2**-5 there); the reduced phi3
 # forward measures 0.051 on the CPU
 BF16_TOL = 0.1
-ARCHS = ["phi3-medium-14b", "qwen1.5-4b", "gemma-2b", "gemma3-1b"]
+# pixtral-12b's backbone (mistral-nemo) on text alone; its vision prefix below
+ARCHS = ["phi3-medium-14b", "qwen1.5-4b", "gemma-2b", "gemma3-1b", "pixtral-12b"]
 MOE_ARCHS = ["deepseek-v2-lite-16b", "deepseek-v3-671b"]
 SSM_ARCHS = ["mamba2-2.7b", "zamba2-7b"]
-UNPORTED = ["pixtral-12b", "whisper-tiny"]
+# the last two families ported: the vision prefix and the encoder/decoder
+LAST_FAMILIES = ["pixtral-12b", "whisper-tiny"]
 # jitted: JAX's op-by-op dispatch compiles every op of the MoE/MLA stacks
 _jax_init = jax.jit(japi.init_params, static_argnames=("cfg",))
 
@@ -244,23 +246,46 @@ def test_steps_match_jax():
     np.testing.assert_array_equal(tnext.numpy(), np.asarray(jnext))
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
+@pytest.mark.parametrize("arch", LAST_FAMILIES)
 def test_unported_families_raise(arch):
+    """The two families that raised ``NotImplementedError`` until they were
+    ported now build through every entry point: the model (an ``EncDec``
+    for whisper, an ``LM`` with ``vision_proj`` for pixtral), the decode
+    cache, the dummy batch with its ``frames`` or ``patch_embeds``, and the
+    train step."""
     cfg = get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.LM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.make_dummy_batch(cfg, 1, 8, device="cpu")
+    model = api.init_params(0, cfg, max_decode_len=24, device="cpu")
+    batch = api.make_dummy_batch(cfg, 2, 8, seed=1, device="cpu")
+    cache = api.init_cache(cfg, 2, 24, device="cpu")
+    assert callable(steps.make_train_step(cfg, None))
+    if cfg.encoder_decoder:
+        assert isinstance(model, encdec.EncDec) and set(batch) == {"tokens", "frames"}
+        assert cache["self_k"].shape == (cfg.num_layers, 2, 24, cfg.num_heads, cfg.head_dim)
+        cache = api.attach_memory(cache, api.encode_memory(model, batch["frames"], cfg),
+                                  model, cfg)
+    else:
+        assert isinstance(model, lm.LM) and set(batch) == {"tokens", "patch_embeds"}
+        assert model.vision_proj.shape == (cfg.vision_dim, cfg.d_model)
+        assert batch["patch_embeds"].shape == (2, cfg.num_patches, cfg.vision_dim)
+    with torch.no_grad():
+        logits = api.forward_logits(model, batch, cfg)
+        step_logits, cache = api.decode_step(model, cache, batch["tokens"][:, :1], cfg)
+        loss, _ = api.train_loss(model, batch, cfg)
+    n_prefix = cfg.num_patches if cfg.vision_prefix else 0
+    assert logits.shape == (2, n_prefix + 8, cfg.vocab_size) and np.isfinite(float(loss))
+    assert step_logits.shape == (2, 1, cfg.vocab_size) and cache["t"] == 1
 
 
 def test_api_surface():
     assert list_archs() == sorted(list_archs()) and len(list_archs()) == 10
-    with pytest.raises(NotImplementedError):
-        api.encode_memory(None, None, get_config("whisper-tiny", reduced=True))
-    with pytest.raises(NotImplementedError):
-        api.attach_memory({}, None, None, get_config("whisper-tiny", reduced=True))
+    wcfg = get_config("whisper-tiny", reduced=True)
+    wmodel = api.init_params(0, wcfg, max_decode_len=8, device="cpu")
+    frames = api.make_dummy_batch(wcfg, 1, 4, device="cpu")["frames"]
+    memory = api.encode_memory(wmodel, frames, wcfg)
+    assert memory.shape == frames.shape and memory.dtype == torch.bfloat16
+    cache = api.attach_memory(api.init_cache(wcfg, 1, 8, device="cpu"), memory, wmodel, wcfg)
+    assert cache["mem_k"].shape == (wcfg.num_layers, 1, wcfg.encoder_seq, wcfg.num_heads,
+                                    wcfg.head_dim)
     cfg = get_config("phi3-medium-14b", reduced=True)
     batch = api.make_dummy_batch(cfg, 2, 5, seed=1, device="cpu")
     assert batch["tokens"].shape == (2, 5) and batch["tokens"].dtype == torch.int32
@@ -386,19 +411,20 @@ def test_moe_bf16_close_to_jax():
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_moe_training_raises(arch):
-    """The MoE/MTP family trains now (``tests/test_torch_train.py`` holds it to
-    JAX): its loss and train step run.  Only a family still unported raises,
-    naming the ROADMAP: here the same config with a vision prefix."""
+    """The MoE/MTP family trains (``tests/test_torch_train.py`` holds it to
+    JAX): its loss and train step run.  The same config flagged with a
+    vision prefix (which raised while that family was unported) trains on a
+    batch with no ``patch_embeds`` text-only, as JAX's does
+    (``repro/models/lm.py:208``): the same loss and metrics."""
     jc, tc, jp, model = _models(arch)
     batch = {"tokens": _tokens(tc, 1, 8)}
     total, metrics = api.train_loss(model, batch, tc)
     assert np.isfinite(float(total)) and ("mtp_loss" in metrics) == bool(tc.mtp_depth)
     steps.make_train_step(tc, None)
-    unported = dataclasses.replace(tc, vision_prefix=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.train_loss(model, batch, unported)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.make_train_step(unported, None)
+    flagged = dataclasses.replace(tc, vision_prefix=True)
+    total_v, metrics_v = api.train_loss(model, batch, flagged)
+    assert float(total_v) == float(total) and set(metrics_v) == set(metrics)
+    assert callable(steps.make_train_step(flagged, None))
 
 
 def test_full_deepseek_v2_lite_size():
@@ -600,9 +626,9 @@ def test_ssm_bf16_paths_part_as_jax_at_depth():
 def test_ssm_training_raises(arch):
     """Training no longer raises for the SSM and hybrid configs (it did
     while they only served): ``train_loss`` gives JAX's metrics and
-    ``make_train_step`` builds; the families still unported (the
-    encoder/decoder, the vision prefix) raise, naming the ROADMAP.  The
-    gradients are held against ``jax.grad`` in ``tests/test_torch_train.py``."""
+    ``make_train_step`` builds, as it does now for the encoder/decoder and
+    the vision prefix too.  The gradients are held against ``jax.grad`` in
+    ``tests/test_torch_train.py``."""
     jc, tc, jp, model = _models(arch)
     toks = _tokens(tc, 1, 8)
     with torch.no_grad():
@@ -612,9 +638,8 @@ def test_ssm_training_raises(arch):
     for k in metrics:
         np.testing.assert_allclose(float(metrics[k]), float(want[k]), rtol=TOL, atol=TOL)
     assert callable(steps.make_train_step(tc, None))
-    for other in ("whisper-tiny", "pixtral-12b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
-            steps.make_train_step(get_config(other, reduced=True), None)
+    for other in LAST_FAMILIES:
+        assert callable(steps.make_train_step(get_config(other, reduced=True), None))
 
 
 @pytest.mark.parametrize("arch,n_params", [("mamba2-2.7b", 2_831_296_000),
@@ -639,3 +664,43 @@ def test_full_ssm_sizes(arch, n_params):
     assert n == cfg.param_counts()["total"] + extra == n_params
     assert model.tail[0].mixer.w_in.shape == (
         cfg.d_model, 2 * cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state + cfg.ssm_heads)
+
+
+# -- the vision prefix (pixtral) ----------------------------------------------------
+def _patches(cfg, b, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((b, cfg.num_patches, cfg.vision_dim)).astype(np.float32)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas_flash"])
+def test_vision_prefix_forward_matches_jax(impl, monkeypatch):
+    """Reduced pixtral with ``patch_embeds``: the projected patches go before
+    the tokens and attention runs causal over both, on the einsum path and
+    on flash (JAX's in interpret mode; the port's plain version on the CPU),
+    one flash call a layer over all P + S positions."""
+    calls = []
+    real = flash_ops.flash_attention
+    monkeypatch.setattr(flash_ops, "flash_attention",
+                        lambda q, *a, **k: calls.append(q.shape[1]) or real(q, *a, **k))
+    jc, tc, jp, model = _models("pixtral-12b", impl=impl)
+    toks, patches = _tokens(jc, 2, 24, seed=8), _patches(jc, 2, seed=8)
+    want = np.asarray(japi.forward_logits(
+        jp, {"tokens": jnp.asarray(toks), "patch_embeds": jnp.asarray(patches)}, jc))
+    got = api.forward_logits(model, {"tokens": toks, "patch_embeds": patches}, tc)
+    assert got.shape == (2, tc.num_patches + 24, tc.vocab_size)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    assert calls == ([tc.num_patches + 24] * tc.num_layers if impl == "pallas_flash" else [])
+    # the prefix changes the tokens' logits: the patches are attended to
+    text = api.forward_logits(model, {"tokens": toks}, tc)
+    assert float((text - got[:, tc.num_patches:]).abs().max()) > 1e-2
+
+
+def test_full_pixtral_size():
+    """pixtral-12b at full width on the meta device: the config's count
+    (``vision_proj`` included) plus the final norm."""
+    cfg = get_config("pixtral-12b")
+    model = lm.LM(cfg, device="meta")
+    n = sum(p.numel() for p in model.parameters())
+    assert n == cfg.param_counts()["total"] + cfg.d_model and 12.2e9 < n < 12.3e9
+    assert model.vision_proj.shape == (1024, 5120) and len(model.tail) == 40
+    assert model.tail[0].mixer.wk.shape == (5120, 8 * 128)

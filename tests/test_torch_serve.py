@@ -98,20 +98,24 @@ def test_serving_plane_serves_jax_contexts():
 
 
 @pytest.mark.parametrize("arch", ["phi3-medium-14b", "gemma3-1b", "deepseek-v2-lite-16b",
-                                  "mamba2-2.7b", "zamba2-7b"])
+                                  "mamba2-2.7b", "zamba2-7b", "whisper-tiny", "pixtral-12b"])
 def test_serve_generates_jax_tokens(arch, monkeypatch):
     """JAX's own ``main`` (float32 config) and the port's ``serve`` on the
     same weights, carried over as numpy, generate the same tokens (for
     deepseek-v2-lite through absorbed-MLA decode and no-drop MoE, for
     mamba2 and zamba2 through recurrent Mamba steps and the shared block's
-    KV cache)."""
+    KV cache, for whisper through the encoder over zero frames and the
+    cross K/V attached to the cache, pixtral text-only).  JAX's ``main``
+    sizes whisper's ``pos_dec`` by the 32-token prompt plus the new tokens,
+    and so do the weights drawn here."""
     f32 = dict(param_dtype="float32", compute_dtype="float32")
     cfg_j = dataclasses.replace(jax_config(arch, reduced=True), **f32)
     cfg_t = dataclasses.replace(get_config(arch, reduced=True), **f32)
     monkeypatch.setattr(jserve, "get_config", lambda a, reduced: cfg_j)
     argv = ["--arch", arch, "--requests", "4", "--new-tokens", "6", "--seed", "1"]
     want = jserve.main(argv)
-    tree = jax.tree.map(np.asarray, japi.init_params(jax.random.PRNGKey(1), cfg_j))
+    tree = jax.tree.map(np.asarray, japi.init_params(jax.random.PRNGKey(1), cfg_j,
+                                                     max_decode_len=32 + 6))
     model = lm_params_from_numpy(cfg_t, tree, device="cpu")
     got = serve.serve(cfg_t, requests=4, new_tokens=6, seed=1, device="cpu", params=model,
                       keep_logits=True)
@@ -120,6 +124,7 @@ def test_serve_generates_jax_tokens(arch, monkeypatch):
     assert got["generated"].shape == (4, 6)
     np.testing.assert_array_equal(got["generated"], want["generated"])
     assert got["prompt_logits"].shape == (4, got["prompts"].shape[1], cfg_t.vocab_size)
+    assert (got["encode_ms"] is not None) == cfg_t.encoder_decoder
 
 
 def test_main_runs_phi3_on_cpu():
@@ -133,6 +138,19 @@ def test_main_runs_phi3_on_cpu():
     assert out["prompts"].shape == (8, 32) and (out["prompts"] < cfg.vocab_size).all()
     np.testing.assert_array_equal(out["prompts"][~out["found"]], 1)
     again = serve.main(["--arch", "phi3-medium-14b"], device="cpu")
+    np.testing.assert_array_equal(out["generated"], again["generated"])
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "pixtral-12b"])
+def test_main_runs_the_last_families_on_cpu(arch):
+    """``python -m repro_torch.launch.serve --arch whisper-tiny`` (or
+    ``pixtral-12b``) on the CPU: the reduced config, weights drawn from the
+    seed, the same tokens twice."""
+    out = serve.main(["--arch", arch, "--requests", "4", "--new-tokens", "4"], device="cpu")
+    cfg = get_config(arch, reduced=True)
+    assert out["generated"].shape == (4, 4) and (out["generated"] < cfg.vocab_size).all()
+    assert out["context_hits"] > 0 and (out["encode_ms"] is not None) == cfg.encoder_decoder
+    again = serve.main(["--arch", arch, "--requests", "4", "--new-tokens", "4"], device="cpu")
     np.testing.assert_array_equal(out["generated"], again["generated"])
 
 

@@ -54,6 +54,7 @@ PARAM_REL_RMS = 1e-3
 ARCHS = ["phi3-medium-14b", "qwen1.5-4b", "gemma-2b", "gemma3-1b"]
 MOE_ARCHS = ["deepseek-v2-lite-16b", "deepseek-v3-671b"]
 SSM_ARCHS = ["mamba2-2.7b", "zamba2-7b"]
+LAST_FAMILIES = ["whisper-tiny", "pixtral-12b"]
 # (arch, the port's attn_impl) of the gradient test: mamba2 has no attention
 GRAD_CASES = ([(a, impl) for a in ARCHS for impl in ("xla", "pallas_flash")]
               + [("mamba2-2.7b", "xla"), ("zamba2-7b", "xla"), ("zamba2-7b", "pallas_flash")])
@@ -156,6 +157,32 @@ def test_train_loss_and_grads_match_jax(arch, impl, monkeypatch):
     assert len(calls) == flash_calls
     assert (flash_calls > 0) == (arch != "mamba2-2.7b" and impl == "pallas_flash"
                                  and not tc.sliding_window)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas_flash"])
+def test_vision_prefix_loss_and_grads_match_jax(impl):
+    """Reduced pixtral with ``patch_embeds``: the loss over the tokens alone
+    (the prefix's logits dropped, n_prefix > 0) and every gradient leaf,
+    ``vision_proj``'s included, against ``jax.grad`` on JAX's ``xla`` path."""
+    jc, tc = _configs("pixtral-12b", impl)
+    jp = japi.init_params(jax.random.PRNGKey(12), jc)
+    rng = np.random.default_rng(12)
+    toks = _tokens(jc, 2, 24, seed=12)
+    patches = rng.standard_normal((2, jc.num_patches, jc.vision_dim)).astype(np.float32)
+    jbatch = {"tokens": jnp.asarray(toks), "patch_embeds": jnp.asarray(patches)}
+    (loss, _), g = jax.jit(jax.value_and_grad(
+        lambda p: japi.train_loss(p, jbatch, jc), has_aux=True))(jp)
+    model = lm_params_from_numpy(tc, jax.tree.map(np.asarray, jp), device="cpu")
+    metrics, grads = steps.loss_and_grads(
+        model.requires_grad_(True), {"tokens": toks, "patch_embeds": patches}, tc)
+    assert abs(float(metrics["total_loss"]) - float(loss)) <= 1e-5 * abs(float(loss))
+    with torch.no_grad():
+        text_only, _ = api.train_loss(model, {"tokens": toks}, tc)
+    assert abs(float(text_only) - float(loss)) > 1e-3  # the prefix is in the loss
+    want = _port_named(jax.tree.map(np.asarray, g))
+    assert set(want) == set(grads) and "vision_proj" in grads
+    for name, gt in grads.items():
+        _leaf_close(gt.numpy(), want[name], GRAD_TOL, f"pixtral {impl} grad {name}")
 
 
 def test_tail_blocks_are_recomputed_in_the_backward(monkeypatch):
@@ -472,13 +499,33 @@ def test_driver_loss_decreases_over_training():
 
 
 def test_driver_refuses_a_mesh_and_unported_families():
+    """The driver refuses a mesh; the two families it refused while they
+    were unported (whisper, pixtral) take a step, with ``--mesh 1x1``."""
     for mesh in ("2x1", "1x2", "4x2"):
         with pytest.raises(ValueError, match="one device"):
             train.main(ARGS + ["--mesh", mesh], device="cpu")
-    for arch in ("whisper-tiny", "pixtral-12b"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            train.main(["--arch", arch, "--steps", "1", "--batch", "2", "--seq", "16"],
-                       device="cpu")
+    for arch in LAST_FAMILIES:
+        res = train.main(["--arch", arch, "--steps", "1", "--batch", "2", "--seq", "16",
+                          "--mesh", "1x1"], device="cpu")
+        assert res["steps_run"] == 1 and np.isfinite(res["first_loss"])
+
+
+@pytest.mark.parametrize("arch", LAST_FAMILIES)
+def test_last_families_driver_kill_and_resume_bit_identical(arch, tmp_path):
+    """The driver on reduced whisper and pixtral (the JAX driver test's
+    arguments), each step's ``frames`` or ``patch_embeds`` drawn by
+    ``make_dummy_batch(seed=step)``: a loss that falls, and the kill at
+    step 9 and resume bit-identical."""
+    args = ["--arch", arch, *ARGS[2:]]
+    ref = train.main(args + ["--ckpt-dir", str(tmp_path / "uninterrupted")], device="cpu")
+    assert ref["steps_run"] == 12 and ref["last_loss"] < ref["first_loss"]
+    killed = str(tmp_path / "killed")
+    with pytest.raises(SystemExit) as e:
+        train.main(args + ["--ckpt-dir", killed, "--kill-at", "9"], device="cpu")
+    assert e.value.code == 17
+    resumed = train.main(args + ["--ckpt-dir", killed], device="cpu")
+    assert resumed["start_step"] == 9
+    np.testing.assert_allclose(resumed["losses"], ref["losses"][9:], rtol=0, atol=0)
 
 
 def test_train_entry_points_default_to_cuda(monkeypatch):
