@@ -187,14 +187,36 @@ port's paths on the card through the entry points a user calls:
      bounds; ``ssm_train_parity``: the same for reduced mamba2 and zamba2,
      ``encdec_vlm_train_parity`` for reduced whisper and pixtral (with
      seeded frames or patch embeddings);
-  24. the ``kernels`` line: launches, errors, times and bounds per kernel.
+  24. ``dryrun``: ``launch/dryrun.py``'s cells of ``lm_moe_train``
+     (deepseek-v2-lite at 6 layers) and ``lm_ssm_train`` (mamba2-2.7b at
+     64 layers), 4 x 2,048, the driver's float32 moments, one microbatch,
+     on a 1x1 mesh of the ``fake`` backend (the mesh path on one card),
+     over meta tensors, both at once, each in a child process on the host
+     after the timed phases: the dry-run's FLOPs equal the
+     ``FlopCounterMode`` count of a step of the row's state (one forward
+     and backward after its measured steps) exactly, its
+     predicted peak is within 25% of the row's measured ``peak_gb``, and
+     its roofline seconds print beside the row's ``step_s``;
+  25. ``mesh``: the mesh path on the card (``launch/mesh.py``,
+     ``models/sharding.py``, ``models/pspec.py``): NCCL at world size 1, a
+     1x1 (data, model) mesh.  gemma-2b at full width, ``pallas_flash``,
+     3 steps at 4 x 2,048 with the weights placed as DTensors, the batch
+     ``Shard(0)`` and the step under ``activation_mesh``, against the same
+     3 steps unsharded from the same weights and seeded batches: losses
+     within 1e-6 (bit-equality of the losses and every weight recorded),
+     36 flash forward and 18 backward launches a step through
+     ``pspec.local_call``, all on the tensor cores; then ``_moe_ep`` at
+     ``moe_dispatch``'s layer and tokens against ``moe_apply`` on the
+     routed experts: routing identical, output, aux and gradients bit-equal,
+     both times;
+  26. the ``kernels`` line: launches, errors, times and bounds per kernel.
 
 Each path (``scan_merge``, the main path, ``offline_retrieval``, ``geo``,
 ``lm_serve``, ``lm_prefill``, ``lm_ssm_serve``, ``lm_ssm_prefill``,
 ``lm_hybrid_serve``, ``lm_hybrid_prefill``, ``lm_audio_serve``,
 ``lm_audio_prefill``, ``lm_vlm_serve``, ``lm_vlm_prefill``, ``lm_moe_serve``,
 ``lm_moe_prefill``, ``lm_train``, ``lm_ssm_train``, ``lm_hybrid_train``,
-``lm_vlm_train``, ``lm_audio_train``, ``lm_moe_train``) runs
+``lm_vlm_train``, ``lm_audio_train``, ``lm_moe_train``, ``mesh``) runs
 with the launch counts zeroed just before it and read just after, and must
 have launched each kernel of its own path (``lm_moe_train``'s,
 ``lm_ssm_train``'s and ``lm_audio_train``'s paths launch none of them:
@@ -217,11 +239,13 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -273,6 +297,7 @@ from repro_torch.data.loader import FeatureStoreLoader  # noqa: E402
 from repro_torch.launch.serve import build_serving_plane, serve  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import attention_bwd_ref  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
+from repro_torch.launch.mesh import make_mesh, process_group  # noqa: E402
 from repro_torch.launch.steps import (  # noqa: E402
     TrainState,
     loss_and_grads,
@@ -283,8 +308,10 @@ from repro_torch.models import api  # noqa: E402
 from repro_torch.models import encdec as encdec_mod  # noqa: E402
 from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import sharding  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.layers import torch_dtype  # noqa: E402
+from repro_torch.models.pspec import activation_mesh  # noqa: E402
 
 HOUR = 3_600_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -423,6 +450,21 @@ VLM_TRAIN_LAYERS = 10
 VLM_CHECK_LAYERS = 2
 LAST_PARITY_ARCHS = (AUDIO_ARCH, VLM_ARCH)
 L2_FLUSH_BYTES = 128 << 20  # written before a launch to empty the 50 MB L2
+# mesh: gemma-2b's train steps through the mesh path on a 1x1 mesh (NCCL at
+# world size 1) against the same steps unsharded, from the same weights and
+# batches.  The losses must agree within MESH_LOSS_RTOL (bit-equality, and
+# that of every weight, is recorded: it is what the port expects)
+MESH_STEPS = 3
+MESH_LOSS_RTOL = 1e-6
+# dryrun: the dry-run of two train rows (their arch, depth, 4 x 2,048, the
+# driver's float32 moments, one microbatch) on a 1x1 mesh of the fake backend
+# (DRYRUN_MESH: the step as the mesh path runs it on one card), over meta
+# tensors, in child processes on the host after the timed phases; its peak
+# within DRYRUN_PEAK_TOL of the row's measured one, its FLOPs the row's
+# step's, exactly
+DRYRUN_CELLS = {"lm_moe_train": (MOE_ARCH, MOE_TRAIN_LAYERS), "lm_ssm_train": (SSM_ARCH, None)}
+DRYRUN_MESH = "1x1"
+DRYRUN_PEAK_TOL = 0.25
 SLEEP_CYCLES = 50_000_000  # a sleep kernel of about 25 ms on an H100
 COUNTERS = (lookup_ops.counter, rolling_ops.counter, pit_ops.counter, merge_ops.counter,
             flash_ops.counter, flash_ops.tc_counter, flash_ops.bwd_counter,
@@ -2683,6 +2725,18 @@ def train_steps(cfg, device: str, batch_size: int | None = None, seq: int | None
             "batch_size": batch_size, "seq": seq}
 
 
+def step_flops(state: TrainState, batch: dict, cfg) -> int:
+    """``FlopCounterMode``'s count of a train step, for the rows the dry-run
+    is held to (``DRYRUN_CELLS``): one forward and backward of ``batch``
+    (AdamW's update has no op the counter counts), outside the measured
+    steps: under the counter's dispatch mode the backward's bits differ (a
+    CUDA run's trajectory moved with the counter on its first step), so it
+    never wraps a step whose state goes on."""
+    with FlopCounterMode(display=False) as counter:
+        loss_and_grads(state.params, batch, cfg)
+    return counter.get_total_flops()
+
+
 def train_readings(run: dict, n_params: int, opt_s: float, flops: float | None = None) -> dict:
     """A train row's readings from ``train_steps``' ``run``: the step's
     median over steps 1-7 (the first compiles and warms the allocator),
@@ -2806,6 +2860,7 @@ def phase_lm_ssm_train(cfg, rng, device: str = "cuda", layers: int | None = None
         grad_check = {"bf16_vs_float32_twin": twin_gradient_check(state, cfg, batch)}
     grad_check["seconds"] = time.perf_counter() - t0
     opt_s = optimizer_seconds(state, run["optimizer"], loss_and_grads(state.params, batch, cfg)[1])
+    flops = {"step_flops": step_flops(state, batch, cfg)} if family in DRYRUN_CELLS else {}
     del state, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -2832,7 +2887,7 @@ def phase_lm_ssm_train(cfg, rng, device: str = "cuda", layers: int | None = None
                        "chunk-quadratic work" + ("; counts the shared block's weights once, "
                                                  "though each group applies them, and leaves "
                                                  "out its attention scores)" if hybrid else ")"),
-        **grad_check, "kill_resume": {**resume, "arch": cfg.name, "seconds": resume_s},
+        **flops, **grad_check, "kill_resume": {**resume, "arch": cfg.name, "seconds": resume_s},
         "seconds": time.perf_counter() - t_phase,
     }
     if hybrid:
@@ -3077,7 +3132,10 @@ def phase_lm_moe_train(cfg, layers: int, device: str = "cuda") -> dict:
     opt_s = time.perf_counter() - t0
     check(update[0]["tail.0.ffn.router"].dtype == update[1]["m"]["tail.0.ffn.router"].dtype
           == torch.float32, "the router stays float32 through AdamW")
-    del update, grads, named, state, params
+    del update, grads, named
+    torch.cuda.empty_cache()
+    flops = step_flops(state, {"tokens": tokens}, cfg)
+    del state, params
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -3106,6 +3164,7 @@ def phase_lm_moe_train(cfg, layers: int, device: str = "cuda") -> dict:
         "mfu_total_params": 6 * n_params * tokens_n / steady / BF16_OPS_PER_S,
         "optimizer_s": opt_s, "optimizer_share": opt_s / steady,
         "peak_gb": peak_gb, "card_gb": card_gb, "launches": launches,
+        "step_flops": flops,
         "dropped_share_per_moe_layer": drops, "recompute_routes_as_forward": True,
         "kill_resume": {**resume, "arch": MOE_KILL_ARGS[1], "seconds": resume_s},
     }
@@ -3190,6 +3249,213 @@ def phase_train_parity(device: str = "cuda", archs=PARITY_ARCHS,
            "param_rel_rms_tol": PARAM_REL_RMS, "archs": rows}
     emit(row)
     return row
+
+
+# -- training on a mesh ------------------------------------------------------------
+def mesh_steps(cfg, batches: list, device: str, mesh=None) -> dict:
+    """``MESH_STEPS`` steps of the driver's optimizer from ``init_params(0)``:
+    plain tensors, or on ``mesh`` as ``launch/train.py --mesh`` runs them
+    (weights placed by ``sharding.param_specs`` before the moments exist,
+    each batch ``Shard(0)`` over the batch axes, the step under
+    ``activation_mesh``).  The state, the losses and each step's seconds."""
+    params = api.init_params(0, cfg, device=device)
+    if mesh is not None:
+        sharding.distribute_model(params, cfg, mesh)
+    optimizer = lm_train.train_optimizer(TRAIN_LR, MESH_STEPS)
+    state = TrainState.create(params, optimizer)
+    step = make_train_step(cfg, optimizer)
+    losses, step_s = [], []
+    with activation_mesh(mesh):
+        for b in batches:
+            if mesh is not None:
+                specs = sharding.batch_specs(b, mesh)
+                b = {k: sharding.distribute_tensor(x, specs[k], mesh) for k, x in b.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, b)
+            loss = metrics["lm_loss"]
+            losses.append(float(loss.full_tensor() if mesh is not None else loss))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+    return {"state": state, "losses": losses, "step_s": step_s}
+
+
+def weight_checksum(named: dict) -> float:
+    """The float64 sum of every weight: equal for two bit-equal models."""
+    return float(sum(float(p.double().sum()) for p in named.values()))
+
+
+def mesh_moe_ep(cfg, mesh, device: str) -> dict:
+    """``_moe_ep`` at one deepseek-v2-lite layer's shape (``moe_dispatch``'s
+    layer and tokens: 64 routed experts, top-6, D 2,048, 4 x 2,048 tokens,
+    bf16, groups of 2,048, ``MOE_CF``) on the 1x1 mesh against ``moe_apply``
+    on the routed experts: routing identical (each ``_dispatch_indices``
+    call's ``idx_k`` and its result), output, aux and the gradient of
+    sum(y · ct) + aux in x and every weight bit-equal; both times."""
+    layer, x = moe_layer_and_tokens(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    ct = torch.randn(x.shape, generator=gen, device=device).bfloat16()
+    routed = {k: getattr(layer, k).detach() for k in ("router", "w_gate", "w_up", "w_down")}
+    plain = {k: v.clone().requires_grad_(True) for k, v in routed.items()}
+    xl = x.clone().requires_grad_(True)
+    specs = sharding.param_specs({f"ffn.{k}": v for k, v in routed.items()}, cfg, mesh)
+    dp = {k: sharding.distribute_tensor(v, specs[f"ffn.{k}"], mesh).requires_grad_(True)
+          for k, v in routed.items()}
+    row_spec = ("data", None, None)
+    xd = sharding.distribute_tensor(x, row_spec, mesh).requires_grad_(True)
+    ctd = sharding.distribute_tensor(ct, row_spec, mesh)
+
+    def plain_fwd():
+        return moe_mod.moe_apply(plain, xl, cfg, group_size=2048, capacity_factor=MOE_CF)
+
+    def ep_fwd():
+        with activation_mesh(mesh):
+            return moe_mod._moe_ep(dp, xd, cfg, mesh, 2048, MOE_CF)
+
+    def plain_grads():
+        y, aux = plain_fwd()
+        return y, aux, torch.autograd.grad((y.float() * ct.float()).sum() + aux,
+                                           [xl, *plain.values()])
+
+    def ep_grads():
+        with activation_mesh(mesh):
+            y, aux = ep_fwd()
+            return y, aux, torch.autograd.grad((y.float() * ctd.float()).sum() + aux,
+                                               [xd, *dp.values()])
+
+    (y0, a0, g0), routes0 = observe("_dispatch_indices", plain_grads)
+    (y1, a1, g1), routes1 = observe("_dispatch_indices", ep_grads)
+    check(len(routes0) == len(routes1) == 1, "one dispatch a call")
+    (args0, out0), (args1, out1) = routes0[0], routes1[0]
+    same_routes = (torch.equal(args0[0], args1[0])
+                   and all(torch.equal(a, b) for a, b in zip(out0, out1)))
+    check(same_routes, "_moe_ep routes and dispatches as moe_apply")
+    y1, a1 = y1.full_tensor(), a1.full_tensor()
+    g1 = [g.full_tensor() for g in g1]
+    names = ["x", *routed]
+    unequal = [n for n, a, b in zip(names, g0, g1) if not torch.equal(a, b)]
+    check(torch.equal(y0, y1) and torch.equal(a0, a1), "_moe_ep's output and aux are "
+          "moe_apply's, bit for bit")
+    check(not unequal, f"_moe_ep's gradients are moe_apply's, bit for bit (unequal: {unequal})")
+    check(bool(torch.isfinite(y1).all()), "the EP output is finite")
+    b, s, d = x.shape
+    return {"shape": f"{b} x {s} tokens, D {d}, {cfg.num_experts} experts top-{cfg.top_k}, "
+                     f"groups of 2,048, cf {MOE_CF}, bf16",
+            "routing_identical": same_routes, "output_bit_equal": True,
+            "grads_bit_equal": names, "ep_ms": cuda_ms(ep_fwd, 5),
+            "moe_apply_ms": cuda_ms(plain_fwd, 5), "ep_fwd_bwd_ms": cuda_ms(ep_grads, 3),
+            "moe_apply_fwd_bwd_ms": cuda_ms(plain_grads, 3)}
+
+
+def phase_mesh(cfg, moe_cfg, device: str = "cuda") -> dict:
+    """The mesh path on one card: NCCL at world size 1, a 1x1 (data, model)
+    mesh.  ``cfg`` (gemma-2b at full width, ``pallas_flash``) takes
+    ``MESH_STEPS`` steps at TRAIN_BATCH x TRAIN_SEQ unsharded and then on
+    the mesh from the same weights and seeded batches (``mesh_steps``): the
+    losses within ``MESH_LOSS_RTOL`` and, recorded, bit-equal, with every
+    weight after the last step; the flash launches of the mesh run, on its
+    local shards through ``pspec.local_call``, counted from zero.  Then
+    ``mesh_moe_ep`` on ``moe_cfg``'s layer."""
+    cfg = dataclasses.replace(cfg, attn_impl="pallas_flash")
+    gen = torch.Generator(device=device).manual_seed(7)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                                        generator=gen, device=device, dtype=torch.int32)}
+               for _ in range(MESH_STEPS)]
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as store, \
+            process_group(backend, 0, 1, store):
+        mesh = make_mesh((1, 1), ("data", "model"), device=device)
+        plain = mesh_steps(cfg, batches, device)
+        plain_w = {n: p.detach() for n, p in plain.pop("state").params.named_parameters()}
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        run = mesh_steps(cfg, batches, device, mesh)
+        launches = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        named = {n: p for n, p in run.pop("state").params.named_parameters()}
+        check(all(type(p).__name__ == "DTensor" for p in named.values()),
+              "every weight of the mesh run is a DTensor")
+        whole = {n: p.full_tensor().detach() for n, p in named.items()}
+        unequal = [n for n in plain_w if not torch.equal(whole[n], plain_w[n])]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], plain["losses"]))
+        check(all(np.isfinite(run["losses"])), "the mesh run's losses are finite")
+        check(rel <= MESH_LOSS_RTOL, f"the mesh run's losses within {MESH_LOSS_RTOL} of the "
+              "unsharded run's")
+        want = 2 * cfg.num_layers * MESH_STEPS
+        check(launches["flash_attn"] == launches["flash_attn_wgmma"] == want,
+              f"{2 * cfg.num_layers} flash launches a step on local shards, all on the "
+              "tensor cores")
+        check(launches["flash_attn_bwd"] == launches["flash_attn_bwd_wgmma"] == want // 2,
+              f"{cfg.num_layers} flash backward launches a step on local shards")
+        row = {
+            "phase": "mesh", "mesh": f"1x1 (data, model), {backend}, world size 1",
+            "arch": cfg.name, "layers": cfg.num_layers, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "steps": MESH_STEPS, "losses": run["losses"],
+            "unsharded_losses": plain["losses"], "loss_max_rel_diff": rel,
+            "losses_bit_equal": run["losses"] == plain["losses"],
+            "weights_bit_equal": not unequal, "unequal_weights": unequal[:8],
+            "n_unequal_weights": len(unequal),
+            "weight_checksum": weight_checksum(whole),
+            "unsharded_weight_checksum": weight_checksum(plain_w),
+            "step_s": run["step_s"], "unsharded_step_s": plain["step_s"],
+            "peak_gb": peak_gb, "launches": launches,
+        }
+        del named, whole, plain_w, run, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["moe_ep"] = mesh_moe_ep(moe_cfg, mesh, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(row)
+    return row
+
+
+# -- the dry-run against measured train rows ----------------------------------------
+def phase_dryrun(rows: dict, reduced: bool = False) -> dict:
+    """``launch/dryrun.py``'s cells of ``DRYRUN_CELLS`` (``reduced`` for a
+    CPU rehearsal), each in a child process on the host, both at once,
+    after every timed phase but the mesh's, so they contend with no timed
+    host path; each against its measured train row (``rows``): the
+    dry-run's FLOPs (the recorder's: on a 1x1 mesh the step's) equal the
+    row's ``FlopCounterMode`` count of a step (``step_flops``); the predicted peak
+    within ``DRYRUN_PEAK_TOL`` of the measured ``peak_gb``; the roofline's
+    compute and memory seconds beside ``step_s``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch.dryrun import run_cell_process
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(DRYRUN_CELLS)) as pool:
+        futures = {name: pool.submit(run_cell_process, arch, "train_4k", DRYRUN_MESH,
+                                     layers=layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                     optimizer="float32", microbatches=1, reduced=reduced,
+                                     timeout=600)
+                   for name, (arch, layers) in DRYRUN_CELLS.items()}
+        cells = {name: fut.result() for name, fut in futures.items()}
+    out = {"phase": "dryrun", "mesh": f"{DRYRUN_MESH} (data, model), fake backend, meta tensors",
+           "seconds": time.perf_counter() - t0, "cells": {}}
+    for name, cell in cells.items():
+        row = rows[name]
+        check("error" not in cell, f"the dry-run of {name} ran: {cell.get('error')}")
+        flops = cell["roofline"]["flops_per_dev"]
+        peak_gb = cell["memory"]["peak_bytes_per_dev"] / 1e9
+        check(flops == row["step_flops"] > 0, f"the dry-run's FLOPs of {name} are its step's "
+              f"({flops} against {row['step_flops']})")
+        check(abs(peak_gb - row["peak_gb"]) <= DRYRUN_PEAK_TOL * row["peak_gb"],
+              f"the dry-run's peak of {name} within {DRYRUN_PEAK_TOL:.0%} of the measured one "
+              f"({peak_gb:.2f} against {row['peak_gb']:.2f} GB)")
+        r = cell["roofline"]
+        out["cells"][name] = {
+            "arch": cell["arch"], "layers": cell["layers"], "batch": cell["batch"],
+            "seq": cell["seq"], "flops": flops, "measured_step_flops": row["step_flops"],
+            "predicted_peak_gb": peak_gb, "measured_peak_gb": row["peak_gb"],
+            "compute_s": r["compute_s"], "memory_s": r["memory_s"], "dominant": r["dominant"],
+            "measured_step_s": row["step_s"], "dryrun_s": cell["compile_s"],
+            "microbatches": cell["microbatches"]}
+    emit(out)
+    return out
 
 
 def main() -> int:
@@ -3475,6 +3741,18 @@ def main() -> int:
     lm_row["moe"].update({"train_" + k: moe_trained[k] for k in (
         "layers", "step_s", "train_tokens_per_s", "mfu", "peak_gb")})
     lm_row["moe"]["backward_ms"] = moe_bwd["ms"]
+
+    dry = phase_dryrun({"lm_moe_train": moe_trained, "lm_ssm_train": ssm_trained})
+    lm_row["dryrun"] = {k: {f: v[f] for f in ("predicted_peak_gb", "measured_peak_gb")}
+                        for k, v in dry["cells"].items()}
+    meshed = phase_mesh(get_config(TRAIN_ARCH), moe_cfg)
+    launches["flash_attn"] += meshed["launches"]["flash_attn"]
+    launches["flash_attn_bwd"] += meshed["launches"]["flash_attn_bwd"]
+    bwd_by_phase["mesh (D=256)"] = meshed["launches"]["flash_attn_bwd"]
+    lm_row["mesh"] = {k: meshed[k] for k in ("losses_bit_equal", "weights_bit_equal",
+                                             "loss_max_rel_diff", "step_s")}
+    lm_row["mesh"]["moe_ep"] = {k: meshed["moe_ep"][k] for k in ("ep_ms", "moe_apply_ms")}
+    torch.cuda.empty_cache()
 
     sources = {"online_lookup": ("src/repro_torch/csrc/online_lookup.cu",
                                  "src/repro/kernels/online_lookup/kernel.py:38"),

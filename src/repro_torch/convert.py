@@ -66,6 +66,7 @@ __all__ = [
     "train_state_from_numpy",
     "train_state_to_numpy",
     "train_state_tree",
+    "whole_tensor",
 ]
 
 STATE_FIELDS = (
@@ -305,25 +306,34 @@ def lm_params_to_numpy(model: Model) -> dict:
     return _jax_tree(((n, _numpy(p)) for n, p in model.named_parameters()), np.stack)
 
 
-def _state_tree(state: TrainState, leaf) -> dict:
+def _state_tree(state: TrainState, leaf, stack=torch.stack) -> dict:
     """``state`` in the JAX ``TrainState``'s tree, each tensor through ``leaf``
-    and the stacked layers with ``torch.stack``."""
+    and the stacked layers through ``stack``."""
     def moments(tree: dict) -> dict:
-        return _jax_tree(((n, _map(leaf, x)) for n, x in tree.items()), torch.stack)
+        return _jax_tree(((n, _map(leaf, x)) for n, x in tree.items()), stack)
 
     return {
         "params": _jax_tree(((n, leaf(p.detach())) for n, p in state.params.named_parameters()),
-                            torch.stack),
+                            stack),
         "opt": {"count": leaf(state.opt["count"]), "m": moments(state.opt["m"]),
                 "v": moments(state.opt["v"])},
         "step": leaf(state.step),
     }
 
 
+def whole_tensor(t: torch.Tensor) -> torch.Tensor:
+    """``t``, gathered whole if it is a DTensor (a collective: every rank
+    of its mesh must call it, in the same order)."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def train_state_tree(state: TrainState) -> dict:
     """The JAX ``TrainState``'s tree of ``state`` as CPU tensors in their own
-    dtypes (bfloat16 stays bfloat16)."""
-    return _state_tree(state, lambda t: t.detach().cpu())
+    dtypes (bfloat16 stays bfloat16); a sharded state's DTensors gathered
+    whole, on every rank."""
+    return _state_tree(state, lambda t: whole_tensor(t.detach()).cpu())
 
 
 def train_state_to_numpy(state: TrainState) -> dict:

@@ -26,6 +26,15 @@ version; a CPU tensor runs ``ref.attention_bwd_lse_ref``, the plain version
 of the kernels' contract.  The TPU package has no backward kernel to port
 (XLA differentiates its einsum path).  ``flash_bytes`` is the JAX
 package's analytic HBM-traffic model, verbatim.
+
+On a mesh q, k and v are DTensors (batch over the data axes, heads over
+``model``, by ``wq``/``wk``/``wv``'s placements): ``flash_attention`` runs on
+each rank's local shards (``pspec.local_call``), the kernel seeing plain
+tensors of the rank's batch rows and heads.  The sequence dims are gathered
+first if sharded, and so are q's heads where k's and v's are not (MQA on a
+``model`` axis wider than the KV heads): a rank's q heads must map onto
+its own KV heads.  The ctypes entry points take ``data_ptr()`` and raise
+if a DTensor reaches them.
 """
 
 from __future__ import annotations
@@ -113,7 +122,12 @@ def flash_attention(
     tensors lie: CUDA launches the kernel, CPU runs the plain version.
     ``causal=False`` is refused where the JAX wrapper refuses it (a T that
     its blocks would pad), so both packages take the same calls.
-    Differentiable in q, k and v (``FlashAttention``)."""
+    Differentiable in q, k and v (``FlashAttention``).  DTensors run on
+    their local shards (see the module docstring)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(q, DTensor) or isinstance(k, DTensor) or isinstance(v, DTensor):
+        return _flash_on_mesh(q, k, v, causal)
     _check_args(q, k, v)
     t = k.shape[1]
     bk = min(_JAX_BLOCK, _round_up(t, 8))
@@ -123,6 +137,21 @@ def flash_attention(
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
     return FlashAttention.apply(q, k, v, causal, grad)
+
+
+def _flash_on_mesh(q, k, v, causal: bool):
+    """``flash_attention`` over DTensors: each rank's batch rows and heads."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.pspec import head_placements, local_call
+
+    if not (isinstance(q, DTensor) and isinstance(k, DTensor) and isinstance(v, DTensor)):
+        raise TypeError("flash_attention takes q, k and v all DTensors or all plain tensors")
+    q_pl, kv_pl = head_placements(q, k)
+    return local_call(
+        lambda a, b, c: flash_attention(a.contiguous(), b.contiguous(), c.contiguous(),
+                                        causal=causal),
+        (q, k, v), (q_pl, kv_pl, kv_pl), q_pl)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -151,6 +180,11 @@ class FlashAttention(torch.autograd.Function):
 
 
 def _check_launch(q: torch.Tensor, *tensors: torch.Tensor) -> None:
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(x, DTensor) for x in (q, *tensors)):
+        raise TypeError("a DTensor reached the flash kernel's entry point: "
+                        "flash_attention runs DTensors on their local shards")
     b, s, h, _ = q.shape
     if s > 65535 * 64 or b * h >= 2**31:
         raise ValueError(f"flash_attention grid too large for B*H={b * h}, S={s}")

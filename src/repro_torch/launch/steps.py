@@ -18,7 +18,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import Optimizer
 
 __all__ = ["TrainState", "loss_and_grads", "make_prefill_step", "make_serve_step",
-           "make_train_step"]
+           "make_train_step", "train_state_placements"]
 
 
 @dataclasses.dataclass
@@ -42,11 +42,40 @@ class TrainState:
 
 def loss_and_grads(params: Model, batch: dict, cfg: ModelConfig) -> tuple[dict, dict]:
     """(metrics, gradients by parameter name) of ``api.train_loss`` on one
-    batch: fwd + bwd, no update."""
+    batch: fwd + bwd, no update.  On a mesh each gradient is redistributed
+    to its parameter's placements (the data-parallel reduction: a partial
+    sum becomes an all-reduce or a reduce-scatter) and the metrics are
+    replicated DTensors."""
     named = dict(params.named_parameters())
     loss, metrics = api.train_loss(params, batch, cfg)
     grads = torch.autograd.grad(loss, list(named.values()))
+    grads = [_placed_like(g, p) for g, p in zip(grads, named.values())]
     return {k: v.detach() for k, v in metrics.items()}, dict(zip(named, grads))
+
+
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def train_state_placements(state: "TrainState", mesh) -> dict:
+    """DTensor placements of every leaf of ``state`` on ``mesh``: the
+    parameters by ``sharding.param_specs``, the moments by
+    ``sharding.opt_state_specs`` (float32 moments; ``count`` and ``step``
+    stay plain, the same on every rank).  Restoring a checkpoint takes this
+    dict as ``placements=``."""
+    from repro_torch.models import sharding
+
+    specs = sharding.param_specs(state.params, state.params.cfg, mesh)
+    opt = sharding.opt_state_specs(state.opt, specs, mesh)
+    if any(isinstance(x, dict) for x in state.opt["m"].values()):
+        raise NotImplementedError("int8 moments on a mesh: the sharded driver keeps "
+                                  "float32 moments, as the JAX driver does")
+    pl = lambda tree: {n: sharding.placements(s, mesh) for n, s in tree.items()}  # noqa: E731
+    return {"mesh": mesh, "params": pl(specs), "m": pl(opt["m"]), "v": pl(opt["v"])}
 
 
 def make_train_step(
@@ -68,9 +97,9 @@ def make_train_step(
         if num_microbatches == 1:
             metrics, grads = loss_and_grads(state.params, batch, cfg)
         else:
-            mb = {k: torch.as_tensor(x).reshape(num_microbatches, -1, *x.shape[1:])
-                  for k, x in batch.items()}
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            mb = {k: _microbatches(x, num_microbatches) for k, x in batch.items()}
+            grads = {n: torch.zeros_like(p, dtype=torch.float32,
+                                         memory_format=torch.contiguous_format)
                      for n, p in state.params.named_parameters()}
             for i in range(num_microbatches):
                 metrics, g = loss_and_grads(state.params, {k: x[i] for k, x in mb.items()}, cfg)
@@ -82,6 +111,22 @@ def make_train_step(
         return TrainState(state.params, opt, state.step + 1), metrics
 
     return train_step
+
+
+def _microbatches(x, n: int):
+    """``x``'s rows in ``n`` equal slices, slice i rows [i·B/n, (i+1)·B/n)
+    as the JAX step's reshape takes them.  A DTensor is sliced on each
+    rank's own rows (slice i: rows [i·b/n, (i+1)·b/n) of the rank's b), so
+    no slice moves between ranks: the slices hold other rows than JAX's,
+    the mean of their gradients is the same (every slice is as large), and
+    the metrics, the last slice's, are another slice's."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        local = x.to_local()
+        return [DTensor.from_local(part, x.device_mesh, x.placements, run_check=False)
+                for part in local.reshape(n, -1, *local.shape[1:])]
+    return torch.as_tensor(x).reshape(n, -1, *x.shape[1:])
 
 
 def make_serve_step(cfg: ModelConfig) -> Callable:

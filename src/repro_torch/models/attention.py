@@ -19,6 +19,14 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamModule, apply_rope, dense_init, reduce_boundary, rope
+from repro_torch.models.pspec import (
+    head_placements,
+    is_dtensor,
+    local_call,
+    placed,
+    row_placements,
+    split_last,
+)
 
 __all__ = [
     "Attention",
@@ -70,7 +78,7 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig):
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    return q.reshape(b, s, h, hd), k.reshape(b, s, kv, hd), v.reshape(b, s, kv, hd)
+    return split_last(q, b, s, h, hd), split_last(k, b, s, kv, hd), split_last(v, b, s, kv, hd)
 
 
 def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
@@ -81,7 +89,13 @@ def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
 
 def _sdpa(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
     """q (B,S,H,hd), k/v (B,T,KV,hd), mask (B|1, S, T) bool -> (B,S,H*hd).
-    fp32 scores; GQA via head grouping."""
+    fp32 scores; GQA via head grouping.  DTensors run on each rank's batch
+    rows and heads (``pspec.local_call``): DTensor cannot place the einsum's
+    flattening of a sharded head dim on every torch release."""
+    if is_dtensor(q):
+        q_pl, kv_pl = head_placements(q, k)
+        return local_call(lambda *a: _sdpa(*a, cfg), (q, k, v, mask),
+                          (q_pl, kv_pl, kv_pl, row_placements(mask, q_pl)), q_pl)
     b, s, h, hd = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -109,8 +123,8 @@ def make_mask(
     if causal:
         m = kp <= qp
     else:
-        m = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape), dtype=torch.bool,
-                       device=qp.device)
+        m = placed(torch.ones(torch.broadcast_shapes(qp.shape, kp.shape), dtype=torch.bool,
+                              device=qp.device))
     if window:
         local = (qp - kp) < window
         m = m & (local | is_global)
@@ -237,8 +251,8 @@ def cross_attention(params, x: torch.Tensor, memory: torch.Tensor,
     b, s, _ = x.shape
     t = memory.shape[1]
     h, hd = cfg.num_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(b, s, h, hd)
-    k = (memory @ params["wk"]).reshape(b, t, h, hd)
-    v = (memory @ params["wv"]).reshape(b, t, h, hd)
-    mask = torch.ones((1, s, t), dtype=torch.bool, device=x.device)
+    q = split_last(x @ params["wq"], b, s, h, hd)
+    k = split_last(memory @ params["wk"], b, t, h, hd)
+    v = split_last(memory @ params["wv"], b, t, h, hd)
+    mask = placed(torch.ones((1, s, t), dtype=torch.bool, device=x.device))
     return reduce_boundary(_sdpa(q, k, v, mask, cfg), x.dtype) @ params["wo"]

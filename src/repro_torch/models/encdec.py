@@ -34,14 +34,22 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import _sdpa, cross_attn_init, make_mask
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import MLP, ParamModule, dense_init, layer_norm, mlp_apply, torch_dtype
+from repro_torch.models.layers import (
+    MLP,
+    ParamModule,
+    dense_init,
+    embedding,
+    layer_norm,
+    mlp_apply,
+    torch_dtype,
+)
 from repro_torch.models.losses import next_token_loss
+from repro_torch.models.pspec import BATCH, constrain, placed, split_last
 
 __all__ = [
     "EncDec",
@@ -123,12 +131,12 @@ def _remat(params: EncDec) -> bool:
 
 def _heads(params, x: torch.Tensor, name: str, cfg: ModelConfig) -> torch.Tensor:
     b, s, _ = x.shape
-    return (x @ params[name]).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    return split_last(x @ params[name], b, s, cfg.num_heads, cfg.head_dim)
 
 
 def _attn_nope(params, x: torch.Tensor, cfg: ModelConfig, *, causal: bool) -> torch.Tensor:
     q, k, v = (_heads(params, x, w, cfg) for w in ("wq", "wk", "wv"))
-    pos = torch.arange(x.shape[1], device=x.device)[None]
+    pos = placed(torch.arange(x.shape[1], device=x.device))[None]
     mask = make_mask(pos, pos, causal=causal)
     return _sdpa(q, k, v, mask, cfg) @ params["wo"]
 
@@ -136,7 +144,7 @@ def _attn_nope(params, x: torch.Tensor, cfg: ModelConfig, *, causal: bool) -> to
 def _cross(params, x: torch.Tensor, mem_k: torch.Tensor, mem_v: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
     q = _heads(params, x, "wq", cfg)
-    mask = torch.ones((1, x.shape[1], mem_k.shape[1]), dtype=torch.bool, device=x.device)
+    mask = placed(torch.ones((1, x.shape[1], mem_k.shape[1]), dtype=torch.bool, device=x.device))
     return _sdpa(q, mem_k, mem_v, mask, cfg) @ params["wo"]
 
 
@@ -153,6 +161,7 @@ def _norm(x: torch.Tensor, ln) -> torch.Tensor:
 
 
 def _enc_layer(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = constrain(x, BATCH, None, None)
     x = x + _attn_nope(lp["attn"], _norm(x, lp["ln1"]), cfg, causal=False)
     return x + mlp_apply(lp["mlp"], _norm(x, lp["ln2"]), "gelu")
 
@@ -160,8 +169,8 @@ def _enc_layer(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def encode(params: EncDec, frames, cfg: ModelConfig) -> torch.Tensor:
     """frames (B, T_enc, D) from the stub frontend -> encoder memory."""
     cdt = torch_dtype(cfg.compute_dtype)
-    frames = torch.as_tensor(frames, device=params.device)
-    x = frames.to(cdt) + _sinusoid(frames.shape[1], cfg.d_model, frames.device).to(cdt)
+    frames = placed(torch.as_tensor(frames, device=params.device))
+    x = frames.to(cdt) + placed(_sinusoid(frames.shape[1], cfg.d_model, frames.device)).to(cdt)
     remat = _remat(params)
     for lp in params["enc"]:
         x = (checkpoint(_enc_layer, lp, x, cfg, use_reentrant=False) if remat
@@ -174,6 +183,7 @@ def _cross_kv(params, memory: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Ten
 
 
 def _dec_layer(lp, x: torch.Tensor, memory: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = constrain(x, BATCH, None, None)
     x = x + _attn_nope(lp["self_attn"], _norm(x, lp["ln1"]), cfg, causal=True)
     mem_k, mem_v = _cross_kv(lp["cross_attn"], memory, cfg)
     x = x + _cross(lp["cross_attn"], _norm(x, lp["ln2"]), mem_k, mem_v, cfg)
@@ -185,13 +195,13 @@ def decode_full(params: EncDec, memory: torch.Tensor, tokens, cfg: ModelConfig) 
     the compute dtype."""
     cdt = torch_dtype(cfg.compute_dtype)
     tokens = _tokens(params, tokens)
-    x = (F.embedding(tokens, params["embed"]).to(cdt)
+    x = (constrain(embedding(tokens, params["embed"]), BATCH, None, None).to(cdt)
          + params["pos_dec"][:tokens.shape[1]].to(cdt))
     remat = _remat(params)
     for lp in params["dec"]:
         x = (checkpoint(_dec_layer, lp, x, memory, cfg, use_reentrant=False) if remat
              else _dec_layer(lp, x, memory, cfg))
-    return _norm(x, params["dec_ln"]) @ params["embed"].T
+    return constrain(_norm(x, params["dec_ln"]) @ params["embed"].T, BATCH, None, "model")
 
 
 def train_loss(params: EncDec, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
@@ -229,12 +239,16 @@ def precompute_cross(params: EncDec, memory: torch.Tensor, cfg: ModelConfig,
 def decode_step(params: EncDec, cache: dict, tokens_new,
                 cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """One decode step.  tokens_new (B, 1).  Writes the self K/V at ``t`` in
-    place and returns (logits (B, 1, V) in the compute dtype, cache)."""
+    place and returns (logits (B, 1, V) in the compute dtype, cache).  Not
+    on a mesh (``lm.check_unsharded_decode``)."""
+    from repro_torch.models.lm import check_unsharded_decode
+
+    check_unsharded_decode()
     cdt = torch_dtype(cfg.compute_dtype)
     t = cache["t"]
     tokens = _tokens(params, tokens_new)
     pos_row = params["pos_dec"][min(t, params["pos_dec"].shape[0] - 1)]
-    x = F.embedding(tokens, params["embed"]).to(cdt) + pos_row.to(cdt)
+    x = embedding(tokens, params["embed"]).to(cdt) + pos_row.to(cdt)
     max_len = cache["self_k"].shape[2]
     slot = min(t, max_len - 1)
     mask = (torch.arange(max_len, device=x.device)[None] <= t)[:, None, :]

@@ -1,4 +1,5 @@
-"""Shared neural-net layers: norms, rotary embeddings, MLP variants, inits.
+"""Shared neural-net layers: norms, rotary embeddings, MLP variants, inits,
+and the token embedding lookup.
 
 The JAX package's ``models/layers.py`` on tensors.  Parameters live in
 ``ParamModule``s, which index like the JAX package's parameter dicts
@@ -9,6 +10,11 @@ device.  Parameters are created frozen, as serving wants them;
 ``model.requires_grad_(True)`` makes every ``ParamModule``'s parameters
 trainable (the train step does so), and ``requires_grad_(False)`` freezes
 them again.
+
+Under a mesh (``models/pspec.py``) the parameters are DTensors: ``rope``
+places its frequency table, ``mlp_apply`` pins the hidden's F dim to
+``model`` (the JAX package's anchor), and ``embedding`` looks tokens up in
+a vocab-sharded table itself (see there).
 """
 
 from __future__ import annotations
@@ -20,11 +26,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models.pspec import BATCH, constrain, current_mesh, placed
+
 __all__ = [
     "MLP",
     "ParamModule",
     "apply_rope",
     "dense_init",
+    "embedding",
     "layer_norm",
     "mlp_apply",
     "mlp_init",
@@ -100,10 +109,10 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 # -- rotary position embeddings ------------------------------------------------
 def rope(positions: torch.Tensor, dim: int, theta: float) -> tuple[torch.Tensor, torch.Tensor]:
     """positions (...,) -> (cos, sin) of shape (..., dim//2), float32."""
-    freqs = torch.exp(
+    freqs = placed(torch.exp(
         -math.log(theta)
         * torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device) / dim
-    )
+    ))
     angles = positions.float()[..., None] * freqs
     return torch.cos(angles), torch.sin(angles)
 
@@ -138,6 +147,8 @@ def mlp_apply(params, x: torch.Tensor, variant: str) -> torch.Tensor:
         h = g * (x @ params["w_up"])
     else:
         h = F.gelu(x @ params["w_up"], approximate="tanh")
+    # pin the hidden's F dim to the TP axis (the JAX package's anchor)
+    h = constrain(h, *((BATCH,) + (None,) * (h.ndim - 2) + ("model",)))
     return reduce_boundary(h, x.dtype) @ params["w_down"]
 
 
@@ -148,3 +159,45 @@ class MLP(ParamModule):
     def __init__(self, gen, d_model: int, d_ff: int, variant: str, *,
                  dtype: torch.dtype, device: Optional[torch.device] = None) -> None:
         super().__init__(mlp_init(gen, d_model, d_ff, variant, dtype, device))
+
+
+# -- token embedding -------------------------------------------------------------
+def embedding(tokens: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The rows of ``weight`` (V, D) at ``tokens``: ``F.embedding``.
+
+    Under a mesh, with ``weight`` a DTensor, each rank looks its tokens up
+    in its own vocab rows (the table gathered over its FSDP dim first),
+    zeroes the tokens outside them, and returns the sum over the vocab's
+    mesh dims pending (a ``Partial`` DTensor, placed like ``tokens`` on the
+    other dims) for the caller's ``constrain`` to resolve.  DTensor's own
+    vocab-sharded lookup (``MaskPartial``) fails on batch-sharded ids
+    (torch 2.13).  A vocab dim of mesh size 1 is not sharded,
+    so on a 1x1 mesh this is ``F.embedding`` of the whole table."""
+    mesh = current_mesh()
+    if mesh is None:
+        return F.embedding(tokens, weight)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    tokens = placed(tokens)
+    vocab = [i for i, p in enumerate(weight.placements)
+             if p == Shard(0) and mesh.size(i) > 1]
+    w = weight.redistribute(mesh, [Shard(0) if i in vocab else Replicate()
+                                   for i in range(mesh.ndim)])
+    tok_pl = [Replicate() if i in vocab else p for i, p in enumerate(tokens.placements)]
+    tokens = tokens.redistribute(mesh, tok_pl)
+    # the local weight's gradient sums over the ranks that hold other tokens
+    grad_pl = [Shard(0) if i in vocab else Replicate() if p == Replicate() else Partial()
+               for i, p in enumerate(tok_pl)]
+    w_loc, tok = w.to_local(grad_placements=grad_pl), tokens.to_local()
+    if not vocab:
+        out = F.embedding(tok, w_loc)
+    else:
+        block = 0
+        for i in vocab:  # the rank's vocab block, outer mesh dim first
+            block = block * mesh.size(i) + mesh.get_local_rank(i)
+        lo, rows = block * w_loc.shape[0], w_loc.shape[0]
+        inside = (tok >= lo) & (tok < lo + rows)
+        out = F.embedding(torch.where(inside, tok - lo, 0), w_loc)
+        out = torch.where(inside[..., None], out, 0.0)
+    return DTensor.from_local(out, mesh, [Partial() if i in vocab else p
+                                          for i, p in enumerate(tok_pl)], run_check=False)

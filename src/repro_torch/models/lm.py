@@ -51,7 +51,6 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -60,8 +59,17 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import MLP, ParamModule, dense_init, mlp_apply, rms_norm, torch_dtype
+from repro_torch.models.layers import (
+    MLP,
+    ParamModule,
+    dense_init,
+    embedding,
+    mlp_apply,
+    rms_norm,
+    torch_dtype,
+)
 from repro_torch.models.losses import next_token_loss, softmax_cross_entropy
+from repro_torch.models.pspec import BATCH, constrain, placed
 
 __all__ = [
     "Block",
@@ -194,7 +202,8 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig, *,
 def _block_apply(bp, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, *,
                  is_global=True, dense_ffn: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (y, aux_loss)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = placed(torch.zeros((), dtype=torch.float32, device=x.device))
+    x = constrain(x, BATCH, None, None)
     h = rms_norm(x, bp["norm1"], cfg.norm_eps)
     if cfg.ssm:
         x = x + ssm_mod.mamba_forward(bp["mixer"], h, cfg)
@@ -227,11 +236,12 @@ def _tokens(params: LM, tokens) -> torch.Tensor:
 def _embed_inputs(params: LM, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """Token (+ optional vision-prefix) embedding.  Returns (x, positions)."""
     cdt = torch_dtype(cfg.compute_dtype)
-    x = F.embedding(_tokens(params, batch["tokens"]), params["embed"]).to(cdt)
+    x = constrain(embedding(_tokens(params, batch["tokens"]), params["embed"]),
+                  BATCH, None, None).to(cdt)
     if cfg.vision_prefix and "patch_embeds" in batch:
-        patches = torch.as_tensor(batch["patch_embeds"], device=params.device).to(cdt)
+        patches = placed(torch.as_tensor(batch["patch_embeds"], device=params.device)).to(cdt)
         x = torch.cat([(patches @ params["vision_proj"]).to(cdt), x], dim=1)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    positions = placed(torch.arange(x.shape[1], dtype=torch.int32, device=x.device))
     return x, positions
 
 
@@ -257,7 +267,8 @@ def forward(params: LM, batch: dict,
     each tail and group block is recomputed in the backward
     (``jax.checkpoint`` of the JAX scan bodies)."""
     x, positions = _embed_inputs(params, cfg, batch)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = constrain(x, BATCH, None, None)
+    aux_total = placed(torch.zeros((), dtype=torch.float32, device=x.device))
     remat = torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters())
     for layer in _layers(params, cfg):
         if layer is None:
@@ -272,7 +283,7 @@ def forward(params: LM, batch: dict,
                                   dense_ffn=dense_ffn)
         aux_total = aux_total + aux
     hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = hidden @ params.head()
+    logits = constrain(hidden @ params.head(), BATCH, None, "model")
     return x, logits, aux_total
 
 
@@ -286,10 +297,10 @@ def _mtp_loss(params: LM, pre_final: torch.Tensor, tokens: torch.Tensor,
     Returns (cross-entropy, the block's aux loss)."""
     mp = params["mtp"]
     cdt = torch_dtype(cfg.compute_dtype)
-    emb_next = F.embedding(tokens, params["embed"]).to(cdt)
+    emb_next = constrain(embedding(tokens, params["embed"]), BATCH, None, None).to(cdt)
     emb_next = torch.cat([emb_next[:, 1:], torch.zeros_like(emb_next[:, :1])], dim=1)
     h_in = torch.cat([pre_final, emb_next], dim=-1) @ mp["proj"]
-    positions = torch.arange(h_in.shape[1], dtype=torch.int32, device=h_in.device)
+    positions = placed(torch.arange(h_in.shape[1], dtype=torch.int32, device=h_in.device))
     h_out, aux = _block_apply(mp["block"], h_in, positions, cfg, dense_ffn=not cfg.moe)
     mtp_logits = rms_norm(h_out, mp["norm"], cfg.norm_eps) @ params.head()
     return softmax_cross_entropy(mtp_logits[:, :-2], tokens[:, 2:]), aux
@@ -319,6 +330,19 @@ def train_loss(params: LM, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor,
 # =============================================================================
 # serving: cache init / prefill / decode
 # =============================================================================
+def check_unsharded_decode() -> None:
+    """Decode writes each new key, value and state into its cache in place;
+    on a mesh those writes land in slices of DTensors (a sequence-parallel
+    cache's slot on one rank only), which the port has not built: decoding
+    under a mesh raises (ROADMAP), as the dry-run's decode cells record."""
+    from repro_torch.models.pspec import current_mesh
+
+    if current_mesh() is not None:
+        raise NotImplementedError("decode on a mesh is not ported (ROADMAP): serve on one "
+                                  "device, or leave the mesh")
+
+
+
 def _layer_cache(cfg: ModelConfig, batch: int, max_len: int, window_cache: bool,
                  dtype: torch.dtype, device: Optional[torch.device]) -> dict:
     if cfg.ssm:
@@ -406,10 +430,12 @@ def _shared_attn_decode(sp, x: torch.Tensor, lcache: dict, t: int,
 def decode_step(params: LM, cache: dict, tokens_new,
                 cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """One decode step for the whole stack.  tokens_new (B, 1).  Updates
-    ``cache`` in place and returns (logits (B, 1, V), cache)."""
+    ``cache`` in place and returns (logits (B, 1, V), cache).  Not on a
+    mesh: ``check_unsharded_decode``."""
+    check_unsharded_decode()
     cdt = torch_dtype(cfg.compute_dtype)
     t = cache["t"]
-    x = params["embed"][_tokens(params, tokens_new)].to(cdt)
+    x = embedding(_tokens(params, tokens_new), params["embed"]).to(cdt)
     for layer, lc in zip(_layers(params, cfg), _layer_caches(cache), strict=True):
         if layer is None:
             x = _shared_attn_decode(params["shared_attn"], x, lc, t, cfg)

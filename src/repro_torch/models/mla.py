@@ -28,6 +28,13 @@ from repro_torch.models.layers import (
     rms_norm,
     rope,
 )
+from repro_torch.models.pspec import (
+    head_placements,
+    is_dtensor,
+    local_call,
+    row_placements,
+    split_last,
+)
 
 __all__ = ["MLA", "init_mla_cache", "mla_attention", "mla_decode", "mla_init"]
 
@@ -75,7 +82,7 @@ def _q_proj(params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, to
         q = q @ params["wq_b"]
     else:
         q = x @ params["wq"]
-    q = q.reshape(b, s, h, nope + pe)
+    q = split_last(q, b, s, h, nope + pe)
     return q[..., :nope], q[..., nope:]
 
 
@@ -102,26 +109,45 @@ def mla_attention(params, x: torch.Tensor, positions: torch.Tensor,
     """Full-sequence MLA (train / prefill): expand the latent, float32
     attention masked causally by ``positions`` (S,) or (B, S)."""
     b, s, _ = x.shape
-    h, nope, pe, vd = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    h, nope, vd = cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim
     q_nope, q_pe = _q_proj(params, x, cfg)
     cos, sin = _rope(positions, cfg)
     q_pe = apply_rope(q_pe, cos, sin)
 
     c_kv, k_pe = _kv_latent(params, x, positions, cfg)
-    kv = (c_kv @ params["wkv_b"]).reshape(b, s, h, nope + vd)
+    kv = split_last(c_kv @ params["wkv_b"], b, s, h, nope + vd)
     k_nope, v = kv[..., :nope], kv[..., nope:]
 
-    scale = 1.0 / math.sqrt(nope + pe)
+    pos2 = positions if positions.ndim == 2 else positions[None]
+    causal = pos2[..., None, :] <= pos2[..., :, None]
+    args = (q_nope, q_pe, k_nope, k_pe, v, causal)
+    if is_dtensor(q_nope):
+        # each rank's batch rows and heads (pspec.local_call); k_pe serves
+        # every head, so its gradient sums over the ranks of split heads
+        from torch.distributed.tensor import Partial, Shard
+
+        q_pl, kv_pl = head_placements(q_nope, k_nope)
+        pe_pl = row_placements(k_pe, q_pl)
+        pe_grad = [Partial() if p == Shard(2) else r for p, r in zip(q_pl, pe_pl)]
+        out = local_call(_attend, args, (q_pl, q_pl, kv_pl, pe_pl, kv_pl,
+                                         row_placements(causal, q_pl)), q_pl,
+                         (q_pl, q_pl, kv_pl, pe_grad, kv_pl, None))
+    else:
+        out = _attend(*args)
+    return reduce_boundary(out, x.dtype) @ params["wo"]
+
+
+def _attend(q_nope, q_pe, k_nope, k_pe, v, causal) -> torch.Tensor:
+    """Float32 softmax attention of the expanded heads -> (B, S, H·vd)."""
+    b, s, h, nope = q_nope.shape
+    scale = 1.0 / math.sqrt(nope + q_pe.shape[-1])
     s_nope = torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope.float())
     s_pe = torch.einsum("bshd,btd->bhst", q_pe.float(), k_pe.float())
     scores = (s_nope + s_pe) * scale
-    pos2 = positions if positions.ndim == 2 else positions[None]
-    causal = pos2[..., None, :] <= pos2[..., :, None]
     scores = scores.masked_fill(~causal[:, None, :, :], NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhst,bthd->bshd", w, v.float())
-    out = reduce_boundary(out.reshape(b, s, h * vd), x.dtype)
-    return out @ params["wo"]
+    return out.reshape(b, s, h * v.shape[-1])
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, *,

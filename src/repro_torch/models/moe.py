@@ -19,10 +19,30 @@ convention), with the switch-style load-balance auxiliary loss.  Nothing in
 ``moe_apply`` synchronizes the host with the card: the aux loss counts each
 expert's top-1 tokens with ``scatter_add_``, not ``bincount``.
 
-``moe_apply`` is the JAX package's single-device path (``_moe_gspmd``).  Its
-expert-parallel path (``_moe_ep``: a ``shard_map`` block with all-to-alls
-over the mesh's ``model`` axis) is mesh code that has one device here; it is
-queued with ``sharding.py`` (ROADMAP queue 5).
+Under a mesh (``models/pspec.py``; the parameters and ``x`` DTensors)
+``moe_apply`` takes the JAX package's gate (the same five conditions):
+
+  * ``_moe_ep``, the expert-parallel block, when the mesh has a ``model``
+    axis of size > 1 that divides E and each rank holds >= 64 of the
+    tokens.  Tokens are sharded over every mesh axis and each rank routes
+    its own groups (``gs`` snapped to a divisor of the local token count);
+    the dispatch is local; an ``all_to_all_single`` over the ``model``
+    group on the expert dim sends each expert's slots to the rank that owns
+    it (expert weights ``Shard(0)`` over ``model``); that rank runs the FFN
+    on its E/ep experts; the all-to-all back and the local combine follow.
+    The all-to-alls are the autograd-aware functional collectives, so the
+    gradient returns through both.  ``aux`` is each rank's aux averaged
+    over all ranks (JAX's ``pmean``).  The block is the JAX ``shard_map``
+    body on local tensors: ``to_local`` in, ``from_local`` out.
+  * otherwise ``_moe_local``, the JAX GSPMD path's counterpart: the groups
+    sharded over the batch axes, the weights gathered whole, each rank
+    routing and dispatching its own groups, and the aux loss of the global
+    means (each expert's mean probability and top-1 share summed over the
+    ranks before their product), as GSPMD computes it.
+
+On one rank of a 1x1 mesh ``_moe_ep`` runs the ops of the one-device path
+on the same groups (the all-to-alls move nothing), so its output and
+gradient are those of ``moe_apply`` bit for bit.
 
 ``moe_apply_einsum`` keeps the textbook GShard einsum formulation as the
 oracle of the tests and of ``chip_smoke.py``; no model path calls it.
@@ -30,13 +50,16 @@ oracle of the tests and of ``chip_smoke.py``; no model path calls it.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import axis_names, mesh_shape
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamModule, dense_init, torch_dtype
+from repro_torch.models.pspec import BATCH, constrain, current_mesh, weight_grad_placements
 
 __all__ = ["MoE", "moe_apply", "moe_apply_einsum", "moe_init"]
 
@@ -96,6 +119,18 @@ def _group(x: torch.Tensor, group_size: int) -> torch.Tensor:
 def _route(params, xg: torch.Tensor,
            cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Router probs -> (gate_k, idx_k (G,S,k) int64, aux_loss).  float32."""
+    gate_k, idx_k, me, ce = _route_parts(params, xg, cfg)
+    return gate_k, idx_k, _aux(me, ce, cfg)
+
+
+def _aux(me: torch.Tensor, ce: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The switch load-balance loss E * sum_e f_e * p_e."""
+    return cfg.router_aux_coef * cfg.num_experts * torch.sum(me * ce)
+
+
+def _route_parts(params, xg: torch.Tensor, cfg: ModelConfig):
+    """(gate_k, idx_k, each expert's mean probability, each expert's top-1
+    share) of the groups ``xg``."""
     g, gs, _ = xg.shape
     e, k = cfg.num_experts, cfg.top_k
     logits = xg.float() @ params["router"]                       # (G,S,E)
@@ -109,9 +144,7 @@ def _route(params, xg: torch.Tensor,
     top1 = idx_k[..., 0].reshape(-1)
     counts = torch.zeros(e, dtype=torch.float32, device=xg.device)
     counts.scatter_add_(0, top1, torch.ones_like(top1, dtype=torch.float32))
-    ce = counts / float(g * gs)
-    aux = cfg.router_aux_coef * e * torch.sum(me * ce)
-    return gate_k, idx_k, aux
+    return gate_k, idx_k, me, counts / float(g * gs)
 
 
 def _dispatch_indices(idx_k: torch.Tensor, e: int,
@@ -152,6 +185,14 @@ def _dispatch_ffn_combine_local(params, xg: torch.Tensor, gate_k: torch.Tensor,
                                 idx_k: torch.Tensor, cfg: ModelConfig,
                                 cap: int) -> torch.Tensor:
     """Steps 3-5 on the groups: scatter, expert FFN, gather and combine."""
+    xe, rows, gate_k = _dispatch(xg, gate_k, idx_k, cfg, cap)
+    return _combine(_expert_ffn(xe, params), rows, gate_k, cfg)
+
+
+def _dispatch(xg: torch.Tensor, gate_k: torch.Tensor, idx_k: torch.Tensor,
+              cfg: ModelConfig, cap: int):
+    """Step 3: (the expert buffer (G, E, C, D), the slot rows (G,S,k,D) of
+    each assignment, the gates with the dropped assignments zeroed)."""
     g, gs, d = xg.shape
     e, k = cfg.num_experts, cfg.top_k
     cdt = torch_dtype(cfg.compute_dtype)
@@ -164,13 +205,18 @@ def _dispatch_ffn_combine_local(params, xg: torch.Tensor, gate_k: torch.Tensor,
     xgc = xg.to(cdt)
     for j in range(k):
         xe_flat.scatter_(1, rows[:, :, j], xgc)
-    xe = xe_flat[:, : e * cap].reshape(g, e, cap, d)
+    return xe_flat[:, : e * cap].reshape(g, e, cap, d), rows, gate_k
 
-    he = _expert_ffn(xe, params)
 
+def _combine(he: torch.Tensor, rows: torch.Tensor, gate_k: torch.Tensor,
+             cfg: ModelConfig) -> torch.Tensor:
+    """Step 5: each token's k expert outputs, weighted by its gates."""
+    g, gs, k, d = rows.shape
+    e, cap = he.shape[1], he.shape[2]
+    cdt = torch_dtype(cfg.compute_dtype)
     he_flat = torch.cat([he.reshape(g, e * cap, d),
                          torch.zeros((g, 1, d), dtype=he.dtype, device=he.device)], dim=1)
-    y = torch.zeros((g, gs, d), dtype=cdt, device=xg.device)
+    y = torch.zeros((g, gs, d), dtype=cdt, device=he.device)
     for j in range(k):
         yj = torch.gather(he_flat, 1, rows[:, :, j])             # (G,S,D)
         y = y + yj * gate_k[:, :, j, None].to(cdt)
@@ -184,6 +230,117 @@ def _shared_experts(params, x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     return hs @ sp["w_down"]
 
 
+# -----------------------------------------------------------------------------
+# on a mesh: local blocks over DTensors
+# -----------------------------------------------------------------------------
+_ROUTED = ("w_gate", "w_up", "w_down")
+
+
+def _local(t, mesh, placements: list, grad_placements: list) -> torch.Tensor:
+    """``t`` redistributed to ``placements``, as its local tensor; the
+    gradient of that local tensor has ``grad_placements``."""
+    return t.redistribute(mesh, placements).to_local(grad_placements=grad_placements)
+
+
+def _mean_over_ranks(local: torch.Tensor, mesh, token_pl: list):
+    """The mean over the token-splitting mesh dims of a per-rank mean
+    (every rank holds as many tokens), replicated: a DTensor."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    n = math.prod(mesh.size(i) for i, p in enumerate(token_pl) if p != Replicate())
+    pl = [Replicate() if p == Replicate() else Partial() for p in token_pl]
+    return DTensor.from_local(local / n, mesh, pl, run_check=False).redistribute(
+        mesh, [Replicate()] * mesh.ndim)
+
+
+def _moe_local(params, x, cfg: ModelConfig, mesh, group_size: int, capacity_factor: float):
+    """The GSPMD path on a mesh: groups over the batch axes, the weights
+    whole on every rank, local routing and dispatch, the aux loss of the
+    global means."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    b, s, d = x.shape
+    gs = _group(torch.empty((b, s, 0), device="meta"), group_size).shape[1]
+    xg = constrain(_unflatten_tokens(x.reshape(b * s, d), mesh, b * s // gs, gs),
+                   BATCH, None, None)
+    cap = _capacity(cfg, gs, capacity_factor)
+    pl = list(xg.placements)
+    whole = [Replicate()] * mesh.ndim
+    gpl = weight_grad_placements(pl, ())
+    local = {n: _local(params[n], mesh, whole, gpl) for n in ("router", *_ROUTED)}
+    xg_loc = xg.to_local()
+    gate_k, idx_k, me, ce = _route_parts(local, xg_loc, cfg)
+    y = _dispatch_ffn_combine_local(local, xg_loc, gate_k, idx_k, cfg, cap)
+    aux = _aux(_mean_over_ranks(me, mesh, pl), _mean_over_ranks(ce, mesh, pl), cfg)
+    y = DTensor.from_local(y.reshape(-1, d), mesh, pl, run_check=False)
+    return constrain(_unflatten_tokens(y, mesh, b, s), BATCH, None, None), aux
+
+
+def _unflatten_tokens(y, mesh, b: int, s: int):
+    """(B·S, D) tokens sharded on dim 0 -> (B, S, D) (or groups: (G, gs,
+    D)).  DTensor splits a sharded dim only into a leading dim the shards
+    divide: otherwise the tokens are gathered first (GSPMD regathers there
+    by itself)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    ranks = math.prod(mesh.size(i) for i, p in enumerate(y.placements) if p == Shard(0))
+    if b % ranks:
+        y = y.redistribute(mesh, [Replicate() if p == Shard(0) else p for p in y.placements])
+    return y.reshape(b, s, y.shape[-1])
+
+
+def _moe_ep(params, x, cfg: ModelConfig, mesh, group_size: int, capacity_factor: float):
+    """Expert parallelism: tokens sharded over every mesh axis, experts
+    owned by ``model`` ranks, dispatch and return as explicit all-to-alls.
+    Returns (y (B, S, D), aux): the routed experts only."""
+    from torch.distributed._functional_collectives import (
+        all_to_all_single_autograd,
+        wait_tensor,
+    )
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    b, s, d = x.shape
+    e = cfg.num_experts
+    names = axis_names(mesh)
+    m_dim = names.index("model")
+    ep = mesh.size(m_dim)
+    tok_axes = tuple(names)        # (*batch axes, "model"), in the mesh's order
+    x = constrain(x, BATCH, None, None)
+    toks = constrain(x.reshape(b * s, d), tok_axes, None)
+    t_loc = toks.shape[0] // mesh.size()
+    gs = min(group_size, t_loc)
+    while t_loc % gs:  # snap to the largest local divisor (odd token counts)
+        gs -= 1
+    cap = _capacity(cfg, gs, capacity_factor)
+
+    tok_pl = list(toks.placements)
+    router = _local(params["router"], mesh, [Replicate()] * mesh.ndim,
+                    weight_grad_placements(tok_pl, ()))
+    owned = [Shard(0) if i == m_dim else Replicate() for i in range(mesh.ndim)]
+    w = {n: _local(params[n], mesh, owned, weight_grad_placements(tok_pl, (m_dim,)))
+         for n in _ROUTED}
+    group = mesh.get_group(m_dim)
+
+    def a2a(t: torch.Tensor) -> torch.Tensor:
+        return wait_tensor(all_to_all_single_autograd(t.contiguous(), None, None, group))
+
+    xg = toks.to_local().reshape(-1, gs, d)                      # (G_loc,S,D)
+    gate_k, idx_k, me, ce = _route_parts({"router": router}, xg, cfg)
+    xe, rows, gate_k = _dispatch(xg, gate_k, idx_k, cfg, cap)    # (G_loc,E,C,D)
+    g = xg.shape[0]
+    # -> expert owners: (G_loc, E, C, D) -> (ep·G_loc, E/ep, C, D), source-major
+    xe = a2a(xe.reshape(g, ep, e // ep, cap, d).transpose(0, 1))
+    he = _expert_ffn(xe.reshape(ep * g, e // ep, cap, d), w)
+    # <- back to token owners: expert block j from rank j
+    he = a2a(he.reshape(ep, g, e // ep, cap, d)).transpose(0, 1).reshape(g, e, cap, d)
+    y = _combine(he, rows, gate_k, cfg)
+    aux = DTensor.from_local(_aux(me, ce, cfg) / mesh.size(), mesh, [Partial()] * mesh.ndim,
+                             run_check=False).redistribute(mesh, [Replicate()] * mesh.ndim)
+    y = DTensor.from_local(y.reshape(-1, d), mesh, tok_pl, run_check=False)
+    y = constrain(y, tok_axes, None)
+    return constrain(_unflatten_tokens(y, mesh, b, s), BATCH, None, None), aux
+
+
 def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *, group_size: int = 2048,
               capacity_factor: Optional[float] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (y (B, S, D), aux_loss scalar).  Tokens go to groups of
@@ -193,10 +350,22 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *, group_size: int = 20
     if capacity_factor is None:
         capacity_factor = cfg.capacity_factor
     b, s, d = x.shape
-    xg = _group(x, group_size)
-    cap = _capacity(cfg, xg.shape[1], capacity_factor)
-    gate_k, idx_k, aux = _route(params, xg, cfg)
-    y = _dispatch_ffn_combine_local(params, xg, gate_k, idx_k, cfg, cap).reshape(b, s, d)
+    mesh = current_mesh()
+    if mesh is not None:
+        sizes = mesh_shape(mesh)
+        use_ep = (
+            sizes.get("model", 1) > 1
+            and cfg.num_experts % sizes["model"] == 0
+            and (b * s) % mesh.size() == 0
+            and (b * s) // mesh.size() >= 64   # decode cells: payload too small for EP
+        )
+        run = _moe_ep if use_ep else _moe_local
+        y, aux = run(params, x, cfg, mesh, group_size, capacity_factor)
+    else:
+        xg = _group(x, group_size)
+        cap = _capacity(cfg, xg.shape[1], capacity_factor)
+        gate_k, idx_k, aux = _route(params, xg, cfg)
+        y = _dispatch_ffn_combine_local(params, xg, gate_k, idx_k, cfg, cap).reshape(b, s, d)
 
     # shared experts: dense on every token
     if "shared" in params:

@@ -38,6 +38,12 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamModule, dense_init, reduce_boundary, rms_norm
+from repro_torch.models.pspec import (
+    is_dtensor,
+    local_call,
+    row_placements,
+    weight_grad_placements,
+)
 
 __all__ = [
     "Mamba",
@@ -84,9 +90,8 @@ class Mamba(ParamModule):
         super().__init__(mamba_init(gen, cfg, dtype, device))
 
 
-def _split_proj(params, x: torch.Tensor, cfg: ModelConfig):
+def _split_proj(proj: torch.Tensor, cfg: ModelConfig):
     di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
-    proj = x @ params["w_in"]
     z = proj[..., :di]
     xbc = proj[..., di: di + di + 2 * g * n]
     dt = proj[..., di + di + 2 * g * n:].float()
@@ -206,19 +211,44 @@ def ssd_reference(xs, dt, a, bs, cs):
     return torch.stack(ys, dim=1), state
 
 
+_MIXER = ("conv_w", "conv_b", "dt_bias", "a_log", "d_skip", "gate_norm")
+
+
 def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Full-sequence Mamba2 block (train / prefill)."""
-    z, xbc, dt = _split_proj(params, x, cfg)
+    """Full-sequence Mamba2 block (train / prefill).  Under a mesh the
+    mixer between the two projections runs on each rank's batch rows
+    (``pspec.local_call``), replicated over ``model``: DTensor cannot place
+    the padded conv's views on every torch release, and the gated norm
+    needs every head of a row."""
+    proj = x @ params["w_in"]
+    small = tuple(params[n] for n in _MIXER)
+    if is_dtensor(proj):
+        from torch.distributed.tensor import Replicate
+
+        rows = row_placements(proj, proj.placements)
+        whole = [Replicate()] * len(rows)
+        grads = weight_grad_placements(rows)
+        y = local_call(lambda p, *w: _mixer(p, dict(zip(_MIXER, w)), cfg),
+                       (proj, *small), (rows,) + (whole,) * len(small), rows,
+                       (rows,) + (grads,) * len(small))
+    else:
+        y = _mixer(proj, dict(zip(_MIXER, small)), cfg)
+    return reduce_boundary(y, x.dtype) @ params["w_out"]
+
+
+def _mixer(proj: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
+    """The input projection's output (B, L, 2·DI + 2·G·N + H) -> the gated,
+    normed SSD output (B, L, DI): conv, SSD, skip, gate."""
+    z, xbc, dt = _split_proj(proj, cfg)
     xbc = _causal_conv(params, xbc, cfg)
     xs, bs, cs = _split_xbc(xbc, cfg)
     dt = F.softplus(dt + params["dt_bias"])
     a = -torch.exp(params["a_log"])
     y, _ = _ssd_chunked(xs.float(), dt, a, bs.float(), cs.float(), cfg)
     y = y + params["d_skip"][None, None, :, None] * xs.float()
-    b, l = x.shape[:2]
-    y = y.reshape(b, l, cfg.d_inner).to(x.dtype)
-    y = _gated_norm(params, y, z, cfg)
-    return reduce_boundary(y, x.dtype) @ params["w_out"]
+    b, l = proj.shape[:2]
+    y = y.reshape(b, l, cfg.d_inner).to(proj.dtype)
+    return _gated_norm(params, y, z, cfg)
 
 
 def _gated_norm(params, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -242,7 +272,7 @@ def mamba_decode(params, x: torch.Tensor, state: dict,
     """One-token recurrent step.  x (B, 1, D).  Shifts the conv ring and
     advances the SSM state in ``state`` in place; returns (out (B, 1, D),
     state)."""
-    z, xbc_new, dt = _split_proj(params, x, cfg)
+    z, xbc_new, dt = _split_proj(x @ params["w_in"], cfg)
     # conv over the ring buffer: window = [conv_state ; xbc_new], in float32
     window = torch.cat([state["conv"], xbc_new], dim=1)      # (B, W, C)
     conv = (torch.einsum("bwc,wc->bc", window.float(), params["conv_w"].float())

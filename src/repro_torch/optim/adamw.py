@@ -16,6 +16,11 @@ dequantized, updated and requantized into the leaf's state entry.  It
 returns ``params`` and ``state``, the same objects, updated; the grads are
 left alone.  The peak is then the weights, the grads, the moments and one
 leaf's float32 temporaries, not a second copy of the moments and weights.
+On a mesh the parameters, their gradients and float32 moments are
+DTensors of the same placements (the moments' may add a ``pod`` shard,
+``sharding.opt_state_specs``), and the same in-place ops run on each
+rank's shards; the global-norm clip sums every shard's squares; ``count``
+stays a plain 0-d tensor, the same on every rank.
 The update is the JAX one,
 ``upd = (m/bc1)/(sqrt(v/bc2)+eps) + wd·p`` and ``p <- (p32 - lr·upd)`` cast
 back to p's dtype, with the global-norm clip in float32; it is not
@@ -29,10 +34,13 @@ counterpart here.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.pspec import is_dtensor
 
 __all__ = ["Optimizer", "adamw", "dequantize_q8", "quantize_q8"]
 
@@ -42,7 +50,18 @@ _BLOCK = 128
 def quantize_q8(x: torch.Tensor) -> dict:
     """float -> {q: int8 (same shape as x), scale: float32 (..., ceil(last/128))}.
     Blocks run along the last dim (128 entries each, zero-padded tail); a 0-d
-    x is one block of one entry."""
+    x is one block of one entry.  A DTensor is quantized on its local
+    shards (``_block_placements``); its scales come back with the last
+    dim replicated, as the JAX package's ``opt_state_specs`` places them."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh, pl = x.device_mesh, _block_placements(x)
+        out = quantize_q8(x.redistribute(mesh, pl).to_local())
+        whole_last = [Replicate() if _is_last_shard(p, x) else p for p in pl]
+        return {"q": DTensor.from_local(out["q"], mesh, pl, run_check=False),
+                "scale": DTensor.from_local(out["scale"], mesh, pl, run_check=False)
+                .redistribute(mesh, whole_last)}
     x32 = x.float()
     if x32.dim() == 0:
         x32 = x32.reshape(1)
@@ -58,6 +77,14 @@ def quantize_q8(x: torch.Tensor) -> dict:
 
 def dequantize_q8(qs: dict, shape, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     q, scale = qs["q"], qs["scale"]
+    if is_dtensor(q):
+        from torch.distributed.tensor import DTensor
+
+        mesh, pl = q.device_mesh, _block_placements(q)
+        q_loc = q.redistribute(mesh, pl).to_local()
+        out = dequantize_q8({"q": q_loc, "scale": scale.redistribute(mesh, pl).to_local()},
+                            q_loc.shape, dtype)
+        return DTensor.from_local(out, mesh, pl, run_check=False).reshape(shape)
     q32 = q.float()
     if q32.dim() == 0:
         q32 = q32.reshape(1)
@@ -66,6 +93,27 @@ def dequantize_q8(qs: dict, shape, dtype: torch.dtype = torch.float32) -> torch.
     blocks = F.pad(q32, (0, nb * _BLOCK - last)).reshape(*q32.shape[:-1], nb, _BLOCK)
     out = (blocks * scale[..., None]).reshape(*q32.shape[:-1], nb * _BLOCK)
     return out[..., :last].reshape(shape).to(dtype)
+
+
+def _is_last_shard(p, x) -> bool:
+    from torch.distributed.tensor import Shard
+
+    return x.ndim > 0 and p == Shard(x.ndim - 1)
+
+
+def _block_placements(x) -> list:
+    """``x``'s placements for blocking on local shards: as they are, but
+    the last dim gathered where its shards would split a 128-entry block
+    (the blocks, and so the bits, are then the unsharded ones).  DTensor
+    is not asked to pad or view: some torch releases place ``F.pad`` of a
+    DTensor wrongly on a mesh of more than one dim."""
+    from torch.distributed.tensor import Replicate
+
+    ranks = math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements)
+                      if _is_last_shard(p, x))
+    if ranks > 1 and (x.shape[-1] // ranks) % _BLOCK:
+        return [Replicate() if _is_last_shard(p, x) else p for p in x.placements]
+    return list(x.placements)
 
 
 class Optimizer(NamedTuple):
@@ -88,7 +136,8 @@ def adamw(
 
     def init(params: dict) -> dict:
         def zeros_like_moment(p):
-            z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            # a DTensor parameter's moments are DTensors of its placements
+            z = torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format)
             return quantize_q8(z) if quantize_moments else z
 
         some = next(iter(params.values()))

@@ -60,6 +60,11 @@ def test_port_imports_without_jax_or_repro():
         "repro_torch.launch.steps", "repro_torch.launch.train",
         "repro_torch.models.mla", "repro_torch.models.moe", "repro_torch.models.ssm",
         "repro_torch.models.encdec",
+        "repro_torch.launch.mesh", "repro_torch.models.pspec",
+        "repro_torch.models.sharding", "repro_torch.optim.compression",
+        "repro_torch.configs.shapes", "repro_torch.launch.specs",
+        "repro_torch.launch.roofline", "repro_torch.launch.trace_tools",
+        "repro_torch.launch.dryrun",
     }
     assert expected <= set(res["modules"])
 

@@ -4,7 +4,7 @@ gradient leaf on the reduced dense configs, the reduced MLA + MoE configs
 (mamba2) and hybrid (zamba2) configs, JAX weights carried over with
 ``convert``; the train step over 4 steps with one and two microbatches; and
 the driver (``launch/train.py``): kill-and-resume bit-identical, a loss that
-falls, one device only.  The MoE cases first
+falls, a mesh that does not fit the world refused.  The MoE cases first
 assert that both packages routed alike: each dispatch's ``idx_k`` and
 ``keep``, in call order, equal.
 
@@ -499,10 +499,13 @@ def test_driver_loss_decreases_over_training():
 
 
 def test_driver_refuses_a_mesh_and_unported_families():
-    """The driver refuses a mesh; the two families it refused while they
-    were unported (whisper, pixtral) take a step, with ``--mesh 1x1``."""
+    """The driver refuses a mesh that is not the world's size (here a
+    world of one: the mesh path's multi-rank runs are
+    ``test_torch_sharded_train.py``'s); the two families it refused while
+    they were unported (whisper, pixtral) take a step, with ``--mesh 1x1``
+    (the mesh path on one rank)."""
     for mesh in ("2x1", "1x2", "4x2"):
-        with pytest.raises(ValueError, match="one device"):
+        with pytest.raises(ValueError, match="the world has 1"):
             train.main(ARGS + ["--mesh", mesh], device="cpu")
     for arch in LAST_FAMILIES:
         res = train.main(["--arch", arch, "--steps", "1", "--batch", "2", "--seq", "16",
