@@ -188,13 +188,17 @@ port's paths on the card through the entry points a user calls:
      ``encdec_vlm_train_parity`` for reduced whisper and pixtral (with
      seeded frames or patch embeddings);
   24. ``dryrun``: ``launch/dryrun.py``'s cells of ``lm_moe_train``
-     (deepseek-v2-lite at 6 layers) and ``lm_ssm_train`` (mamba2-2.7b at
-     64 layers), 4 x 2,048, the driver's float32 moments, one microbatch,
-     on a 1x1 mesh of the ``fake`` backend (the mesh path on one card),
-     over meta tensors, both at once, each in a child process on the host
-     after the timed phases: the dry-run's FLOPs equal the
+     (deepseek-v2-lite at 6 layers), ``lm_ssm_train`` (mamba2-2.7b at 64
+     layers), ``lm_train`` (gemma-2b, ``pallas_flash``) and
+     ``lm_hybrid_train`` (zamba2-7b at 48 layers, ``pallas_flash``: the
+     flash forward and backward on meta tensors through their fake
+     implementations), 4 x 2,048, the driver's float32 moments, one
+     microbatch, on a 1x1 mesh of the ``fake`` backend (the mesh path on
+     one card), over meta tensors, all at once, each in a child process on
+     the host after the timed phases: the dry-run's FLOPs equal the
      ``FlopCounterMode`` count of a step of the row's state (one forward
-     and backward after its measured steps) exactly, its
+     and backward after its measured steps; flash counted at SDPA's
+     formulas) exactly, its
      predicted peak is within 25% of the row's measured ``peak_gb``, and
      its roofline seconds print beside the row's ``step_s``;
   25. ``mesh``: the mesh path on the card (``launch/mesh.py``,
@@ -209,14 +213,24 @@ port's paths on the card through the entry points a user calls:
      ``moe_dispatch``'s layer and tokens against ``moe_apply`` on the
      routed experts: routing identical, output, aux and gradients bit-equal,
      both times;
-  26. the ``kernels`` line: launches, errors, times and bounds per kernel.
+  26. ``mesh_decode``, in the same 1x1 NCCL world: gemma-2b (a
+     sequence-parallel MQA cache on a wider mesh) and mamba2-2.7b (the SSM
+     state on its heads, the conv ring on its channels) at full width,
+     seeded bf16 weights, 8 requests: a stepped prompt of 32 tokens, then
+     16 greedy steps, every step through ``serve_step``, once unsharded and
+     once with the weights placed as DTensors and the cache by
+     ``sharding.cache_specs``: tokens equal, every step's logits and every
+     cache leaf (gathered whole) bit-equal; ms a step on the mesh against
+     unsharded (DTensor's dispatch on a host-bound path);
+  27. the ``kernels`` line: launches, errors, times and bounds per kernel.
 
 Each path (``scan_merge``, the main path, ``offline_retrieval``, ``geo``,
 ``lm_serve``, ``lm_prefill``, ``lm_ssm_serve``, ``lm_ssm_prefill``,
 ``lm_hybrid_serve``, ``lm_hybrid_prefill``, ``lm_audio_serve``,
 ``lm_audio_prefill``, ``lm_vlm_serve``, ``lm_vlm_prefill``, ``lm_moe_serve``,
 ``lm_moe_prefill``, ``lm_train``, ``lm_ssm_train``, ``lm_hybrid_train``,
-``lm_vlm_train``, ``lm_audio_train``, ``lm_moe_train``, ``mesh``) runs
+``lm_vlm_train``, ``lm_audio_train``, ``lm_moe_train``, ``mesh``,
+``mesh_decode``) runs
 with the launch counts zeroed just before it and read just after, and must
 have launched each kernel of its own path (``lm_moe_train``'s,
 ``lm_ssm_train``'s and ``lm_audio_train``'s paths launch none of them:
@@ -302,6 +316,7 @@ from repro_torch.launch.steps import (  # noqa: E402
     TrainState,
     loss_and_grads,
     make_prefill_step,
+    make_serve_step,
     make_train_step,
 )
 from repro_torch.models import api  # noqa: E402
@@ -456,15 +471,23 @@ L2_FLUSH_BYTES = 128 << 20  # written before a launch to empty the 50 MB L2
 # that of every weight, is recorded: it is what the port expects)
 MESH_STEPS = 3
 MESH_LOSS_RTOL = 1e-6
-# dryrun: the dry-run of two train rows (their arch, depth, 4 x 2,048, the
-# driver's float32 moments, one microbatch) on a 1x1 mesh of the fake backend
-# (DRYRUN_MESH: the step as the mesh path runs it on one card), over meta
-# tensors, in child processes on the host after the timed phases; its peak
-# within DRYRUN_PEAK_TOL of the row's measured one, its FLOPs the row's
-# step's, exactly
-DRYRUN_CELLS = {"lm_moe_train": (MOE_ARCH, MOE_TRAIN_LAYERS), "lm_ssm_train": (SSM_ARCH, None)}
+# dryrun: the dry-run of four train rows (their arch, depth and attention
+# path, 4 x 2,048, the driver's float32 moments, one microbatch) on a 1x1
+# mesh of the fake backend (DRYRUN_MESH: the step as the mesh path runs it on
+# one card), over meta tensors, in child processes on the host after the
+# timed phases; its peak within DRYRUN_PEAK_TOL of the row's measured one,
+# its FLOPs the row's step's, exactly
+DRYRUN_CELLS = {"lm_moe_train": (MOE_ARCH, MOE_TRAIN_LAYERS, None),
+                "lm_ssm_train": (SSM_ARCH, None, None),
+                "lm_train": (TRAIN_ARCH, None, "pallas_flash"),
+                "lm_hybrid_train": (HYBRID_ARCH, HYBRID_TRAIN_LAYERS, "pallas_flash")}
 DRYRUN_MESH = "1x1"
 DRYRUN_PEAK_TOL = 0.25
+# mesh_decode: serve_step on the 1x1 mesh against unsharded, bit for bit:
+# gemma-2b and mamba2-2.7b at full width, 8 requests, a prompt of 32 tokens
+# stepped, then 16 greedy steps
+MESH_DECODE_ARCHS = (TRAIN_ARCH, SSM_ARCH)
+MESH_DECODE_BATCH, MESH_DECODE_PROMPT, MESH_DECODE_STEPS = 8, 32, 16
 SLEEP_CYCLES = 50_000_000  # a sleep kernel of about 25 ms on an H100
 COUNTERS = (lookup_ops.counter, rolling_ops.counter, pit_ops.counter, merge_ops.counter,
             flash_ops.counter, flash_ops.tc_counter, flash_ops.bwd_counter,
@@ -2568,7 +2591,10 @@ def phase_lm_train(cfg, rng, device: str = "cuda") -> dict:
           f"flash loss within {TRAIN_LOSS_RTOL} of the xla loss")
     check(grads["max_rel_rms"] <= TRAIN_GRAD_REL_RMS,
           f"every flash gradient leaf within {TRAIN_GRAD_REL_RMS} relative RMS of xla's")
-    del flash_g, xla_g, state, batch
+    del flash_g, xla_g
+    torch.cuda.empty_cache()
+    flops = step_flops(state, batch, cfg)
+    del state, batch
     torch.cuda.empty_cache()
 
     bwd = check_flash_backward(TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads,
@@ -2584,6 +2610,7 @@ def phase_lm_train(cfg, rng, device: str = "cuda") -> dict:
         "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
         "head_dim": cfg.head_dim, "vocab": cfg.vocab_size, "params": n_params,
         **train_readings(run, n_params, opt_s), "mfu_formula": "6 * params * tokens / step_s / 989e12",
+        "step_flops": flops,
         "bound_s": 8 * n_params * TRAIN_BATCH * TRAIN_SEQ / BF16_OPS_PER_S,
         "vs_xla": {"loss": lf, "xla_loss": lx, **grads},
         "flash_backward_ms": bwd["ms"], "flash_backward_plain_ms": bwd["plain_ms"],
@@ -3347,6 +3374,107 @@ def mesh_moe_ep(cfg, mesh, device: str) -> dict:
             "moe_apply_fwd_bwd_ms": cuda_ms(plain_grads, 3)}
 
 
+def decode_through_serve_step(model, cfg, prompt: torch.Tensor, device: str,
+                              mesh=None) -> dict:
+    """``MESH_DECODE_PROMPT`` prompt tokens and then ``MESH_DECODE_STEPS``
+    greedy tokens of ``prompt``'s requests, every step one ``serve_step``
+    (a prompt step's token is dropped, the prompt's next one fed): unsharded,
+    or on ``mesh`` with ``model`` placed by ``param_specs`` and the cache by
+    ``cache_specs``.  Each step's logits (whole), the greedy tokens, the
+    final cache's leaves (whole) and each step's seconds."""
+    from repro_torch.convert import whole_tensor
+
+    b = prompt.shape[0]
+    cache = api.init_cache(cfg, b, MESH_DECODE_PROMPT + MESH_DECODE_STEPS, device=device)
+    if mesh is not None:
+        cache = sharding.distribute_cache(cache, cfg, mesh)
+    serve_step = make_serve_step(cfg)
+    logits, tokens, step_s = [], [], []
+    decode = api.decode_step
+
+    def recorded(*a):
+        out, c = decode(*a)
+        logits.append(whole_tensor(out))
+        return out, c
+
+    api.decode_step = recorded
+    try:
+        with torch.no_grad(), activation_mesh(mesh):
+            tok = prompt[:, :1]
+            for i in range(MESH_DECODE_PROMPT + MESH_DECODE_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                nxt, cache = serve_step(model, cache, tok)
+                nxt = whole_tensor(nxt)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                if i + 1 < MESH_DECODE_PROMPT:
+                    tok = prompt[:, i + 1:i + 2]
+                else:
+                    tokens.append(nxt)
+                    tok = nxt[:, None]
+    finally:
+        api.decode_step = decode
+    leaves = {}
+
+    def walk(x, name):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{name}.{k}" if name else k)
+        elif isinstance(x, list):
+            for i, v in enumerate(x):
+                walk(v, f"{name}.{i}")
+        elif isinstance(x, torch.Tensor):
+            leaves[name] = whole_tensor(x)
+
+    walk(cache, "")
+    return {"logits": logits, "tokens": torch.stack(tokens, dim=1), "cache": leaves,
+            "step_s": step_s}
+
+
+def mesh_decode(cfg, mesh, device: str) -> dict:
+    """``cfg`` (gemma-2b or mamba2-2.7b at full width, seeded bf16
+    weights) decoded by ``decode_through_serve_step`` unsharded and then on
+    the 1x1 ``mesh`` from the same weights and prompt: tokens equal, every
+    step's logits and every cache leaf bit-equal; the median seconds a
+    step of each (the first step of each run left out)."""
+    model = api.init_params(0, cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(13)
+    prompt = torch.randint(0, cfg.vocab_size, (MESH_DECODE_BATCH, MESH_DECODE_PROMPT),
+                           generator=gen, device=device, dtype=torch.int32)
+    plain = decode_through_serve_step(model, cfg, prompt, device)
+    sharding.distribute_model(model, cfg, mesh)
+    check(all(type(p).__name__ == "DTensor" for p in model.parameters()),
+          "every weight of the mesh run is a DTensor")
+    meshed = decode_through_serve_step(model, cfg, prompt, device, mesh)
+    check(torch.equal(meshed["tokens"], plain["tokens"]),
+          f"{cfg.name}: the mesh run's greedy tokens are the unsharded run's")
+    unequal_logits = [i for i, (a, b) in enumerate(zip(meshed["logits"], plain["logits"]))
+                      if not torch.equal(a, b)]
+    unequal_cache = [n for n in plain["cache"] if not torch.equal(meshed["cache"][n],
+                                                                  plain["cache"][n])]
+    check(len(meshed["logits"]) == len(plain["logits"]) and not unequal_logits,
+          f"{cfg.name}: every step's logits bit-equal (unequal at steps {unequal_logits[:8]})")
+    check(set(meshed["cache"]) == set(plain["cache"]) and not unequal_cache,
+          f"{cfg.name}: every cache leaf bit-equal (unequal: {unequal_cache[:8]})")
+    check(all(bool(torch.isfinite(x).all()) for x in plain["logits"]),
+          f"{cfg.name}: the logits are finite")
+    mesh_ms = float(np.median(meshed["step_s"][1:])) * 1e3
+    plain_ms = float(np.median(plain["step_s"][1:])) * 1e3
+    row = {"phase": "mesh_decode", "mesh": "1x1 (data, model), world size 1", "arch": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model, "batch": MESH_DECODE_BATCH,
+           "prompt": MESH_DECODE_PROMPT, "greedy_steps": MESH_DECODE_STEPS,
+           "steps_through_serve_step": len(plain["step_s"]),
+           "tokens_equal": True, "logits_bit_equal": True,
+           "cache_leaves_bit_equal": len(plain["cache"]),
+           "ms_per_step": mesh_ms, "unsharded_ms_per_step": plain_ms,
+           "mesh_over_unsharded": mesh_ms / plain_ms,
+           "first_step_ms": meshed["step_s"][0] * 1e3,
+           "unsharded_first_step_ms": plain["step_s"][0] * 1e3}
+    emit(row)
+    return row
+
+
 def phase_mesh(cfg, moe_cfg, device: str = "cuda") -> dict:
     """The mesh path on one card: NCCL at world size 1, a 1x1 (data, model)
     mesh.  ``cfg`` (gemma-2b at full width, ``pallas_flash``) takes
@@ -3355,7 +3483,8 @@ def phase_mesh(cfg, moe_cfg, device: str = "cuda") -> dict:
     losses within ``MESH_LOSS_RTOL`` and, recorded, bit-equal, with every
     weight after the last step; the flash launches of the mesh run, on its
     local shards through ``pspec.local_call``, counted from zero.  Then
-    ``mesh_moe_ep`` on ``moe_cfg``'s layer."""
+    ``mesh_moe_ep`` on ``moe_cfg``'s layer, and ``mesh_decode`` (a row of
+    its own) for each of ``MESH_DECODE_ARCHS``, under ``row["decode"]``."""
     cfg = dataclasses.replace(cfg, attn_impl="pallas_flash")
     gen = torch.Generator(device=device).manual_seed(7)
     batches = [{"tokens": torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
@@ -3408,7 +3537,12 @@ def phase_mesh(cfg, moe_cfg, device: str = "cuda") -> dict:
         row["moe_ep"] = mesh_moe_ep(moe_cfg, mesh, device)
         gc.collect()
         torch.cuda.empty_cache()
-    emit(row)
+        emit(row)
+        row["decode"] = {}
+        for arch in MESH_DECODE_ARCHS:
+            row["decode"][arch] = mesh_decode(get_config(arch), mesh, device)
+            gc.collect()
+            torch.cuda.empty_cache()
     return row
 
 
@@ -3431,8 +3565,8 @@ def phase_dryrun(rows: dict, reduced: bool = False) -> dict:
         futures = {name: pool.submit(run_cell_process, arch, "train_4k", DRYRUN_MESH,
                                      layers=layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                                      optimizer="float32", microbatches=1, reduced=reduced,
-                                     timeout=600)
-                   for name, (arch, layers) in DRYRUN_CELLS.items()}
+                                     attn_impl=attn_impl, timeout=600)
+                   for name, (arch, layers, attn_impl) in DRYRUN_CELLS.items()}
         cells = {name: fut.result() for name, fut in futures.items()}
     out = {"phase": "dryrun", "mesh": f"{DRYRUN_MESH} (data, model), fake backend, meta tensors",
            "seconds": time.perf_counter() - t0, "cells": {}}
@@ -3449,7 +3583,8 @@ def phase_dryrun(rows: dict, reduced: bool = False) -> dict:
         r = cell["roofline"]
         out["cells"][name] = {
             "arch": cell["arch"], "layers": cell["layers"], "batch": cell["batch"],
-            "seq": cell["seq"], "flops": flops, "measured_step_flops": row["step_flops"],
+            "seq": cell["seq"], "attn_impl": cell["attn_impl"], "flops": flops,
+            "measured_step_flops": row["step_flops"],
             "predicted_peak_gb": peak_gb, "measured_peak_gb": row["peak_gb"],
             "compute_s": r["compute_s"], "memory_s": r["memory_s"], "dominant": r["dominant"],
             "measured_step_s": row["step_s"], "dryrun_s": cell["compile_s"],
@@ -3701,6 +3836,7 @@ def main() -> int:
     main_bwd = trained["backward"]
     checks["flash_attn_bwd"].append(main_bwd)
     lm_row.update({k: trained["row"][k] for k in ("train_tokens_per_s", "mfu")})
+    train_row = trained["row"]
     del trained
     torch.cuda.empty_cache()
 
@@ -3742,7 +3878,8 @@ def main() -> int:
         "layers", "step_s", "train_tokens_per_s", "mfu", "peak_gb")})
     lm_row["moe"]["backward_ms"] = moe_bwd["ms"]
 
-    dry = phase_dryrun({"lm_moe_train": moe_trained, "lm_ssm_train": ssm_trained})
+    dry = phase_dryrun({"lm_moe_train": moe_trained, "lm_ssm_train": ssm_trained,
+                        "lm_train": train_row, "lm_hybrid_train": hybrid_trained})
     lm_row["dryrun"] = {k: {f: v[f] for f in ("predicted_peak_gb", "measured_peak_gb")}
                         for k, v in dry["cells"].items()}
     meshed = phase_mesh(get_config(TRAIN_ARCH), moe_cfg)
@@ -3752,6 +3889,8 @@ def main() -> int:
     lm_row["mesh"] = {k: meshed[k] for k in ("losses_bit_equal", "weights_bit_equal",
                                              "loss_max_rel_diff", "step_s")}
     lm_row["mesh"]["moe_ep"] = {k: meshed["moe_ep"][k] for k in ("ep_ms", "moe_apply_ms")}
+    lm_row["mesh"]["decode"] = {arch: {k: r[k] for k in ("ms_per_step", "unsharded_ms_per_step")}
+                                for arch, r in meshed["decode"].items()}
     torch.cuda.empty_cache()
 
     sources = {"online_lookup": ("src/repro_torch/csrc/online_lookup.cu",

@@ -35,11 +35,26 @@ first if sharded, and so are q's heads where k's and v's are not (MQA on a
 ``model`` axis wider than the KV heads): a rank's q heads must map onto
 its own KV heads.  The ctypes entry points take ``data_ptr()`` and raise
 if a DTensor reaches them.
+
+The forward and the backward are each one dispatcher op
+(``torch.ops.repro_torch.flash_fwd`` and ``flash_bwd``, custom ops around
+``_forward`` and ``_backward``), so a meta tensor, as the dry-run gives
+them, takes their fake implementations (the kernels' output shapes and
+dtypes, never the ctypes entry), and ``FlopCounterMode`` (and the
+dry-run's recorder) counts them at torch's own SDPA formulas: the forward
+counts the two products an ``xla`` step's einsums count, the backward
+five (the scores recomputed, then dV, dP, dQ and dK) where the autograd
+of the ``xla`` einsums counts four.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import (
+    register_flop_formula,
+    sdpa_backward_flop_count,
+    sdpa_flop_count,
+)
 
 from repro_torch.kernels import native
 from repro_torch.kernels.flash_attn.ref import (
@@ -119,7 +134,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """Attention of q over k, v (key t masked for query s where t > s when
     ``causal``), float32 inside, returned in q's dtype.  Runs where the
-    tensors lie: CUDA launches the kernel, CPU runs the plain version.
+    tensors lie: CUDA launches the kernel, CPU runs the plain version, meta
+    gives the output's shape (the custom ops' fake implementations).
     ``causal=False`` is refused where the JAX wrapper refuses it (a T that
     its blocks would pad), so both packages take the same calls.
     Differentiable in q, k and v (``FlashAttention``).  DTensors run on
@@ -133,8 +149,9 @@ def flash_attention(
     bk = min(_JAX_BLOCK, _round_up(t, 8))
     if not causal and _round_up(t, bk) != t:
         raise NotImplementedError("non-causal padding path unused")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda or cpu (or meta: shapes only), "
+                         f"not {q.device}")
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
     return FlashAttention.apply(q, k, v, causal, grad)
 
@@ -167,16 +184,62 @@ class FlashAttention(torch.autograd.Function):
         ctx.causal = causal
         if grad is None:
             grad = any(ctx.needs_input_grad[:3])
-        out, lse = _forward(q, k, v, causal, grad)
-        if lse is not None:
+        out, lse = torch.ops.repro_torch.flash_fwd(q, k, v, causal, grad)
+        if grad:
             ctx.save_for_backward(q, k, v, lse)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, lse = ctx.saved_tensors
-        dq, dk, dv = _backward(q, k, v, lse, do.to(q.dtype).contiguous(), ctx.causal)
+        dq, dk, dv = torch.ops.repro_torch.flash_bwd(q, k, v, lse, do.to(q.dtype).contiguous(),
+                                                     ctx.causal)
         return dq, dk, dv, None, None
+
+
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=())
+def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+               grad: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_forward`` as a dispatcher op: (out, the log-sum-exp, or an empty
+    float32 tensor unless ``grad``)."""
+    out, lse = _forward(q, k, v, causal, grad)
+    return out, lse if lse is not None else q.new_empty((0,), dtype=torch.float32)
+
+
+@_flash_fwd.register_fake
+def _(q, k, v, causal, grad):
+    b, s, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, s) if grad else (0,), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::flash_bwd", mutates_args=())
+def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor,
+               do: torch.Tensor, causal: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_backward`` as a dispatcher op: (dq, dk, dv)."""
+    return tuple(_backward(q, k, v, lse, do, causal))
+
+
+@_flash_bwd.register_fake
+def _(q, k, v, lse, do, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _sdpa_shapes(q_shape, k_shape) -> tuple:
+    """(q, k, v) in SDPA's (B, H, S, D) layout, k and v at q's heads."""
+    b, s, h, d = q_shape
+    t = k_shape[1]
+    return (b, h, s, d), (b, h, t, d), (b, h, t, d)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def _(q_shape, k_shape, v_shape, causal, grad, out_shape=None, **kw) -> int:
+    return sdpa_flop_count(*_sdpa_shapes(q_shape, k_shape))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_bwd)
+def _(q_shape, k_shape, v_shape, lse_shape, do_shape, causal, out_shape=None, **kw) -> int:
+    qs, ks, vs = _sdpa_shapes(q_shape, k_shape)
+    return sdpa_backward_flop_count(qs, qs, ks, vs)
 
 
 def _check_launch(q: torch.Tensor, *tensors: torch.Tensor) -> None:

@@ -36,8 +36,9 @@ not a view; collective bytes, the operands of each collective.
 Memory: ``peak_bytes_per_dev`` is the tracker's peak, arguments (state
 and batch, tracked from the start) included; ``argument_bytes_per_dev``
 the local bytes of the step's inputs; ``temp_bytes_per_dev`` the rest;
-the train step updates its state in place, so its output aliases its
-arguments (``alias_bytes_per_dev``), as JAX's donated state does.
+the train step updates its state in place, and the serve step its cache,
+so the output aliases those arguments (``alias_bytes_per_dev``), as JAX's
+donated state and cache do.
 
 ``cost_method`` is always ``"full"``: the port's layers are a Python loop
 that every recorder sees whole, so nothing is unrolled or extrapolated
@@ -57,12 +58,18 @@ unsharded step, as one card runs it: no process group, no DTensor);
 ``int8`` moments, or the train driver's ``float32``) and ``--microbatches``
 (default: ``microbatches_for``'s count, from the JAX package's 2 GiB
 activation budget) size a cell as ``chip_smoke.py``'s one-card runs are
-sized.
+sized; ``--attn-impl pallas_flash`` runs the flash path (its fake
+implementation on meta tensors, ``kernels/flash_attn/ops.py``) where the
+config's default is ``xla``.
+
+Decode cells (``--shape decode_32k``, ``long_500k``) run ``serve_step``
+against a cache placed by ``sharding.cache_specs`` and written in place.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -122,7 +129,8 @@ def _tensors(tree) -> list:
 
 def run_cell(arch: str, shape: str, mesh_kind: str, *, reduced: bool = False,
              layers: int | None = None, batch: int | None = None, seq: int | None = None,
-             optimizer: str = "int8", microbatches: int | None = None) -> dict:
+             optimizer: str = "int8", microbatches: int | None = None,
+             attn_impl: str | None = None) -> dict:
     """One cell in this process: starts the ``fake`` backend at the mesh's
     size (a process holds one cell: the backend cannot be restarted at
     another size in the same process reliably) and returns its JSON."""
@@ -154,6 +162,8 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *, reduced: bool = False,
     cfg = get_config(arch, reduced=reduced)
     if layers:
         cfg = scaled_cfg(cfg, layers)
+    if attn_impl:
+        cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
     opt = (adamw(lr=3e-4, weight_decay=0.1, quantize_moments=True) if optimizer == "int8"
            else adamw(lr=3e-4, weight_decay=0.1, quantize_moments=False))
     spec = input_specs(arch, shape, reduced=reduced, cfg_override=cfg, mesh=mesh,
@@ -167,7 +177,9 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *, reduced: bool = False,
     step = step_fn_for(kind, cfg, num_microbatches=mu, optimizer=opt)
 
     arg_bytes = _local_bytes(args)
-    state_bytes = _local_bytes(args[0]) if kind == "train" else 0
+    # what the step updates in place: a train state, a decode cache
+    state_bytes = (_local_bytes(args[0]) if kind == "train"
+                   else _local_bytes(args[1]) if kind == "decode" else 0)
     tracker = MemTracker()
     tracker.track_external(*[t.to_local() if isinstance(t, DTensor) else t
                              for t in _tensors(args)])
@@ -197,6 +209,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *, reduced: bool = False,
     return {
         "arch": arch, "shape": shape, "mesh": mesh_kind, "kind": kind, "devices": n_dev,
         "mesh_shape": list(mesh_shape), "layers": cfg.num_layers, "batch": b, "seq": s,
+        "attn_impl": cfg.attn_impl,
         "optimizer": optimizer, "microbatches": mu, "cost_method": "full",
         "compile_s": round(seconds, 1), "compile_rolled_s": 0.0,
         "memory": {
@@ -221,9 +234,9 @@ def run_cell_process(arch: str, shape: str, mesh_kind: str, *, timeout: float = 
     error, or its exit without a result, comes back as ``{"error": ...}``
     naming the cell."""
     opts = []
-    for key in ("layers", "batch", "seq", "microbatches"):
+    for key in ("layers", "batch", "seq", "microbatches", "attn_impl"):
         if kw.get(key):
-            opts += [f"--{key}", str(kw[key])]
+            opts += [f"--{key.replace('_', '-')}", str(kw[key])]
     if kw.get("reduced"):
         opts.append("--reduced")
     opts += ["--optimizer", kw.get("optimizer", "int8")]
@@ -263,12 +276,14 @@ def main(argv=None) -> None:
     ap.add_argument("--optimizer", choices=["int8", "float32"], default="int8")
     ap.add_argument("--microbatches", type=int, default=0,
                     help="gradient-accumulation count (default: microbatches_for's)")
+    ap.add_argument("--attn-impl", choices=["xla", "pallas_flash"], default="",
+                    help="attention path (default: the config's, xla)")
     ap.add_argument("--out", default="results/dryrun.json")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     kw = dict(reduced=args.reduced, layers=args.layers or None, batch=args.batch or None,
               seq=args.seq or None, optimizer=args.optimizer,
-              microbatches=args.microbatches or None)
+              microbatches=args.microbatches or None, attn_impl=args.attn_impl or None)
 
     if args.one:  # the child: one cell, its JSON to --out
         cell = run_cell(args.arch, args.shape, args.mesh_shape or args.mesh, **kw)

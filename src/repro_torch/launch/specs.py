@@ -11,9 +11,10 @@ dry-run runs the step against exactly these: what proves that a 671B
 train step fits without ever allocating it.
 
 Each cell runs at its config's own ``attn_impl`` (the configs' default is
-``"xla"``), as in the JAX package.  A meta tensor has no ``data_ptr``: a
-path that would reach a ctypes kernel (``pallas_flash``) raises, and the
-dry-run records that error against the cell.
+``"xla"``), as in the JAX package.  A meta tensor never reaches a ctypes
+kernel: the flash forward and backward are dispatcher ops whose fake
+implementations give the kernels' output shapes (``pallas_flash``,
+``kernels/flash_attn/ops.py``).
 """
 
 from __future__ import annotations
@@ -89,21 +90,6 @@ def batch_struct(cfg: ModelConfig, batch: int, seq: int, *, mesh=None) -> dict:
     return out
 
 
-def _placed_cache(cache: dict, cfg: ModelConfig, mesh) -> dict:
-    specs = sharding.cache_specs(cache, cfg, mesh)
-
-    def place(x, spec):
-        if isinstance(x, dict):
-            return {k: place(x[k], spec[k]) for k in x}
-        if isinstance(x, list):
-            return [place(a, b) for a, b in zip(x, spec)]
-        if isinstance(x, torch.Tensor):
-            return sharding.distribute_tensor(x, spec, mesh)
-        return x
-
-    return place(cache, specs)
-
-
 def input_specs(arch: str, shape: str, *, reduced: bool = False, cfg_override=None,
                 mesh=None, optimizer: Optional[Optimizer] = None,
                 batch: Optional[int] = None, seq: Optional[int] = None) -> dict:
@@ -140,7 +126,7 @@ def input_specs(arch: str, shape: str, *, reduced: bool = False, cfg_override=No
     cache = init(cfg, b, s, device=META)
     tokens_new = torch.empty((b, 1), dtype=torch.int32, device=META)
     if mesh is not None:
-        cache = _placed_cache(cache, cfg, mesh)
+        cache = sharding.distribute_cache(cache, cfg, mesh)
         tokens_new = sharding.distribute_tensor(
             tokens_new, sharding.batch_specs({"t": tokens_new}, mesh)["t"], mesh)
     return {"kind": "decode", "cfg": cfg, "args": (params, cache, tokens_new)}

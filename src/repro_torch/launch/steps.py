@@ -17,7 +17,7 @@ from repro_torch.models.api import Model
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import Optimizer
 
-__all__ = ["TrainState", "loss_and_grads", "make_prefill_step", "make_serve_step",
+__all__ = ["TrainState", "greedy", "loss_and_grads", "make_prefill_step", "make_serve_step",
            "make_train_step", "train_state_placements"]
 
 
@@ -130,12 +130,46 @@ def _microbatches(x, n: int):
 
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
+    """One greedy decode step: (the next tokens, int32 (B,), the cache
+    updated in place).  On a mesh the tokens are a DTensor on the batch
+    placement (``greedy``)."""
     def serve_step(params, cache, tokens_new):
         logits, cache = api.decode_step(params, cache, tokens_new, cfg)
         last = logits[..., -1, :] if logits.ndim == 3 else logits
-        return torch.argmax(last, dim=-1).to(torch.int32), cache
+        return greedy(last), cache
 
     return serve_step
+
+
+def greedy(logits: torch.Tensor) -> torch.Tensor:
+    """The argmax over the last dim of ``logits`` as int32, ties to the
+    lowest index (``torch.argmax`` on one device).  A DTensor whose vocab
+    is split over ``model`` is not gathered: each rank takes its own
+    (max, index) pair and the pairs are joined over the ranks, the first
+    rank holding the max winning."""
+    from repro_torch.models.pspec import is_dtensor, local_call, seq_placements, shard_of
+
+    if not is_dtensor(logits):
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    last = logits.ndim - 1
+    vocab = shard_of(logits, last)
+    return local_call(lambda x: _greedy_local(x, vocab), (logits,),
+                      (seq_placements(logits, {0: 0, last: last}),),
+                      seq_placements(logits, {0: 0}))
+
+
+def _greedy_local(logits: torch.Tensor, vocab) -> torch.Tensor:
+    idx = torch.argmax(logits, dim=-1)
+    if vocab is None:
+        return idx.to(torch.int32)
+    from repro_torch.models.pspec import gather_over
+
+    group, index, _ = vocab
+    best = torch.gather(logits, -1, idx[..., None])[..., 0]
+    idx = idx + index * logits.shape[-1]
+    vals = gather_over(best[None], 0, group)       # (ranks, B): each rank's max
+    idxs = gather_over(idx[None], 0, group)
+    return torch.gather(idxs, 0, torch.argmax(vals, dim=0)[None])[0].to(torch.int32)
 
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:

@@ -5,7 +5,8 @@ The JAX package reads the compiled HLO module's symbol table.  Here the
 dry-run runs the step once under ``Recorder``, a ``TorchDispatchMode``
 that sees every op a rank runs on its local shards (DTensor's own ops
 are let through to DTensor, which runs them locally and issues the
-collectives; its shape propagation on fake tensors is skipped): each op's
+collectives; its shape propagation under a fake mode is skipped, the
+global-shape stand-ins it creates included): each op's
 outputs, its bytes read and written and its FLOPs (``FlopCounterMode``'s
 formulas, ``torch.utils.flop_counter.flop_registry``), and the operands of
 every collective (``_c10d_functional`` and ``c10d`` ops).  That record is
@@ -76,8 +77,12 @@ class Recorder(TorchDispatchMode):
             return NotImplemented  # DTensor runs it on the local shards, seen below
         out = func(*args, **kwargs)
         ins = [a for a in tree_leaves((args, kwargs)) if isinstance(a, torch.Tensor)]
-        if any(isinstance(a, FakeTensor) for a in ins):
-            return out  # DTensor's shape propagation, not the step's work
+        if (any(isinstance(a, FakeTensor) for a in ins)
+                or torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None):
+            # DTensor's shape propagation, not the step's work: its ops on
+            # fake tensors, and the global-shape stand-ins it makes for them
+            # (under its fake mode, from no tensor)
+            return out
         outs = [o for o in tree_leaves(out) if isinstance(o, torch.Tensor)]
         self.ops += 1
         packet = func._overloadpacket

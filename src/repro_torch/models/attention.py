@@ -8,6 +8,15 @@ kernel (``kernels/flash_attn``) under the same five conditions as in the JAX
 package; everything else is the einsum path in plain PyTorch.  Decoding
 writes the new key/value into the cache tensors in place (JAX returns new
 arrays) and returns the same cache dict.
+
+On a mesh decoding runs on local shards (``pspec.local_call``), each cache
+with its own placements (``sharding.cache_specs``), so the writes land in
+it.  A head-sharded cache (KV heads dividing ``model``): each rank writes
+and attends over its own heads.  A sequence-parallel cache (MQA, or KV
+heads that do not divide ``model``): only the rank whose chunk holds the
+slot writes the key and value, every rank writes the position (``pos`` is
+whole over ``model``) and scores the query over its own chunk, and the
+chunks are joined by ``pspec.split_softmax``.
 """
 
 from __future__ import annotations
@@ -25,7 +34,11 @@ from repro_torch.models.pspec import (
     local_call,
     placed,
     row_placements,
+    seq_placements,
+    shard_of,
     split_last,
+    split_softmax,
+    sum_over,
 )
 
 __all__ = [
@@ -87,11 +100,14 @@ def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
     return scores
 
 
-def _sdpa(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
+def _sdpa(q, k, v, mask, cfg: ModelConfig, group=None) -> torch.Tensor:
     """q (B,S,H,hd), k/v (B,T,KV,hd), mask (B|1, S, T) bool -> (B,S,H*hd).
     fp32 scores; GQA via head grouping.  DTensors run on each rank's batch
     rows and heads (``pspec.local_call``): DTensor cannot place the einsum's
-    flattening of a sharded head dim on every torch release."""
+    flattening of a sharded head dim on every torch release.  With
+    ``group``, k, v and the mask are this rank's chunk of a sequence split
+    over the group's ranks, and the chunks are joined
+    (``pspec.split_softmax``)."""
     if is_dtensor(q):
         q_pl, kv_pl = head_placements(q, k)
         return local_call(lambda *a: _sdpa(*a, cfg), (q, k, v, mask),
@@ -103,8 +119,8 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) / math.sqrt(hd)
     scores = _softcap(scores, cfg.attn_logit_softcap)
     scores = scores.masked_fill(~mask[:, None, None, :, :], NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", w, v.float())
+    w = split_softmax(scores, group)
+    out = sum_over(torch.einsum("bkgst,btkd->bskgd", w, v.float()), group)
     return out.reshape(b, s, h * hd).to(q.dtype)
 
 
@@ -206,28 +222,49 @@ def attention_decode(
     new key/value into ``cache`` in place; returns (out (B, 1, D), cache)."""
     b = x.shape[0]
     q, k_new, v_new = _project_qkv(params, x, cfg)
-    pos_new = torch.full((b, 1), t, dtype=torch.int32, device=x.device)
+    pos_new = placed(torch.full((b, 1), t, dtype=torch.int32, device=x.device))
     cos, sin = rope(pos_new, cfg.head_dim, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k_new = apply_rope(k_new, cos, sin)
 
-    size = cache["k"].shape[1]
-    slot = t % size  # ring semantics; == t when size == max_len
-    cache["k"][:, slot] = k_new[:, 0]
-    cache["v"][:, slot] = v_new[:, 0]
-    cache["pos"][:, slot] = t
-    k, v, pos = cache["k"], cache["v"], cache["pos"]
+    args = (q, k_new, v_new, cache["k"], cache["v"], cache["pos"])
+    if is_dtensor(q):
+        k = cache["k"]
+        new_pl = seq_placements(k, {0: 0, 2: 2})
+        seq = shard_of(k, 1)
+        out = local_call(lambda *a: _cached_attend(*a, t, cfg, is_global, seq), args,
+                         (new_pl, new_pl, new_pl, k.placements, cache["v"].placements,
+                          cache["pos"].placements), new_pl)
+    else:
+        out = _cached_attend(*args, t, cfg, is_global)
+    return reduce_boundary(out, x.dtype) @ params["wo"], cache
 
+
+def _cached_attend(q, k_new, v_new, k, v, pos, t: int, cfg: ModelConfig, is_global,
+                   seq=None) -> torch.Tensor:
+    """Writes the new key, value and position at slot t % size (ring
+    semantics; == t when size == max_len) in place, then attends q over the
+    cache: (B, 1, H·hd).  ``seq`` is ``pspec.shard_of`` the cache's
+    sequence: k and v are then this rank's chunk, the slot's owner alone
+    writes them, and ``pos`` (whole) is sliced to the chunk."""
+    size = pos.shape[1]
+    slot = t % size
+    chunk = k.shape[1]
+    lo = 0 if seq is None else seq[1] * chunk
+    if lo <= slot < lo + chunk:
+        k[:, slot - lo] = k_new[:, 0]
+        v[:, slot - lo] = v_new[:, 0]
+    pos[:, slot] = t
+    pos = pos[:, lo:lo + chunk]
     mask = make_mask(
-        pos_new,
+        torch.full_like(pos[:, :1], t),
         pos,
         causal=True,
         window=cfg.sliding_window,
         is_global=is_global,
         k_valid=pos >= 0,
     )
-    out = reduce_boundary(_sdpa(q, k, v, mask, cfg), x.dtype) @ params["wo"]
-    return out, cache
+    return _sdpa(q, k, v, mask, cfg, None if seq is None else seq[0])
 
 
 # -- cross attention (whisper decoder) ------------------------------------------

@@ -25,7 +25,9 @@ JAX's cache layout, self K/V (L, B, max_len, H, hd) and cross K/V (L, B,
 T_enc, H, hd), writes the new key and value in place, and clamps an
 out-of-range position as ``lax.dynamic_slice`` and
 ``lax.dynamic_update_slice`` do: ``pos_dec``'s last row and the cache's last
-slot.
+slot.  On a mesh each decode attention runs on local shards, the caches
+placed by ``sharding.cache_specs`` on heads, or else on the sequence
+(``_cache_attend``).
 """
 
 from __future__ import annotations
@@ -49,7 +51,16 @@ from repro_torch.models.layers import (
     torch_dtype,
 )
 from repro_torch.models.losses import next_token_loss
-from repro_torch.models.pspec import BATCH, constrain, placed, split_last
+from repro_torch.models.pspec import (
+    BATCH,
+    constrain,
+    is_dtensor,
+    local_call,
+    placed,
+    seq_placements,
+    shard_of,
+    split_last,
+)
 
 __all__ = [
     "EncDec",
@@ -239,29 +250,60 @@ def precompute_cross(params: EncDec, memory: torch.Tensor, cfg: ModelConfig,
 def decode_step(params: EncDec, cache: dict, tokens_new,
                 cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """One decode step.  tokens_new (B, 1).  Writes the self K/V at ``t`` in
-    place and returns (logits (B, 1, V) in the compute dtype, cache).  Not
-    on a mesh (``lm.check_unsharded_decode``)."""
-    from repro_torch.models.lm import check_unsharded_decode
-
-    check_unsharded_decode()
+    place and returns (logits (B, 1, V) in the compute dtype, cache).  On a
+    mesh each attention runs on local shards (``_cache_attend``), the
+    caches placed by ``sharding.cache_specs``: on heads, or else on the
+    sequence."""
     cdt = torch_dtype(cfg.compute_dtype)
     t = cache["t"]
     tokens = _tokens(params, tokens_new)
     pos_row = params["pos_dec"][min(t, params["pos_dec"].shape[0] - 1)]
-    x = embedding(tokens, params["embed"]).to(cdt) + pos_row.to(cdt)
-    max_len = cache["self_k"].shape[2]
-    slot = min(t, max_len - 1)
-    mask = (torch.arange(max_len, device=x.device)[None] <= t)[:, None, :]
+    x = (constrain(embedding(tokens, params["embed"]), BATCH, None, None).to(cdt)
+         + pos_row.to(cdt))
+    slot = min(t, cache["self_k"].shape[2] - 1)
     for i, lp in enumerate(params["dec"]):
-        sk, sv = cache["self_k"][i], cache["self_v"][i]
         sa = lp["self_attn"]
         hdn = _norm(x, lp["ln1"])
-        q = _heads(sa, hdn, "wq", cfg)
-        sk[:, slot] = _heads(sa, hdn, "wk", cfg)[:, 0]
-        sv[:, slot] = _heads(sa, hdn, "wv", cfg)[:, 0]
-        x = x + _sdpa(q, sk, sv, mask, cfg) @ sa["wo"]
-        x = x + _cross(lp["cross_attn"], _norm(x, lp["ln2"]), cache["mem_k"][i],
-                       cache["mem_v"][i], cfg)
+        q, k, v = (_heads(sa, hdn, w, cfg) for w in ("wq", "wk", "wv"))
+        x = x + _cache_attend(q, cache["self_k"], cache["self_v"], i, cfg, (k, v), slot, t) \
+            @ sa["wo"]
+        ca = lp["cross_attn"]
+        q = _heads(ca, _norm(x, lp["ln2"]), "wq", cfg)
+        x = x + _cache_attend(q, cache["mem_k"], cache["mem_v"], i, cfg) @ ca["wo"]
         x = x + mlp_apply(lp["mlp"], _norm(x, lp["ln3"]), "gelu")
     cache["t"] = t + 1
-    return _norm(x, params["dec_ln"]) @ params["embed"].T, cache
+    return constrain(_norm(x, params["dec_ln"]) @ params["embed"].T, BATCH, None, "model"), cache
+
+
+def _cache_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, layer: int,
+                  cfg: ModelConfig, new=(None, None), slot: int = 0, t: int = 0) -> torch.Tensor:
+    """q (B, 1, H, hd) over layer ``layer`` of the stacked K/V ``ck``/``cv``
+    (L, B, S, H, hd) -> (B, 1, H·hd).  The self attention's ``new`` key and
+    value (B, 1, H, hd) go in at ``slot`` first, and the query sees the
+    positions <= t; without them (the cross attention's memory), every
+    position.  On a mesh: each rank's batch rows and heads, and its chunk
+    of a sequence-sharded cache (the slot's owner alone writes it;
+    ``pspec.split_softmax`` joins the chunks)."""
+    args = (q, ck, cv, *new)
+    if not is_dtensor(q):
+        return _attend_layer(*args, layer, cfg, slot, t)
+    q_pl = seq_placements(ck, {1: 0, 3: 2})
+    new_pl = None if new[0] is None else q_pl
+    seq = shard_of(ck, 2)
+    return local_call(lambda *a: _attend_layer(*a, layer, cfg, slot, t, seq), args,
+                      (q_pl, ck.placements, cv.placements, new_pl, new_pl), q_pl)
+
+
+def _attend_layer(q, ck, cv, k_new, v_new, layer: int, cfg: ModelConfig, slot: int, t: int,
+                  seq=None) -> torch.Tensor:
+    k, v = ck[layer], cv[layer]
+    chunk = k.shape[1]
+    lo = 0 if seq is None else seq[1] * chunk
+    if k_new is None:
+        mask = torch.ones((1, 1, chunk), dtype=torch.bool, device=q.device)
+    else:
+        if lo <= slot < lo + chunk:
+            k[:, slot - lo] = k_new[:, 0]
+            v[:, slot - lo] = v_new[:, 0]
+        mask = (torch.arange(lo, lo + chunk, device=q.device)[None] <= t)[:, None, :]
+    return _sdpa(q, k, v, mask, cfg, None if seq is None else seq[0])

@@ -330,19 +330,6 @@ def train_loss(params: LM, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor,
 # =============================================================================
 # serving: cache init / prefill / decode
 # =============================================================================
-def check_unsharded_decode() -> None:
-    """Decode writes each new key, value and state into its cache in place;
-    on a mesh those writes land in slices of DTensors (a sequence-parallel
-    cache's slot on one rank only), which the port has not built: decoding
-    under a mesh raises (ROADMAP), as the dry-run's decode cells record."""
-    from repro_torch.models.pspec import current_mesh
-
-    if current_mesh() is not None:
-        raise NotImplementedError("decode on a mesh is not ported (ROADMAP): serve on one "
-                                  "device, or leave the mesh")
-
-
-
 def _layer_cache(cfg: ModelConfig, batch: int, max_len: int, window_cache: bool,
                  dtype: torch.dtype, device: Optional[torch.device]) -> dict:
     if cfg.ssm:
@@ -409,7 +396,9 @@ def _block_decode(bp, x: torch.Tensor, lcache: dict, t: int, cfg: ModelConfig, *
         h = rms_norm(x, bp["norm2"], cfg.norm_eps)
         if cfg.moe and not dense_ffn:
             # serving runs NO-DROP (cf = E/k caps capacity at the group size):
-            # inference must not silently drop tokens from experts
+            # inference must not silently drop tokens from experts.  On a
+            # mesh a decode batch is below EP's 64 tokens a rank: the local
+            # path, one group of the whole batch, as JAX's gate picks
             y, _ = moe_mod.moe_apply(bp["ffn"], h, cfg, group_size=h.shape[0],
                                      capacity_factor=cfg.num_experts / cfg.top_k)
             x = x + y
@@ -430,12 +419,14 @@ def _shared_attn_decode(sp, x: torch.Tensor, lcache: dict, t: int,
 def decode_step(params: LM, cache: dict, tokens_new,
                 cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """One decode step for the whole stack.  tokens_new (B, 1).  Updates
-    ``cache`` in place and returns (logits (B, 1, V), cache).  Not on a
-    mesh: ``check_unsharded_decode``."""
-    check_unsharded_decode()
+    ``cache`` in place and returns (logits (B, 1, V), cache).  On a mesh
+    the cache is placed by ``sharding.cache_specs``, and the embedded token
+    and the logits are pinned where JAX pins them (the batch; the logits'
+    vocab over ``model``)."""
     cdt = torch_dtype(cfg.compute_dtype)
     t = cache["t"]
-    x = embedding(_tokens(params, tokens_new), params["embed"]).to(cdt)
+    x = constrain(embedding(_tokens(params, tokens_new), params["embed"]),
+                  BATCH, None, None).to(cdt)
     for layer, lc in zip(_layers(params, cfg), _layer_caches(cache), strict=True):
         if layer is None:
             x = _shared_attn_decode(params["shared_attn"], x, lc, t, cfg)
@@ -444,7 +435,7 @@ def decode_step(params: LM, cache: dict, tokens_new,
             x = _block_decode(bp, x, lc, t, cfg, is_global=is_global, dense_ffn=dense_ffn)
     cache["t"] = t + 1
     hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return hidden @ params.head(), cache
+    return constrain(hidden @ params.head(), BATCH, None, "model"), cache
 
 
 def prefill(params: LM, tokens, cfg: ModelConfig,

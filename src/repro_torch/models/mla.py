@@ -10,6 +10,15 @@ JAX package; MLA never routes to the flash kernel (its query/key width,
 nope + rope, is not its value width).  Decoding writes the new latent, rope
 key and position into the cache tensors in place (JAX returns new arrays)
 and returns the same cache dict.
+
+On a mesh decoding runs on local shards (``pspec.local_call``): the
+compressed cache is sharded on its sequence over ``model``
+(``sharding.cache_specs``), so only the rank whose chunk holds position t
+writes it, and the absorbed scores over the chunks are joined by
+``pspec.split_softmax``.  ``wkv_b`` keeps its placement: where its output
+dim splits over ``model`` on head boundaries, each rank absorbs its own
+heads' queries, the absorbed queries are gathered, and each rank projects
+its own heads' values out of the joined latent.
 """
 
 from __future__ import annotations
@@ -29,11 +38,17 @@ from repro_torch.models.layers import (
     rope,
 )
 from repro_torch.models.pspec import (
+    gather_over,
     head_placements,
     is_dtensor,
     local_call,
+    placed,
     row_placements,
+    seq_placements,
+    shard_of,
     split_last,
+    split_softmax,
+    sum_over,
 )
 
 __all__ = ["MLA", "init_mla_cache", "mla_attention", "mla_decode", "mla_init"]
@@ -172,33 +187,75 @@ def mla_decode(params, x: torch.Tensor, cache: dict, t: int,
     out_h      = (Σ_t w_t c_t)^T W_uv_h
     """
     b = x.shape[0]
-    h, nope, pe, vd = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    r = cfg.kv_lora_rank
-
     q_nope, q_pe = _q_proj(params, x, cfg)          # (B,1,H,nope), (B,1,H,pe)
-    pos_new = torch.full((b, 1), t, dtype=torch.int32, device=x.device)
+    pos_new = placed(torch.full((b, 1), t, dtype=torch.int32, device=x.device))
     cos, sin = _rope(pos_new, cfg)
     q_pe = apply_rope(q_pe, cos, sin)
-
     c_new, k_pe_new = _kv_latent(params, x, pos_new, cfg)
-    cache["c_kv"][:, t] = c_new[:, 0]
-    cache["k_pe"][:, t] = k_pe_new[:, 0]
-    cache["pos"][:, t] = t
-    c_kv, k_pe, pos = cache["c_kv"], cache["k_pe"], cache["pos"]
 
-    wkv_b = params["wkv_b"].reshape(r, h, nope + vd)
+    args = (q_nope, q_pe, c_new, k_pe_new, cache["c_kv"], cache["k_pe"], cache["pos"],
+            params["wkv_b"])
+    if is_dtensor(q_nope):
+        out = _absorbed_on_mesh(args, t, cfg)
+    else:
+        out = _absorbed(*args, t, cfg)
+    return out.to(x.dtype) @ params["wo"], cache
+
+
+def _absorbed_on_mesh(args, t: int, cfg: ModelConfig):
+    """``_absorbed`` on each rank's batch rows, cache chunk and (where
+    ``wkv_b`` splits on head boundaries) heads."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    c_kv, k_pe, pos, wkv_b = args[4:]
+    seq, heads = shard_of(c_kv, 1), shard_of(wkv_b, 1)
+    if heads is not None and cfg.num_heads % heads[2]:
+        heads = None  # a shard boundary inside a head: every rank takes them all
+    rows = seq_placements(c_kv, {0: 0})
+    w_pl = list(wkv_b.placements) if heads is not None else [Replicate()] * len(rows)
+    q_pl = [Shard(2) if w == Shard(1) else r for w, r in zip(w_pl, rows)]
+    return local_call(lambda *a: _absorbed(*a, t, cfg, seq, heads), args,
+                      (q_pl, rows, rows, rows, c_kv.placements, k_pe.placements,
+                       pos.placements, w_pl), q_pl)
+
+
+def _absorbed(q_nope, q_pe, c_new, k_pe_new, c_kv, k_pe, pos, wkv_b, t: int,
+              cfg: ModelConfig, seq=None, heads=None) -> torch.Tensor:
+    """Writes the new latent, rope key and position at t in place, then
+    attends the absorbed queries over the cache: (B, 1, H·vd), float32.
+    ``seq`` (``pspec.shard_of`` the cache's sequence): c_kv and k_pe are
+    this rank's chunk, its owner alone writes them, ``pos`` (whole) is
+    sliced to the chunk.  ``heads`` (``shard_of`` ``wkv_b``'s output dim):
+    q_nope and wkv_b hold this rank's heads, q_pe all of them."""
+    b = q_nope.shape[0]
+    nope, pe, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    chunk = c_kv.shape[1]
+    lo = 0 if seq is None else seq[1] * chunk
+    if seq is None or lo <= t < lo + chunk:
+        c_kv[:, t - lo] = c_new[:, 0]
+        k_pe[:, t - lo] = k_pe_new[:, 0]
+    pos[:, t] = t
+    pos = pos[:, lo:lo + chunk]
+
+    wkv_b = wkv_b.reshape(r, -1, nope + vd)          # (R, H or this rank's heads, nope+vd)
     w_uk = wkv_b[..., :nope]                         # (R, H, nope)
     w_uv = wkv_b[..., nope:]                         # (R, H, vd)
 
     # absorb W_uk into q: (B,1,H,nope) x (R,H,nope) -> (B,1,H,R)
     q_c = torch.einsum("bshn,rhn->bshr", q_nope.float(), w_uk.float())
+    if heads is not None:
+        q_c = gather_over(q_c, 2, heads[0])
+    group = None if seq is None else seq[0]
     s_c = torch.einsum("bshr,btr->bhst", q_c, c_kv.float())
     s_pe = torch.einsum("bshd,btd->bhst", q_pe.float(), k_pe.float())
     scores = (s_c + s_pe) / math.sqrt(nope + pe)
     valid = (pos <= t) & (pos >= 0)
     scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
-    w = torch.softmax(scores, dim=-1)                # (B,H,1,T)
-    out_c = torch.einsum("bhst,btr->bshr", w, c_kv.float())
+    w = split_softmax(scores, group)                 # (B,H,1,T)
+    out_c = sum_over(torch.einsum("bhst,btr->bshr", w, c_kv.float()), group)
+    if heads is not None:
+        n = w_uv.shape[1]
+        out_c = out_c[:, :, heads[1] * n:(heads[1] + 1) * n]
     out = torch.einsum("bshr,rhv->bshv", out_c, w_uv.float())
-    out = out.reshape(b, 1, h * vd).to(x.dtype) @ params["wo"]
-    return out, cache
+    return out.reshape(b, 1, -1)

@@ -36,6 +36,20 @@ dims that split the rows (``weight_grad_placements``).  This is the
 counterpart of a ``shard_map`` block; the block runs with no mesh active,
 so the model code inside it sees plain tensors only.
 
+Decoding writes into its caches in place, and on a mesh only a block over
+local shards can do that: a cache passed to ``local_call`` with its own
+placements comes in as its local tensor, the same storage, so a write into
+it lands in the cache.  Any other placement makes ``redistribute`` build a
+temporary copy, and the write is lost.  So is a write through DTensor's
+``__setitem__`` into a cache whose sequence dim is sharded: it writes
+nothing and raises nothing.  A decode block therefore takes each cache with
+its own placements and what goes into it with ``seq_placements`` (the
+cache's batch and head shards, the sequence whole); ``shard_of`` tells the
+block which chunk of a sharded dim it holds, so only the owner of a slot
+writes it.  Over a sequence split into chunks, attention joins the chunks'
+softmax with ``split_softmax`` and ``sum_over`` (float32, as GSPMD joins a
+sequence-parallel cache); ``gather_over`` gathers a dim split over a group.
+
 The JAX module's ``unrolled_scans``/``scan_unroll`` are not ported: they
 work around XLA's cost analysis counting a ``while`` body once, and the
 port's layers are a Python loop, which every counter sees whole.
@@ -48,9 +62,10 @@ import math
 
 import torch
 
-__all__ = ["BATCH", "activation_mesh", "constrain", "current_mesh", "head_placements",
-           "is_dtensor", "local_call", "placed", "resolve_spec", "row_placements",
-           "split_last", "weight_grad_placements"]
+__all__ = ["BATCH", "activation_mesh", "constrain", "current_mesh", "gather_over",
+           "head_placements", "is_dtensor", "local_call", "placed", "resolve_spec",
+           "row_placements", "seq_placements", "shard_of", "split_last", "split_softmax",
+           "sum_over", "weight_grad_placements"]
 
 BATCH = "__batch__"
 
@@ -200,13 +215,79 @@ def weight_grad_placements(row_pl: list, owned=()) -> list:
             for i, p in enumerate(row_pl)]
 
 
+def seq_placements(cache, dims: dict) -> list:
+    """The placements, for a decode block over ``cache`` (a DTensor), of a
+    tensor whose dim ``dims[d]`` lines up with the cache's dim d: each
+    ``Shard(d)`` of the cache with d in ``dims`` as ``Shard(dims[d])``,
+    every other entry ``Replicate()``.  Leaving the cache's sequence dim
+    out of ``dims`` keeps the new entry and the query whole over the
+    ranks that split the sequence."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims else Replicate()
+            for p in cache.placements]
+
+
+def shard_of(x, dim: int):
+    """(process group, this rank's index, count) of the mesh dim that
+    shards dim ``dim`` of the DTensor ``x``; None when no mesh dim of more
+    than one rank does."""
+    from torch.distributed.tensor import Shard
+
+    mesh = x.device_mesh
+    found = [i for i, p in enumerate(x.placements) if p == Shard(dim) and mesh.size(i) > 1]
+    if not found:
+        return None
+    if len(found) > 1:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} is split over mesh dims {found}: "
+                         "a decode block takes one")
+    i = found[0]
+    return mesh.get_group(i), mesh.get_local_rank(i), mesh.size(i)
+
+
+def _reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
+    from torch.distributed import _functional_collectives as funcol
+
+    return funcol.wait_tensor(funcol.all_reduce(x, op, group))
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group`` (``x`` when None)."""
+    return x if group is None else _reduce(x, "sum", group)
+
+
+def gather_over(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' ``x`` of ``group`` joined along ``dim`` in rank order."""
+    from torch.distributed import _functional_collectives as funcol
+
+    # all_gather_single where the torch release has it (all_gather_tensor
+    # is its older name, deprecated since)
+    gather = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
+    return funcol.wait_tensor(gather(x.contiguous(), dim, group))
+
+
+def split_softmax(scores: torch.Tensor, group) -> torch.Tensor:
+    """The softmax over the last dim of float32 ``scores`` when that dim is
+    split in chunks over the ranks of ``group``, each rank holding its own:
+    this rank's chunk of the weights.  The row max and then the sum of
+    exp(score - max) are all-reduced, so the weights are the whole row's;
+    the caller sums its weighted values over ``group`` (``sum_over``).
+    With ``group`` None, ``torch.softmax``."""
+    if group is None:
+        return torch.softmax(scores, dim=-1)
+    p = torch.exp(scores - _reduce(scores.amax(dim=-1, keepdim=True), "max", group))
+    return p / _reduce(p.sum(dim=-1, keepdim=True), "sum", group)
+
+
 def local_call(fn, args, in_placements, out_placements, grad_placements=None):
     """``fn(*local shards)`` as a DTensor of ``out_placements``: each DTensor
     of ``args`` redistributed to its entry of ``in_placements`` and taken
     as its local tensor, whose gradient has its entry of
     ``grad_placements`` (default: ``in_placements``); an entry of None
     passes its argument as it is.  Every sharded dim must divide evenly
-    (``constrain`` and the sharding tables only shard such dims)."""
+    (``constrain`` and the sharding tables only shard such dims).  A
+    DTensor given its own placements comes in as its local tensor, the
+    same storage: ``fn`` writes into it in place."""
     from torch.distributed.tensor import DTensor
 
     mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))

@@ -49,6 +49,7 @@ from repro_torch.models.config import ModelConfig
 __all__ = [
     "batch_specs",
     "cache_specs",
+    "distribute_cache",
     "distribute_model",
     "distribute_tensor",
     "opt_state_specs",
@@ -345,6 +346,23 @@ def distribute_tensor(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     from torch.distributed.tensor import distribute_tensor as dt
 
     return dt(t.detach(), mesh, placements(spec, mesh), src_data_rank=None)
+
+
+def distribute_cache(cache: dict, cfg: Optional[ModelConfig], mesh) -> dict:
+    """A decode cache (the whole of it, the same on every rank) with every
+    tensor a DTensor placed by ``cache_specs``; ``t`` stays an int."""
+    specs = cache_specs(cache, cfg, mesh)
+
+    def place(x, spec):
+        if isinstance(x, dict):
+            return {k: place(x[k], spec[k]) for k in x}
+        if isinstance(x, list):
+            return [place(a, b) for a, b in zip(x, spec)]
+        if isinstance(x, torch.Tensor):
+            return distribute_tensor(x, spec, mesh)
+        return x
+
+    return place(cache, specs)
 
 
 def distribute_model(model: nn.Module, cfg: Optional[ModelConfig], mesh) -> dict[str, tuple]:

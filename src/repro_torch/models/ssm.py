@@ -26,8 +26,15 @@ total - cum, cum and total, are <= 0 and cannot overflow.
 
 Decode keeps a conv ring (B, W-1, DI+2GN) and the SSM state (B, H, P, N) in
 float32: O(1) memory per token.  ``mamba_decode`` updates both in the state
-dict in place (JAX returns new arrays) and returns the same dict.
+dict in place (JAX returns new arrays) and returns the same dict.  On a
+mesh the step runs on local shards (``pspec.local_call``): the SSM state
+sharded on its heads is advanced on each rank's heads, and the conv ring
+sharded on its channels is gathered for the window (its channel shards do
+not line up with the x/B/C split: mamba2-2.7b's 5,376 channels are 336 a
+rank at ``model`` = 16), each rank writing its own channels back into its
+shard.
 """
+
 
 from __future__ import annotations
 
@@ -39,9 +46,12 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamModule, dense_init, reduce_boundary, rms_norm
 from repro_torch.models.pspec import (
+    gather_over,
     is_dtensor,
     local_call,
     row_placements,
+    seq_placements,
+    shard_of,
     weight_grad_placements,
 )
 
@@ -272,25 +282,62 @@ def mamba_decode(params, x: torch.Tensor, state: dict,
     """One-token recurrent step.  x (B, 1, D).  Shifts the conv ring and
     advances the SSM state in ``state`` in place; returns (out (B, 1, D),
     state)."""
-    z, xbc_new, dt = _split_proj(x @ params["w_in"], cfg)
+    proj = x @ params["w_in"]
+    small = tuple(params[n] for n in _MIXER)
+    conv, ssm = state["conv"], state["ssm"]
+    if is_dtensor(proj):
+        from torch.distributed.tensor import Replicate
+
+        rows = seq_placements(ssm, {0: 0})
+        whole = [Replicate()] * len(rows)
+        heads, chans = shard_of(ssm, 1), shard_of(conv, 2)
+        y = local_call(
+            lambda p, c, st, *w: _mixer_step(p, c, st, dict(zip(_MIXER, w)), cfg, heads, chans),
+            (proj, conv, ssm, *small),
+            (rows, conv.placements, ssm.placements) + (whole,) * len(small), rows)
+    else:
+        y = _mixer_step(proj, conv, ssm, dict(zip(_MIXER, small)), cfg)
+    return y @ params["w_out"], state
+
+
+def _mixer_step(proj: torch.Tensor, conv: torch.Tensor, ssm: torch.Tensor, params: dict,
+                cfg: ModelConfig, heads=None, chans=None) -> torch.Tensor:
+    """The input projection's output (B, 1, ...) -> the gated, normed step
+    output (B, 1, DI), the conv ring and SSM state advanced in place.
+    ``heads`` and ``chans`` (``pspec.shard_of``): ``ssm`` holds this rank's
+    heads, ``conv`` its channels."""
+    z, xbc_new, dt = _split_proj(proj, cfg)
     # conv over the ring buffer: window = [conv_state ; xbc_new], in float32
-    window = torch.cat([state["conv"], xbc_new], dim=1)      # (B, W, C)
-    conv = (torch.einsum("bwc,wc->bc", window.float(), params["conv_w"].float())
-            + params["conv_b"].float())
-    xbc = F.silu(conv)[:, None, :].to(x.dtype)               # (B,1,C)
+    ring = conv if chans is None else gather_over(conv, 2, chans[0])
+    window = torch.cat([ring, xbc_new], dim=1)               # (B, W, C)
+    out = (torch.einsum("bwc,wc->bc", window.float(), params["conv_w"].float())
+           + params["conv_b"].float())
+    xbc = F.silu(out)[:, None, :].to(proj.dtype)              # (B,1,C)
     xs, bs, cs = _split_xbc(xbc, cfg)
     dt = F.softplus(dt + params["dt_bias"])                  # (B,1,H)
     a = -torch.exp(params["a_log"])
     rep = cfg.ssm_heads // cfg.ssm_groups
 
     da = (dt[:, 0] * a[None, :]).float()                     # (B,H)
-    xdt = xs[:, 0].float() * dt[:, 0][..., None]
+    xs = xs[:, 0].float()
+    xdt = xs * dt[:, 0][..., None]
     b_h = torch.repeat_interleave(bs[:, 0].float(), rep, dim=1)   # (B,H,N)
     c_h = torch.repeat_interleave(cs[:, 0].float(), rep, dim=1)
-    ssm = state["ssm"]
+    d_skip = params["d_skip"]
+    if heads is not None:  # this rank's heads of every per-head term
+        n = ssm.shape[1]
+        own = slice(heads[1] * n, (heads[1] + 1) * n)
+        da, xs, xdt, b_h, c_h = (v[:, own] for v in (da, xs, xdt, b_h, c_h))
+        d_skip = d_skip[own]
     ssm.mul_(torch.exp(da)[..., None, None]).add_(torch.einsum("bhn,bhp->bhpn", b_h, xdt))
-    state["conv"].copy_(window[:, 1:, :])
+    if chans is None:
+        conv.copy_(window[:, 1:, :])
+    else:
+        n = conv.shape[2]
+        conv.copy_(window[:, 1:, chans[1] * n:(chans[1] + 1) * n])
     y = torch.einsum("bhn,bhpn->bhp", c_h, ssm)
-    y = y + params["d_skip"][None, :, None] * xs[:, 0].float()
-    y = y.reshape(x.shape[0], 1, cfg.d_inner).to(x.dtype)
-    return _gated_norm(params, y, z, cfg) @ params["w_out"], state
+    y = y + d_skip[None, :, None] * xs
+    if heads is not None:
+        y = gather_over(y, 1, heads[0])
+    y = y.reshape(proj.shape[0], 1, cfg.d_inner).to(proj.dtype)
+    return _gated_norm(params, y, z, cfg)

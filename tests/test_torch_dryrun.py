@@ -6,7 +6,10 @@ stacked ones), the microbatch counts and the roofline arithmetic, equal.
 A reduced train cell run on a 1x1 ``fake`` mesh counts exactly the FLOPs
 ``FlopCounterMode`` counts for a real step on the CPU; on a fake 2x2 mesh
 the collective bytes of a row-parallel matmul are the analytic count; a
-cell that fails is recorded against its name and the sweep goes on.  Each
+cell that fails is recorded against its name and the sweep goes on.
+Decode cells run on a fake 2x2 mesh, their argument bytes the spec tables'
+count; the flash path runs on meta tensors (shapes, SDPA's FLOP formulas)
+and a ``pallas_flash`` cell counts a real flash step's FLOPs.  Each
 dry-run cell runs in a child interpreter (the ``fake`` backend is a
 process-wide world)."""
 
@@ -279,11 +282,142 @@ def test_a_failing_cell_is_recorded_by_name_and_the_sweep_goes_on(tmp_path):
             assert "error" not in cell and cell["seq"] == 64
 
 
-def test_flash_refuses_meta_tensors():
-    """A meta tensor has no data pointer: a dry-run path reaching the flash
-    kernel raises (the dry-run records it against the cell)."""
+def test_flash_meta_path_gives_shapes_and_sdpa_flops():
+    """On meta tensors (the dry-run's) the flash forward and backward take
+    their fake implementations: the output in q's shape and dtype, the
+    float32 (B, H, S) log-sum-exp when a gradient is wanted, dq, dk and dv
+    in their inputs' shapes; ``FlopCounterMode`` counts them at torch's
+    own SDPA forward and backward formulas (GQA: k and v at q's heads)."""
+    from torch.utils.flop_counter import (
+        FlopCounterMode,
+        sdpa_backward_flop_count,
+        sdpa_flop_count,
+    )
+
     from repro_torch.kernels.flash_attn.ops import flash_attention
 
-    q = torch.empty((1, 8, 2, 16), device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        flash_attention(q, q, q)
+    b, s, h, kv, d = 2, 24, 4, 2, 16
+    q = torch.empty((b, s, h, d), device="meta", dtype=torch.bfloat16, requires_grad=True)
+    k = torch.empty((b, s, kv, d), device="meta", dtype=torch.bfloat16, requires_grad=True)
+    v = torch.empty((b, s, kv, d), device="meta", dtype=torch.bfloat16, requires_grad=True)
+    with FlopCounterMode(display=False) as fwd:
+        out = flash_attention(q, k, v)
+    assert out.shape == q.shape and out.dtype == q.dtype and out.device.type == "meta"
+    lse = out.grad_fn.saved_tensors[3]
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    with FlopCounterMode(display=False) as bwd:
+        dq, dk, dv = torch.autograd.grad(out.sum(), (q, k, v))
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    qs, ks = (b, h, s, d), (b, h, s, d)
+    assert fwd.get_total_flops() == sdpa_flop_count(qs, ks, ks) == 4 * b * h * s * s * d
+    assert bwd.get_total_flops() == sdpa_backward_flop_count(qs, qs, ks, ks) \
+        == 10 * b * h * s * s * d
+    with torch.no_grad():  # no gradient wanted: no log-sum-exp kept
+        assert flash_attention(q, k, v).grad_fn is None
+
+
+@pytest.mark.proc
+def test_flash_cell_flops_are_a_real_steps():
+    """The reduced zamba2 train cell at ``pallas_flash`` (its shared block
+    on flash) on a 1x1 fake mesh counts the FLOPs ``FlopCounterMode``
+    counts around a real flash step on the CPU, exactly: the flash forward
+    and backward are counted on meta tensors and on the CPU alike."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    cell = dryrun.run_cell_process("zamba2-7b", "train_4k", "1x1", reduced=True,
+                                   optimizer="float32", attn_impl="pallas_flash", timeout=300)
+    assert "error" not in cell, cell
+    assert cell["attn_impl"] == "pallas_flash"
+    cfg = dataclasses.replace(get_config("zamba2-7b", reduced=True), attn_impl="pallas_flash")
+    opt = specs.adamw(lr=3e-4, weight_decay=0.1, quantize_moments=False)
+    state = steps.TrainState.create(api.init_params(0, cfg, device="cpu"), opt)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (cell["batch"], cell["seq"]),
+                                     dtype=torch.int32)}
+    with FlopCounterMode(display=False) as fc:
+        steps.make_train_step(cfg, opt)(state, batch)
+    assert cell["roofline"]["flops_per_dev"] == fc.get_total_flops() > 0
+
+
+@pytest.mark.proc
+def test_a_flash_train_cell_runs_on_a_fake_2x2_mesh():
+    """A reduced ``pallas_flash`` train cell (qwen: flash in every layer, on
+    each rank's heads through ``pspec.local_call``) on a fake 2x2 mesh."""
+    cell = dryrun.run_cell_process("qwen1.5-4b", "train_4k", "2x2", reduced=True,
+                                   optimizer="float32", attn_impl="pallas_flash", timeout=300)
+    assert "error" not in cell, cell
+    assert cell["attn_impl"] == "pallas_flash" and cell["devices"] == 4
+    assert cell["roofline"]["flops_per_dev"] > 0 and cell["roofline"]["coll_bytes_per_dev"] > 0
+
+
+def _local_bytes(shapes: dict, specs_: dict, sizes: dict) -> int:
+    """Bytes of each (shape, dtype) of ``shapes`` on one device: each dim
+    divided by the mesh axes its spec names."""
+    total = 0
+    for name, (shape, dtype) in shapes.items():
+        n = 1
+        for i, dim in enumerate(shape):
+            entry = specs_[name][i] if i < len(specs_[name]) else None
+            axes = () if entry is None else (entry,) if isinstance(entry, str) else entry
+            div = int(np.prod([sizes[a] for a in axes])) if axes else 1
+            assert dim % div == 0, (name, shape, specs_[name])
+            n *= dim // div
+        total += n * torch.empty((), dtype=dtype).element_size()
+    return total
+
+
+def _flat_cache(cache: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in (cache.items() if isinstance(cache, dict) else enumerate(cache)):
+        if isinstance(v, (dict, list)):
+            out.update(_flat_cache(v, f"{prefix}{k}."))
+        elif isinstance(v, torch.Tensor):
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+@pytest.mark.proc
+@pytest.mark.parametrize("arch,shape", [("gemma3-1b", "long_500k"),
+                                        ("deepseek-v2-lite-16b", "decode_32k"),
+                                        ("zamba2-7b", "decode_32k"),
+                                        ("whisper-tiny", "decode_32k")])
+def test_a_decode_cell_runs_on_a_fake_2x2_mesh(arch, shape):
+    """A reduced decode cell on a fake 2x2 mesh: ``serve_step`` against a
+    cache placed by ``cache_specs`` (gemma3's MQA sequence-parallel, MLA's
+    latent on its sequence, zamba2's SSM state and conv ring, whisper's
+    self and cross K/V) runs with no error.  Its arguments' bytes a device
+    are the local bytes of the weights, the cache and the tokens, counted
+    here from the spec tables; the cache, updated in place, is the
+    output's alias."""
+    from repro_torch.models import sharding
+
+    cell = dryrun.run_cell_process(arch, shape, "2x2", reduced=True, timeout=300)
+    assert "error" not in cell, cell
+    assert cell["kind"] == "decode" and cell["devices"] == 4
+    assert cell["roofline"]["flops_per_dev"] > 0
+    params, cache, tokens = specs.input_specs(arch, shape, reduced=True)["args"]
+    mesh, sizes = AbstractMesh((2, 2), ("data", "model")), {"data": 2, "model": 2}
+    cfg = get_config(arch, reduced=True)
+    pspecs = sharding.param_specs(params, cfg, mesh)
+    flat = _flat_cache(cache)
+    cspecs = _flat_cache_specs(sharding.cache_specs(cache, cfg, mesh))
+    cache_bytes = _local_bytes({n: (tuple(t.shape), t.dtype) for n, t in flat.items()},
+                               cspecs, sizes)
+    tok_spec = sharding.batch_specs({"t": tokens}, mesh)["t"]
+    want = (_local_bytes({n: (tuple(p.shape), p.dtype) for n, p in params.named_parameters()},
+                         pspecs, sizes)
+            + cache_bytes + _local_bytes({"t": (tuple(tokens.shape), tokens.dtype)},
+                                         {"t": tok_spec}, sizes))
+    mem = cell["memory"]
+    assert mem["argument_bytes_per_dev"] == want
+    assert mem["alias_bytes_per_dev"] == cache_bytes > 0
+    assert mem["peak_bytes_per_dev"] >= mem["argument_bytes_per_dev"]
+
+
+def _flat_cache_specs(specs_: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in (specs_.items() if isinstance(specs_, dict) else enumerate(specs_)):
+        if isinstance(v, (dict, list)):
+            out.update(_flat_cache_specs(v, f"{prefix}{k}."))
+        elif k != "t":
+            out[f"{prefix}{k}"] = v
+    return out

@@ -237,6 +237,143 @@ def train_driver(rank: int, argv: list) -> dict:
         return {"error": str(e)}
 
 
+# -- decoding on a mesh -----------------------------------------------------------
+def _whole_cache(cache: dict) -> dict:
+    """A decode cache with every DTensor gathered whole (a collective)."""
+    from repro_torch.convert import whole_tensor
+
+    def whole(x):
+        if isinstance(x, dict):
+            return {k: whole(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [whole(v) for v in x]
+        return whole_tensor(x) if isinstance(x, torch.Tensor) else x
+
+    return whole(cache)
+
+
+def decode_run(cfg, tree: dict, prompt: np.ndarray, steps: int, max_len: int,
+               frames, mesh=None) -> dict:
+    """The port's serving from the JAX weights ``tree``: the prompt but its
+    last token stepped through ``api.decode_step``, then ``steps`` greedy
+    ``serve_step``s, the first fed the prompt's last token and each next
+    one the token before; on ``mesh`` (unsharded with None) the model
+    placed by ``param_specs`` and the cache by ``cache_specs``.  Every
+    step's logits (B, V) and each serve step's tokens as numpy, the final
+    cache whole in the JAX layout (``kv_cache_to_numpy``), and the repr of
+    the placements of the first cache leaf of each name."""
+    from repro_torch.convert import kv_cache_to_numpy, lm_params_from_numpy
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import api, sharding
+    from repro_torch.models.pspec import activation_mesh
+
+    model = lm_params_from_numpy(cfg, tree, device="cpu")
+    cache = api.init_cache(cfg, prompt.shape[0], max_len, device="cpu")
+    if frames is not None:
+        cache = api.attach_memory(cache, api.encode_memory(model, frames, cfg), model, cfg)
+    if mesh is not None:
+        sharding.distribute_model(model, cfg, mesh)
+        cache = sharding.distribute_cache(cache, cfg, mesh)
+    placements = {}
+    for name, leaf in _cache_leaves(cache):
+        if hasattr(leaf, "placements"):
+            placements.setdefault(name, [repr(p) for p in leaf.placements])
+    logits, tokens = [], []
+    decode = api.decode_step
+
+    def recorded(*a):
+        out, c = decode(*a)
+        logits.append(_np(out)[:, -1])
+        return out, c
+
+    serve = steps_mod.make_serve_step(cfg)
+    with torch.no_grad(), activation_mesh(mesh):
+        for i in range(prompt.shape[1] - 1):
+            recorded(model, cache, torch.from_numpy(prompt[:, i:i + 1]), cfg)
+        tok = torch.from_numpy(prompt[:, -1:])
+        api.decode_step = recorded
+        try:
+            for _ in range(steps):
+                nxt, cache = serve(model, cache, tok)
+                tokens.append(_np(nxt))
+                tok = torch.from_numpy(tokens[-1][:, None])
+        finally:
+            api.decode_step = decode
+    return {"logits": logits, "tokens": tokens, "placements": placements,
+            "cache": kv_cache_to_numpy(_whole_cache(cache))}
+
+
+def _cache_leaves(tree):
+    """(leaf name, tensor) of a decode cache, depth first."""
+    for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+        if isinstance(v, (dict, list)):
+            yield from _cache_leaves(v)
+        elif isinstance(v, torch.Tensor):
+            yield k, v
+
+
+def sharded_decode(rank: int, cases: list, shape: tuple) -> dict:
+    """``decode_run`` of each case (name, cfg, JAX weights, prompt, steps,
+    max_len, frames) on ``shape``'s mesh."""
+    mesh = _mesh(shape)
+    return {name: decode_run(*case, mesh=mesh) for name, *case in cases}
+
+
+def cache_writes(rank: int, cases: list) -> dict:
+    """Each case (name, arch, max_len, positions) on a (2,2) mesh: one
+    mixer of the reduced arch (float32, seeded weights) decodes a seeded
+    token at each position into its layer cache, filled with seeded values
+    first (positions below the first one valid), once unsharded and once
+    placed by ``cache_specs``: the cache before, and after each run, whole."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, attention, mla, sharding, ssm
+    from repro_torch.models.pspec import BATCH, activation_mesh, constrain
+
+    mesh = _mesh((2, 2))
+    out = {}
+    for name, arch, max_len, positions in cases:
+        cfg = dataclasses.replace(get_config(arch, reduced=True), param_dtype="float32",
+                                  compute_dtype="float32")
+        gen = torch.Generator().manual_seed(len(out))
+        model = api.init_params(0, cfg, device="cpu")
+        if cfg.ssm:
+            cache = ssm.init_mamba_state(cfg, 4, dtype=torch.float32, device="cpu")
+            step = lambda p, x, c, t: ssm.mamba_decode(p, x, c, cfg)  # noqa: E731
+        elif cfg.use_mla:
+            cache = mla.init_mla_cache(cfg, 4, max_len, dtype=torch.float32, device="cpu")
+            step = lambda p, x, c, t: mla.mla_decode(p, x, c, t, cfg)  # noqa: E731
+        else:
+            cache = attention.init_kv_cache(cfg, 4, max_len, dtype=torch.float32, device="cpu")
+            step = lambda p, x, c, t: attention.attention_decode(p, x, c, t, cfg)  # noqa: E731
+        for k, v in cache.items():
+            if k == "pos":
+                v.copy_(torch.where(torch.arange(max_len) < positions[0],
+                                    torch.arange(max_len), -1).expand_as(v))
+            else:
+                v.copy_(torch.randn(v.shape, generator=gen))
+        xs = [torch.randn((4, 1, cfg.d_model), generator=gen) for _ in positions]
+        before = {k: v.clone() for k, v in cache.items()}
+        mixer = model.tail[0].mixer
+        with torch.no_grad():
+            for t, x in zip(positions, xs):
+                step(mixer, x, cache, t)
+            plain = {k: v.clone() for k, v in cache.items()}
+            placed = sharding.distribute_cache({"tail": [before]}, cfg, mesh)["tail"][0]
+            before = {k: v.clone() for k, v in before.items()}  # distribute may share storage
+            sharding.distribute_model(model, cfg, mesh)
+            with activation_mesh(mesh):
+                for t, x in zip(positions, xs):
+                    xd = constrain(sharding.distribute_tensor(x, (None, None, None), mesh),
+                                   BATCH, None, None)
+                    step(mixer, xd, placed, t)
+        out[name] = {"before": {k: _np(v) for k, v in before.items()},
+                     "plain": {k: _np(v) for k, v in plain.items()},
+                     "mesh": {k: _np(v) for k, v in placed.items()},
+                     "placements": {k: [repr(p) for p in v.placements]
+                                    for k, v in placed.items()}}
+    return out
+
+
 def dense_config(arch: str, **kw):
     from repro_torch.configs import get_config
 
