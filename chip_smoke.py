@@ -51,12 +51,26 @@ port's paths on the card through the entry points a user calls:
      shards, ``profile``'s 32 features at 2**21 entities, 3 frames of 2**20
      rows, one entering at each region) converges, fails westeurope's ranges
      over, converges again and answers GETs alike from every region;
-  7. ``flash_attn`` against its plain version at phi3-medium-14b's prefill
+  7. ``examples``: the port's five examples and its transport smoke
+     (``examples/*_torch.py``, ``scripts/transport_smoke_torch.py``), each
+     file run as ``__main__`` in an interpreter of its own on the card at
+     its default sizes, the way a user starts it, then that process's launch
+     counts and peak memory printed: quickstart, serving_front,
+     geo_failover (its replica daemon a grandchild on the card),
+     online_serving and the transport smoke side by side, then
+     ``train_lm_torch.py`` alone at the configuration its docstring names
+     for one card (gemma3-1b, ``--full --batch 8 --seq 512``, 50 steps):
+     each exits 0 (its own assertions, train_lm's that the loss falls),
+     prints the lines that say its drill held, and launches the kernels of
+     its path; train_lm's step seconds, tokens/s, MFU and peak GB;
+  8. ``flash_attn`` against its plain version at phi3-medium-14b's prefill
      shape (B=4, S=2,048, H=40, KV=10, D=128, bf16), a ragged float32 GQA
      shape, an MQA D=256 shape, a ragged bf16 D=128 shape, and zamba2's
      shared-block shape (B=4, S=2,048, H=KV=32, D=112, bf16) and a ragged
      one (S=T=1,000), and pixtral's prefill shape (B=4, S=T=3,072 of 1,024
-     patches and 2,048 tokens, H=32, KV=8, D=128, bf16), beside ``scaled_dot_product_attention``; each check
+     patches and 2,048 tokens, H=32, KV=8, D=128, bf16), and qwen1.5-4b's
+     (B=4, S=2,048, H=KV=20, D=128, bf16: MHA), beside
+     ``scaled_dot_product_attention``; each check
      asserts its route (bf16 at D 64/112/128/256 on the tensor cores,
      ``wgmma``; float32 on the CUDA cores).  Then ``flash_backward``: the
      backward kernel of each route at phi3's and zamba2's prefill shapes, a
@@ -64,18 +78,30 @@ port's paths on the card through the entry points a user calls:
      pixtral's in ``lm_vlm_train``), its dq, dk, dv within FLASH_TOL of autograd through the plain forward,
      two calls bit-equal, beside the plain backward and
      ``scaled_dot_product_attention``'s backward;
-  8. ``lm_serve``: the ported LM request path (``launch/serve.py``) at
+  9. ``lm_serve``: the ported LM request path (``launch/serve.py``) at
      phi3-medium-14b's full width (40 layers, d_model 5,120, random bf16
      weights from a seed, 29.3 GB): 8 sessions' contexts fetched through the
      online store (the lookup kernel), a stepped prefill of the 32-token
      contexts, 16 greedy tokens; contexts equal to the offline latest,
      prompts equal to a CPU run of the serving plane;
-  9. ``lm_prefill``: ``make_prefill_step`` with ``attn_impl="pallas_flash"``
+  10. ``lm_prefill``: ``make_prefill_step`` with ``attn_impl="pallas_flash"``
      on the same model, on the served prompts (against the stepped prefill's
      logits) and on a 4 x 2,048 batch from a ``FeatureStoreLoader`` over the
      serving plane (against ``attn_impl="xla"``), 40 flash launches per
      forward, all on the tensor-core route;
-  10. ``lm_ssm_serve`` and ``lm_ssm_prefill``: ``lm_serve``'s request path
+  11. ``lm_gemma3_serve``, ``lm_gemma3_prefill`` and ``window_decode``:
+     ``lm_serve``'s and ``lm_prefill``'s paths and checks at gemma3-1b's
+     full width (26 layers, d_model 1,152, MQA 4/1, D 256, vocab 262,144,
+     tied; a 512-token window on 5 of every 6 layers), no flash launch
+     (the flash gate sends a windowed config down the einsum path); then
+     a stepped prompt of 504 loader tokens and 16 greedy steps across the
+     window, each step's logits against the last row of a full forward
+     over the same tokens, and that forward equal to an all-global one
+     before position 512 and different after.  ``lm_qwen_serve`` and
+     ``lm_qwen_prefill``: the same at qwen1.5-4b's (40 layers, d_model
+     2,560, MHA 20/20 with QKV bias, D 128, vocab 151,936), 40 flash
+     launches a forward on the tensor cores;
+  12. ``lm_ssm_serve`` and ``lm_ssm_prefill``: ``lm_serve``'s request path
      and checks at mamba2-2.7b's full width (64 Mamba2 layers, d_model
      2,560, 80 heads of 64, state 128; random bf16 weights from a seed,
      5.7 GB), decode bounded by the weights and one read and one write of
@@ -86,13 +112,13 @@ port's paths on the card through the entry points a user calls:
      held against the float32 stepped prefill of a float32 twin of the
      weights, and the weights rounded one mantissa bit coarser must fall
      outside that bound;
-  11. ``lm_hybrid_serve`` and ``lm_hybrid_prefill``: the same at zamba2-7b's
+  13. ``lm_hybrid_serve`` and ``lm_hybrid_prefill``: the same at zamba2-7b's
      full width (81 Mamba2 layers as 13 groups of 6 and a tail of 3, one
      shared attention block of 32 heads of 112 after each group; 13.4 GB),
      the prefill with ``attn_impl="pallas_flash"`` against ``"xla"``, 13
      flash launches a forward on the tensor-core route, and the same float32
      twin reference and control;
-  12. ``lm_audio_serve`` and ``lm_audio_prefill``: ``lm_serve``'s request
+  14. ``lm_audio_serve`` and ``lm_audio_prefill``: ``lm_serve``'s request
      path at whisper-tiny's full width and depth (4 + 4 layers, d_model
      384, 6 heads of 64, 1,500 frames, vocab 51,865; 73.2 MB of bf16
      weights, decoder positions sized to the published 448-token context):
@@ -103,27 +129,27 @@ port's paths on the card through the entry points a user calls:
      and at 4 x 448 loader tokens over 1,500 seeded frames each, timed;
      no kernel but the GET's (the JAX package's whisper attention is its
      einsum path everywhere);
-  13. ``lm_vlm_serve`` and ``lm_vlm_prefill``: the same at pixtral-12b's
+  15. ``lm_vlm_serve`` and ``lm_vlm_prefill``: the same at pixtral-12b's
      full width (40 layers, d_model 5,120, GQA 32/8, D 128, vocab 131,072;
      24.5 GB), served text-only as the JAX driver does; the prefill on
      4 x (1,024 seeded patch embeddings + 2,048 loader tokens), S=3,072,
      ``pallas_flash`` against ``xla``, 40 flash launches a forward on the
      tensor cores;
-  14. ``moe_dispatch``: one MoE layer at deepseek-v2-lite-16b's widths (D
+  16. ``moe_dispatch``: one MoE layer at deepseek-v2-lite-16b's widths (D
      2,048, 64 experts top-6, F 1,408, two shared experts; seeded bf16
      weights) on 4 x 2,048 tokens in groups of 2,048 at capacity factor
      1.25 (capacity 240): ``moe_apply`` against its GShard einsum oracle,
      the share of assignments dropped (above 0), ``_dispatch_indices`` on
      the card byte-identical to the CPU, and ``moe_apply`` sync-free;
-  15. ``lm_moe_serve``: ``lm_serve``'s request path and checks at
+  17. ``lm_moe_serve``: ``lm_serve``'s request path and checks at
      deepseek-v2-lite-16b's full width (27 layers, MLA, 64 experts; random
      bf16 weights from a seed, 31.4 GB) on a serving plane of its own:
      absorbed-MLA decode and no-drop MoE, no flash launch;
-  16. ``lm_moe_prefill``: ``make_prefill_step`` on that model, no-drop on
+  18. ``lm_moe_prefill``: ``make_prefill_step`` on that model, no-drop on
      the served prompts against the stepped prefill's logits, then at
      capacity factor 1.25 on a 4 x 2,048 loader batch with each MoE layer's
      dropped share;
-  17. ``lm_train``: the ported train path (``launch/train.py``'s data plane
+  19. ``lm_train``: the ported train path (``launch/train.py``'s data plane
      and optimizer, ``make_train_step``) at gemma-2b's full width (18
      layers, d_model 2,048, MQA 8/1, head_dim 256, vocab 256,000; 2.51 B
      random bf16 weights from a seed), ``attn_impl="pallas_flash"``: 8 AdamW
@@ -138,7 +164,7 @@ port's paths on the card through the entry points a user calls:
      backward; and the
      driver's kill at step 9 and resume (``train.main``, reduced gemma-2b, the
      JAX driver test's arguments), bit-identical to an uninterrupted run;
-  18. ``lm_ssm_train`` and ``lm_hybrid_train``: the same train path at
+  20. ``lm_ssm_train`` and ``lm_hybrid_train``: the same train path at
      mamba2-2.7b's full width and depth (64 layers, 2.83 B parameters) and
      at zamba2-7b's full width cut to 48 of its 81 layers (8 groups of 6
      and the shared block: 4.13 B parameters; all 81 need 80.4 GB of
@@ -154,23 +180,23 @@ port's paths on the card through the entry points a user calls:
      zamba2: the flash/xla gradient check at the trained state's first two
      groups (12 layers).  Each: the driver's kill and resume on the reduced
      config, bit-identical;
-  19. ``lm_vlm_train``: pixtral-12b at full width cut to 10 of its 40
+  21. ``lm_vlm_train``: pixtral-12b at full width cut to 10 of its 40
      layers (4.07 B parameters; all 40 need 147 GB at 12 B a parameter),
      ``pallas_flash``, 8 steps at 4 x (1,024 patches + 2,048 tokens): 20
      flash forward launches a step (forward and recompute) and 10 backward
      ones, all on the tensor cores at S=T=3,072; the flash/xla gradient
      check at the trained state's first 2 layers; the flash backward alone
      at this shape against autograd through the plain forward;
-  20. ``lm_audio_train``: whisper-tiny at full size, 8 steps at 8 x 448
+  22. ``lm_audio_train``: whisper-tiny at full size, 8 steps at 8 x 448
      tokens over 1,500 frames, no kernel launched; the driver's kill and
      resume on reduced whisper, bit-identical;
-  21. ``moe_backward``: ``moe_dispatch``'s layer and tokens (gemma-2b freed
+  23. ``moe_backward``: ``moe_dispatch``'s layer and tokens (gemma-2b freed
      first), forward + backward: every gradient leaf of the sort dispatch
      (x, the float32 router, the expert stacks, the shared experts) within
      2^-5 of the largest entry of the einsum oracle's, the routing of the
      two identical, no host sync, the time beside three times the forward's
      bound;
-  22. ``lm_moe_train``: the train path at deepseek-v2-lite-16b's published
+  24. ``lm_moe_train``: the train path at deepseek-v2-lite-16b's published
      width (d_model 2,048, MLA R 512, 64 experts top-6 + 2 shared, F 1,408,
      vocab 102,400) cut to ``MOE_TRAIN_LAYERS`` layers (1 dense + 5 MoE:
      all 27 need 188 GB of weights, gradients and moments), seeded random bf16
@@ -180,14 +206,14 @@ port's paths on the card through the entry points a user calls:
      every recompute routing as its forward, no kernel launch, peak memory
      under the card's; then ``train.main``'s kill at step 9 and resume on
      reduced deepseek-v3 (MLA with query LoRA, MoE, MTP), bit-identical;
-  23. ``moe_train_parity``: reduced deepseek-v2-lite and reduced
+  25. ``moe_train_parity``: reduced deepseek-v2-lite and reduced
      deepseek-v3 in float32 (TF32 off), 4 train steps on the card against
      the same 4 on the CPU from the same weights: routing identical at
      every step, losses, parameters and moments within the CPU tests'
      bounds; ``ssm_train_parity``: the same for reduced mamba2 and zamba2,
      ``encdec_vlm_train_parity`` for reduced whisper and pixtral (with
      seeded frames or patch embeddings);
-  24. ``dryrun``: ``launch/dryrun.py``'s cells of ``lm_moe_train``
+  26. ``dryrun``: ``launch/dryrun.py``'s cells of ``lm_moe_train``
      (deepseek-v2-lite at 6 layers), ``lm_ssm_train`` (mamba2-2.7b at 64
      layers), ``lm_train`` (gemma-2b, ``pallas_flash``) and
      ``lm_hybrid_train`` (zamba2-7b at 48 layers, ``pallas_flash``: the
@@ -201,7 +227,7 @@ port's paths on the card through the entry points a user calls:
      formulas) exactly, its
      predicted peak is within 25% of the row's measured ``peak_gb``, and
      its roofline seconds print beside the row's ``step_s``;
-  25. ``mesh``: the mesh path on the card (``launch/mesh.py``,
+  27. ``mesh``: the mesh path on the card (``launch/mesh.py``,
      ``models/sharding.py``, ``models/pspec.py``): NCCL at world size 1, a
      1x1 (data, model) mesh.  gemma-2b at full width, ``pallas_flash``,
      3 steps at 4 x 2,048 with the weights placed as DTensors, the batch
@@ -213,7 +239,7 @@ port's paths on the card through the entry points a user calls:
      ``moe_dispatch``'s layer and tokens against ``moe_apply`` on the
      routed experts: routing identical, output, aux and gradients bit-equal,
      both times;
-  26. ``mesh_decode``, in the same 1x1 NCCL world: gemma-2b (a
+  28. ``mesh_decode``, in the same 1x1 NCCL world: gemma-2b (a
      sequence-parallel MQA cache on a wider mesh) and mamba2-2.7b (the SSM
      state on its heads, the conv ring on its channels) at full width,
      seeded bf16 weights, 8 requests: a stepped prompt of 32 tokens, then
@@ -222,20 +248,24 @@ port's paths on the card through the entry points a user calls:
      ``sharding.cache_specs``: tokens equal, every step's logits and every
      cache leaf (gathered whole) bit-equal; ms a step on the mesh against
      unsharded (DTensor's dispatch on a host-bound path);
-  27. the ``kernels`` line: launches, errors, times and bounds per kernel.
+  29. the ``kernels`` line: launches, errors, times and bounds per kernel.
 
 Each path (``scan_merge``, the main path, ``offline_retrieval``, ``geo``,
-``lm_serve``, ``lm_prefill``, ``lm_ssm_serve``, ``lm_ssm_prefill``,
+each example, ``lm_serve``, ``lm_prefill``, ``lm_gemma3_serve``,
+``lm_gemma3_prefill``, ``window_decode``, ``lm_qwen_serve``,
+``lm_qwen_prefill``, ``lm_ssm_serve``, ``lm_ssm_prefill``,
 ``lm_hybrid_serve``, ``lm_hybrid_prefill``, ``lm_audio_serve``,
 ``lm_audio_prefill``, ``lm_vlm_serve``, ``lm_vlm_prefill``, ``lm_moe_serve``,
 ``lm_moe_prefill``, ``lm_train``, ``lm_ssm_train``, ``lm_hybrid_train``,
 ``lm_vlm_train``, ``lm_audio_train``, ``lm_moe_train``, ``mesh``,
 ``mesh_decode``) runs
 with the launch counts zeroed just before it and read just after, and must
-have launched each kernel of its own path (``lm_moe_train``'s,
-``lm_ssm_train``'s and ``lm_audio_train``'s paths launch none of them:
-MLA, the MoE dispatch, the SSD and whisper's attention are plain PyTorch,
-as they are XLA ops in the JAX package).
+have launched each kernel of its own path (an example's in its own
+process; ``lm_moe_train``'s, ``lm_ssm_train``'s and ``lm_audio_train``'s
+paths launch none of them: MLA, the MoE dispatch, the SSD and whisper's
+attention are plain PyTorch, as they are XLA ops in the JAX package; nor
+do the transport smoke's, which replicates on the host, and train_lm's and
+gemma3-1b's, whose window sends attention down the einsum path).
 
 Each phase prints one JSON line; any failed check raises, so the run exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -251,6 +281,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -348,8 +379,63 @@ SPINE_ROWS = 1 << 20
 LM_ARCH = "phi3-medium-14b"  # full width: 40 layers, d_model 5120, GQA 40/10, vocab 100,352
 SSM_ARCH = "mamba2-2.7b"  # full width: 64 layers, d_model 2,560, 80 heads of 64, state 128
 HYBRID_ARCH = "zamba2-7b"  # full width: 81 Mamba layers (13 groups of 6 + 3), shared attn D 112
+# the two configs of the JAX package no earlier phase runs on the card
+WINDOW_ARCH = "gemma3-1b"  # 26 layers, d_model 1,152, MQA 4/1, D 256, 5:1 local:global, window 512
+MHA_ARCH = "qwen1.5-4b"  # 40 layers, d_model 2,560, MHA 20/20, D 128, QKV bias, vocab 151,936
 LM_REQUESTS, LM_NEW_TOKENS = 8, 16
 PREFILL_BATCH, PREFILL_SEQ = 4, 2048
+# window_decode: a stepped prompt of WINDOW_PROMPT tokens, then LM_NEW_TOKENS
+# greedy steps, so the positions cross gemma3-1b's 512-token window
+WINDOW_PROMPT = 504
+# examples: each example and the transport smoke as a user runs it, in an
+# interpreter of its own on the card at its default sizes; train_lm at the
+# configuration its docstring names for one card, its steps cut to 50.  The
+# store and serving examples run side by side, then train_lm alone: per
+# example, the kernels of its path that must launch and lines of its own
+# output that must appear
+EXAMPLE_TIMEOUT = 900
+EXAMPLE_RUNS = (
+    ("examples/quickstart_torch.py", [], ("online_lookup", "rolling_sum", "pit_search"),
+     ("online lookup: found=[True, True, True, True, True, True, True, True]",
+      "consistency: online==max(event_ts,creation_ts) per id: True", "quickstart complete.")),
+    ("examples/serving_front_torch.py", [], ("online_lookup", "rolling_sum"),
+     ("degraded=True", "status=shed (bound enforced)")),
+    ("examples/geo_failover_torch.py", [], ("online_lookup", "rolling_sum"),
+     ("offline/online consistency after fail-over: True", "(identical=True)",
+      "converged byte-identical through the lossy WAN: True",
+      "adopted daemon state byte-identical=True", "daemon torn down cleanly: exit=0",
+      "all 3 cells byte-identical after the full drill: True")),
+    ("examples/online_serving_torch.py", [], ("online_lookup",),
+     ("generated shape (8, 16)",)),
+    ("scripts/transport_smoke_torch.py", [], (), ("transport smoke: PASS",)),
+)
+TRAIN_EXAMPLE = ("examples/train_lm_torch.py",
+                 ["--arch", WINDOW_ARCH, "--full", "--batch", "8", "--seq", "512",
+                  "--steps", "50", "--log-every", "1"], (), ("example complete: 50 steps",))
+# the child's wrapper: the example's file run as __main__, then the launch
+# counts of its own process and its peak device memory on one line
+EXAMPLE_RUNNER = r"""
+import json, runpy, sys
+import torch
+from repro_torch.kernels.flash_attn import ops as flash_ops
+from repro_torch.kernels.online_lookup import ops as lookup_ops
+from repro_torch.kernels.online_merge import ops as merge_ops
+from repro_torch.kernels.pit_join import ops as pit_ops
+from repro_torch.kernels.rolling_agg import ops as rolling_ops
+sys.argv = sys.argv[1:]
+code = 0
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+except SystemExit as e:
+    code = e.code if isinstance(e.code, int) else int(e.code is not None)
+counters = (lookup_ops.counter, rolling_ops.counter, pit_ops.counter, merge_ops.counter,
+            flash_ops.counter)
+peak = torch.cuda.max_memory_allocated() if torch.cuda.is_initialized() else 0
+print("example readings: " + json.dumps({"launches": {c.name: c.launches for c in counters},
+                                         "peak_gb": peak / 1e9}), flush=True)
+sys.exit(code)
+"""
+TRAIN_LOG = re.compile(r"\[train\] step +(\d+) loss ([\d.]+) \(([\d.]+)s\)")
 EPOCH_MS = 1_700_000_000_000
 I64_MIN = -(2**63)
 # lm_prefill, the flash forward's logits against the stepped prefill and the
@@ -1940,6 +2026,104 @@ def phase_geo(device: str, n_entities: int, events_per_hour: int, jobs: int, cha
 
 
 # -- phases 6-7: the LM serving path ------------------------------------------------
+def run_examples(runs, timeout: float) -> dict:
+    """Each (script, args, ...) of ``runs`` started at once, in an
+    interpreter of its own (``EXAMPLE_RUNNER``, a session of its own) on the
+    card, from the root of the checkout; waits for all.  Per script: exit
+    code, seconds, its output's lines and its readings.  Past ``timeout``
+    every session still running is killed and the phase fails."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(ROOT / "src"), env.get("PYTHONPATH"))
+                                        if p)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as d:
+        procs = {}
+        for i, (script, args, *_) in enumerate(runs):
+            logs = Path(d) / f"{i}.out", Path(d) / f"{i}.err"
+            with open(logs[0], "w") as o, open(logs[1], "w") as e:
+                procs[script] = (subprocess.Popen(
+                    [sys.executable, "-c", EXAMPLE_RUNNER, script, *args], cwd=ROOT, env=env,
+                    stdout=o, stderr=e, start_new_session=True), time.perf_counter(), logs)
+        deadline = time.perf_counter() + timeout
+        ended = {}
+        try:
+            while len(ended) < len(procs) and time.perf_counter() < deadline:
+                for script, (proc, t0, _) in procs.items():
+                    if script not in ended and proc.poll() is not None:
+                        ended[script] = time.perf_counter() - t0
+                time.sleep(0.1)
+        finally:
+            # every session ends with the phase: one still running, and any
+            # replica daemon a failed example left behind
+            for proc, _, _ in procs.values():
+                try:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                except ProcessLookupError:  # the session had ended whole
+                    pass
+                proc.wait()
+        for script, (proc, _, logs) in procs.items():
+            lines = logs[0].read_text().splitlines()
+            readings = [json.loads(ln.removeprefix("example readings: ")) for ln in lines
+                        if ln.startswith("example readings: ")]
+            out[script] = {"rc": proc.returncode, "seconds": ended.get(script),
+                           "lines": lines, "readings": readings[-1] if readings else None,
+                           "stderr_tail": logs[1].read_text().splitlines()[-8:]}
+    check(len(ended) == len(procs), f"every example ended within {timeout} s")
+    return out
+
+
+def check_example(script: str, args: list, kernels: tuple, expect: tuple, res: dict) -> dict:
+    """An example's exit code 0 (its own assertions held), each line of
+    ``expect`` in its output, each kernel of ``kernels`` launched in its
+    process; its row."""
+    check(res["rc"] == 0 and res["readings"] is not None,
+          f"{script} exits 0 (rc {res['rc']}): {' | '.join(res['stderr_tail'])}")
+    text = "\n".join(res["lines"])
+    for line in expect:
+        check(line in text, f"{script} prints {line!r}")
+    launches = res["readings"]["launches"]
+    for k in kernels:
+        check(launches[k] > 0, f"{script} launched {k}")
+    return {"example": script, "args": args, "seconds": res["seconds"], "launches": launches,
+            "peak_gb": res["readings"]["peak_gb"], "last_line": res["lines"][-2]}
+
+
+def phase_examples() -> dict:
+    """The examples and the transport smoke on the card (``EXAMPLE_RUNS`` side
+    by side, then ``TRAIN_EXAMPLE`` alone); train_lm's readings from its
+    driver's log: step seconds (its last 49 steps), tokens/s, MFU
+    (6·N·tokens / step / 989e12, N from ``param_counts``), peak GB, and its
+    losses, which the example asserts fall."""
+    t0 = time.perf_counter()
+    done = run_examples(EXAMPLE_RUNS, EXAMPLE_TIMEOUT)
+    side_by_side_s = time.perf_counter() - t0
+    rows = [check_example(*run, done[run[0]]) for run in EXAMPLE_RUNS]
+    script, args = TRAIN_EXAMPLE[:2]
+    trained = run_examples([TRAIN_EXAMPLE], EXAMPLE_TIMEOUT)[script]
+    rows.append(check_example(*TRAIN_EXAMPLE, trained))
+    log = [TRAIN_LOG.fullmatch(ln) for ln in trained["lines"]]
+    log = [(int(m[1]), float(m[2]), float(m[3])) for m in log if m]
+    steps = int(args[args.index("--steps") + 1])
+    check([s for s, _, _ in log] == list(range(steps)), "train_lm logged every step")
+    cfg = get_config(args[args.index("--arch") + 1])
+    step_s = (log[-1][2] - log[0][2]) / (steps - 1)
+    tokens = int(args[args.index("--batch") + 1]) * int(args[args.index("--seq") + 1])
+    n_params = cfg.param_counts()["total"]
+    peak = trained["readings"]["peak_gb"]
+    check(peak * 1e9 < torch.cuda.get_device_properties(0).total_memory,
+          "train_lm's peak memory under the card's")
+    rows[-1].update(
+        arch=cfg.name, params=n_params, embedding_params=cfg.vocab_size * cfg.d_model,
+        first_step_s=log[0][2], step_s=step_s, train_tokens_per_s=tokens / step_s,
+        mfu=6 * n_params * tokens / step_s / BF16_OPS_PER_S,
+        first_loss=log[0][1], last_loss=log[-1][1], min_loss=min(lo for _, lo, _ in log),
+        loss_fell=log[-1][1] < log[0][1])
+    row = {"phase": "examples", "side_by_side_s": side_by_side_s,
+           "seconds": time.perf_counter() - t0, "rows": rows}
+    emit(row)
+    return row
+
+
 def latest_chunks(fs: FeatureStore, spec, ids: np.ndarray) -> np.ndarray:
     """The offline store's latest record (greatest (event_ts, creation_ts))
     of each id, as the feature row the online store must serve."""
@@ -2114,8 +2298,12 @@ def float32_references(params, cfg, token_sets: list, control) -> dict:
 
 
 def attention_calls(cfg) -> int:
-    """Full-sequence attention calls a forward makes: one a layer, or for a
-    hybrid config one a group (the shared block), none for pure SSM."""
+    """Flash calls a full-sequence forward makes: one a layer, or for a
+    hybrid config one a group (the shared block); none for pure SSM, nor
+    with a sliding window (the flash gate sends a windowed config, its
+    global layers too, down the einsum path, as the JAX package does)."""
+    if cfg.sliding_window:
+        return 0
     if cfg.ssm:
         return lm_mod._layer_plan(cfg)["groups"]
     return cfg.num_layers
@@ -2135,11 +2323,12 @@ def phase_lm_prefill(cfg, served: dict, kernel_ms: float, phase: str = "lm_prefi
     embeddings before the 2,048 tokens, and its tokens/s counts every
     position.  Each attention call launches flash on the route
     ``flash_ops.route`` names (``kernel_ms`` is that kernel's time at this
-    shape)."""
+    shape); a windowed config launches none, and its reference is the same
+    einsum path.  Returns the row and the 4 x 2,048 tokens."""
     params, out = served["params"], served["out"]
     flash = make_prefill_step(dataclasses.replace(cfg, attn_impl="pallas_flash"))
     calls = attention_calls(cfg)
-    if calls:
+    if calls or not cfg.ssm:
         ref_label = "xla"
         xla = make_prefill_step(dataclasses.replace(cfg, attn_impl="xla"))
     else:
@@ -2232,7 +2421,74 @@ def phase_lm_prefill(cfg, served: dict, kernel_ms: float, phase: str = "lm_prefi
                    control_mantissa_bits=SSM_CONTROL_BITS, control=control,
                    forward_vs_stepped_prefill_bf16=logits_agreement(short, out["prompt_logits"]))
     emit(row)
-    return {"row": row}
+    return {"row": row, "tokens": tokens}
+
+
+def phase_window_decode(cfg, served: dict, tokens: torch.Tensor) -> dict:
+    """A sliding window on the card: each row of ``tokens``' first
+    WINDOW_PROMPT tokens stepped through ``decode_step`` (``lm.prefill``),
+    then LM_NEW_TOKENS greedy steps, whose positions cross the window (from
+    position ``sliding_window`` on, the local layers' mask drops the oldest
+    keys of their full-length caches).  Each step's logits are held against
+    the last row of a full-sequence forward over the same tokens, within
+    ``lm_prefill``'s bounds.  The window's teeth: over the final tokens the
+    forward with the window equals one with every layer global, bit for
+    bit, at the positions before ``sliding_window`` and differs after."""
+    params = served["params"]
+    window = cfg.sliding_window
+    n = WINDOW_PROMPT + LM_NEW_TOKENS
+    check(WINDOW_PROMPT < window < n, f"the decode crosses the {window}-token window")
+    forward = make_prefill_step(cfg)
+    all_global = make_prefill_step(dataclasses.replace(cfg, sliding_window=0,
+                                                       local_global_period=0))
+    seq = tokens[:, :WINDOW_PROMPT]
+    reset_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, cache = lm_mod.prefill(params, seq, cfg, max_len=n)
+        torch.cuda.synchronize()
+        prompt_s = time.perf_counter() - t0
+        cur = logits[:, -1].argmax(-1, keepdim=True).to(seq.dtype)
+        del logits
+        stepped, full, decode_s = [], [], 0.0
+        for _ in range(LM_NEW_TOKENS):
+            seq = torch.cat([seq, cur], dim=1)
+            t0 = time.perf_counter()
+            logits, cache = lm_mod.decode_step(params, cache, cur, cfg)
+            torch.cuda.synchronize()
+            decode_s += time.perf_counter() - t0
+            stepped.append(logits[:, 0])
+            full.append(forward(params, {"tokens": seq})[:, -1])
+            cur = logits[:, -1].argmax(-1, keepdim=True).to(seq.dtype)
+        check(cache["t"] == n and seq.shape[1] == n, f"{n} positions decoded")
+        windowed, unwindowed = (f(params, {"tokens": seq}) for f in (forward, all_global))
+    launches = read_counts()
+    check(launches["flash_attn"] == 0, "the windowed config takes the einsum path, not flash")
+    agreement = logits_agreement(torch.stack(stepped, 1), torch.stack(full, 1))
+    check(agreement["rel_rms_err"] <= LOGITS_REL_RMS and agreement["top1_agree"] >= LOGITS_TOP1,
+          f"the decode across the window within {LOGITS_REL_RMS} relative RMS and "
+          f"{LOGITS_TOP1} top-1 agreement of the full forward")
+    same_before = bool(torch.equal(windowed[:, :window], unwindowed[:, :window]))
+    diff_after = float((windowed[:, window:].float() - unwindowed[:, window:].float()).abs().max())
+    check(same_before and diff_after > 0, "the window masks exactly the positions past it: "
+          "equal to all-global attention before, different after")
+    past = [i for i in range(LM_NEW_TOKENS) if WINDOW_PROMPT + i >= window]
+    row = {
+        "phase": "window_decode", "arch": cfg.name, "window": window,
+        "local_global_period": cfg.local_global_period, "batch": seq.shape[0],
+        "prompt": WINDOW_PROMPT, "new_tokens": LM_NEW_TOKENS,
+        "steps_past_window": len(past), "stepped_prompt_s": prompt_s,
+        "decode_ms_per_step": decode_s / LM_NEW_TOKENS * 1e3,
+        "vs_full_forward": agreement,
+        "past_window_vs_full_forward": logits_agreement(
+            torch.stack([stepped[i] for i in past], 1), torch.stack([full[i] for i in past], 1)),
+        "past_window_vs_all_global": logits_agreement(
+            torch.stack([stepped[i] for i in past], 1),
+            unwindowed[:, [WINDOW_PROMPT + i for i in past]]),
+        "all_global_max_abs_diff_past_window": diff_after, "launches": launches,
+    }
+    emit(row)
+    return row
 
 
 def phase_lm_audio_prefill(cfg, served: dict) -> dict:
@@ -3733,6 +3989,11 @@ def main() -> int:
     gc.collect()  # the geo stores hold their replicators in reference cycles
     torch.cuda.empty_cache()
 
+    examples = phase_examples()
+    for row in examples["rows"]:
+        for k in ("online_lookup", "rolling_sum", "pit_search"):
+            launches[k] += row["launches"][k]
+
     checks["flash_attn"] = [
         check_flash(PREFILL_BATCH, PREFILL_SEQ, 40, 10, 128, torch.bfloat16, "wgmma",
                     "main path: B=4 S=T=2,048 H=40 KV=10 D=128 bf16 (phi3-medium-14b)", rng),
@@ -3749,9 +4010,11 @@ def main() -> int:
         check_flash(PREFILL_BATCH, 1024 + PREFILL_SEQ, 32, 8, 128, torch.bfloat16, "wgmma",
                     "pixtral prefill: B=4 S=T=3,072 (1,024 patches + 2,048 tokens) H=32 KV=8 "
                     "D=128 bf16", rng),
+        check_flash(PREFILL_BATCH, PREFILL_SEQ, 20, 20, 128, torch.bfloat16, "wgmma",
+                    "qwen1.5-4b prefill: B=4 S=T=2,048 H=KV=20 D=128 bf16 (MHA)", rng),
     ]
     main_flash, flash_112 = checks["flash_attn"][0], checks["flash_attn"][4]
-    flash_vlm = checks["flash_attn"][6]
+    flash_vlm, flash_mha = checks["flash_attn"][6], checks["flash_attn"][7]
     checks["flash_attn_bwd"] = [
         check_flash_backward(PREFILL_BATCH, PREFILL_SEQ, 40, 10, 128, rng,
                              "B=4 S=T=2,048 H=40 KV=10 D=128 bf16 (phi3-medium-14b)"),
@@ -3773,6 +4036,29 @@ def main() -> int:
     del served, prefill
     gc.collect()
     torch.cuda.empty_cache()
+
+    # the two configs no phase above runs: gemma3-1b (a 512-token window on 5
+    # of every 6 layers: the einsum path, and a decode across the window) and
+    # qwen1.5-4b (MHA with QKV bias: flash at H=KV=20)
+    for arch, family, kernel_ms in ((WINDOW_ARCH, "gemma3", 0.0), (MHA_ARCH, "qwen",
+                                                                    flash_mha["ms"])):
+        d_cfg = get_config(arch)
+        d_served = phase_lm_serve(d_cfg, "cuda", phase=f"lm_{family}_serve")
+        launches["online_lookup"] += d_served["row"]["launches"]["online_lookup"]
+        d_prefill = phase_lm_prefill(d_cfg, d_served, kernel_ms, phase=f"lm_{family}_prefill")
+        launches["flash_attn"] += d_prefill["row"]["launches"]["flash_attn"]
+        lm_row[family] = {k: d_served["row"][k] for k in (
+            "weight_gb", "decode_ms_per_step", "decode_bound_ms")}
+        lm_row[family]["prefill_tokens_per_s"] = d_prefill["row"]["prefill_tokens_per_s"]
+        if family == "qwen":
+            flash_mha["launches"] = d_prefill["row"]["launches"]["flash_attn"]
+        if d_cfg.sliding_window:
+            window = phase_window_decode(d_cfg, d_served, d_prefill["tokens"])
+            lm_row[family]["window_decode"] = {k: window[k] for k in (
+                "steps_past_window", "decode_ms_per_step", "vs_full_forward")}
+        del d_served, d_prefill
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # the SSM and hybrid families: serving, then the full-sequence prefill
     for arch, family, kernel_ms in ((SSM_ARCH, "ssm", 0.0), (HYBRID_ARCH, "hybrid",
@@ -3924,6 +4210,9 @@ def main() -> int:
         "shape", "route", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     kernels[-2]["pixtral_shape"] = {k: flash_vlm[k] for k in (
         "shape", "route", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    kernels[-2]["qwen_shape"] = {k: flash_mha[k] for k in (
+        "shape", "route", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "launches")}
     kernels[-1]["launches_by_phase"] = bwd_by_phase
     kernels[-1]["library_fwd_bwd_ms"] = main_bwd["library_fwd_bwd_ms"]
     kernels[-1]["other_shapes"] = [{k: r[k] for k in (
@@ -3932,6 +4221,10 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     emit({"card": card, "get_batch": GET_BATCH, "get_p50_ms": prof_row["get_p50_ms"],
           "get_p99_ms": prof_row["get_p99_ms"], "lm": lm_row, "geo_s": geo_s,
+          "examples_s": examples["seconds"],
+          "train_lm": {k: examples["rows"][-1][k] for k in (
+              "arch", "step_s", "train_tokens_per_s", "mfu", "peak_gb", "first_loss",
+              "last_loss")},
           "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

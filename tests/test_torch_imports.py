@@ -1,5 +1,6 @@
-"""The port stands alone: every ``repro_torch`` module, ``chip_smoke`` and
-``chip_profile`` import with JAX made unimportable, and load neither ``jax``
+"""The port stands alone: every ``repro_torch`` module, ``chip_smoke``,
+``chip_profile`` and the ``_torch`` examples and scripts import with JAX made
+unimportable, and load neither ``jax``
 nor anything of the JAX package ``repro``.  Entry points default to the card
 and raise when there is none."""
 
@@ -16,9 +17,13 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
+# the port's counterparts of examples/*.py and scripts/*.py
+PORT_SCRIPTS = [ROOT / "examples" / f"{n}_torch.py" for n in (
+    "quickstart", "serving_front", "online_serving", "train_lm", "geo_failover")] + [
+    ROOT / "scripts" / f"{n}_torch.py" for n in ("transport_smoke", "perf_probe")]
 
 _PROBE = r"""
-import importlib, json, pkgutil, sys
+import importlib, json, pkgutil, runpy, sys
 sys.modules["jax"] = None  # any import of jax now raises
 sys.path.insert(0, sys.argv[1])
 import repro_torch
@@ -26,6 +31,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for n in names:
     importlib.import_module(n)
 import chip_smoke, chip_profile
+for path in sys.argv[2:]:  # loaded by path; run_name keeps main from running
+    runpy.run_path(path, run_name="probe")
 leaked = sorted(k for k in sys.modules
                 if k == "repro" or k.startswith(("repro.", "jax.", "jaxlib", "flax")))
 print(json.dumps({"modules": names, "leaked": leaked,
@@ -36,7 +43,7 @@ print(json.dumps({"modules": names, "leaked": leaked,
 def test_port_imports_without_jax_or_repro():
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out = subprocess.run(
-        [sys.executable, "-c", _PROBE, str(ROOT)], cwd=ROOT, env=env,
+        [sys.executable, "-c", _PROBE, str(ROOT), *map(str, PORT_SCRIPTS)], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
@@ -71,7 +78,7 @@ def test_port_imports_without_jax_or_repro():
 
 def test_no_source_line_imports_jax_or_repro():
     files = [*sorted((ROOT / "src" / "repro_torch").rglob("*.py")),
-             ROOT / "chip_smoke.py", ROOT / "chip_profile.py"]
+             ROOT / "chip_smoke.py", ROOT / "chip_profile.py", *PORT_SCRIPTS]
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()
