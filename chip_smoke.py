@@ -226,7 +226,13 @@ port's paths on the card through the entry points a user calls:
      and backward after its measured steps; flash counted at SDPA's
      formulas) exactly, its
      predicted peak is within 25% of the row's measured ``peak_gb``, and
-     its roofline seconds print beside the row's ``step_s``;
+     its roofline seconds print beside the row's ``step_s``.  The four
+     cells then go through the dry-run report
+     (``scripts/render_experiments_torch.py`` ``dryrun_tables``), whose
+     roofline rows print on lines of their own: one row a cell, its
+     "fits H100" column agreeing with the row's measured peak, and the
+     report's H100 capacity (``H100_HBM``) within ``H100_HBM_MARGIN`` of
+     the card's total memory;
   27. ``mesh``: the mesh path on the card (``launch/mesh.py``,
      ``models/sharding.py``, ``models/pspec.py``): NCCL at world size 1, a
      1x1 (data, model) mesh.  gemma-2b at full width, ``pallas_flash``,
@@ -277,6 +283,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import gc
+import importlib.util
 import json
 import os
 import re
@@ -3845,8 +3852,44 @@ def phase_dryrun(rows: dict, reduced: bool = False) -> dict:
             "compute_s": r["compute_s"], "memory_s": r["memory_s"], "dominant": r["dominant"],
             "measured_step_s": row["step_s"], "dryrun_s": cell["compile_s"],
             "microbatches": cell["microbatches"]}
+    out["report"] = check_report(cells, rows)
     emit(out)
     return out
+
+
+def check_report(cells: dict, rows: dict) -> dict:
+    """The dry-run cells (``phase_dryrun``) through the port's report,
+    ``scripts/render_experiments_torch.py``: its roofline table holds one
+    row a cell, printed here line by line; each row's "fits H100" column
+    agrees with the peak measured on this card against the report's
+    capacity, and that capacity (``H100_HBM``, the data sheet's) is within
+    ``H100_HBM_MARGIN`` of the card's total memory."""
+    path = ROOT / "scripts" / "render_experiments_torch.py"
+    spec = importlib.util.spec_from_file_location("render_experiments_torch", path)
+    report = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(report)
+    card = torch.cuda.get_device_properties(0).total_memory
+    check(abs(card - report.H100_HBM) <= report.H100_HBM_MARGIN * report.H100_HBM,
+          f"the report's H100 capacity ({report.H100_HBM} bytes) is within "
+          f"{report.H100_HBM_MARGIN:.0%} of the card's total memory ({card} bytes)")
+    by_arch = {cell["arch"]: name for name, cell in cells.items()}
+    tables = report.dryrun_tables({f"{c['arch']}|train_4k|{DRYRUN_MESH}": c
+                                   for c in cells.values()})
+    lines = tables["ROOFLINE_SINGLE"].splitlines()
+    print("\n".join(lines), flush=True)
+    header = [c.strip("| ") for c in lines[0].split(" | ")]
+    fits = header.index("fits H100")
+    check(len(lines) == 2 + len(cells), f"the report renders one row a dry-run cell "
+          f"({len(lines) - 2} rows for {len(cells)} cells)")
+    for line in lines[2:]:
+        cols = [c.strip("| ") for c in line.split(" | ")]
+        name = by_arch[cols[0]]
+        measured_fits = rows[name]["peak_gb"] * 1e9 <= report.H100_HBM
+        check((cols[fits] == "y") == measured_fits,
+              f"the report's fits-H100 column of {name} ({cols[fits]}) agrees with the "
+              f"peak measured on the card ({rows[name]['peak_gb']:.2f} GB)")
+    return {"rows": lines[2:], "h100_hbm_bytes": report.H100_HBM,
+            "card_total_memory": card, "counts": tables["COUNTS"]}
 
 
 def main() -> int:

@@ -126,7 +126,8 @@ def pit_join_feature_set(
         for f in spec.features
     }
     event_out = np.where(valid, table_ev[safe_idx], 0)
-    seconds = {"prepare": t1 - t0, "search": t2 - t1, "gather": time.perf_counter() - t2}
+    seconds = {"prepare": t1 - t0, "search": t2 - t1,
+               "gather": time.perf_counter() - t2}
     return PitResult(values, valid, event_out, seconds)
 
 

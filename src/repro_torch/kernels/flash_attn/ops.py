@@ -64,8 +64,8 @@ from repro_torch.kernels.flash_attn.ref import (
 )
 
 __all__ = ["BWD_ENTRIES", "ENTRIES", "HEAD_DIMS", "TC_HEAD_DIMS", "FlashAttention",
-           "bwd_counter", "bwd_tc_counter", "counter", "flash_attention", "flash_bytes", "route",
-           "tc_counter"]
+           "bwd_counter", "bwd_tc_counter", "counter", "flash_attention", "flash_bytes",
+           "route", "tc_counter"]
 
 #: head dims the kernels are built for (phi3/qwen 128, gemma 256, zamba2 112,
 #: small checks)
@@ -109,14 +109,16 @@ def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     b, _, h, d = q.shape
     kv = k.shape[2]
     if k.shape[0] != b or k.shape[3] != d or kv == 0 or h % kv:
-        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not pair (H % KV == 0)")
+        raise ValueError(
+            f"q {tuple(q.shape)} and k {tuple(k.shape)} do not pair (H % KV == 0)")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"flash_attention takes float32 or bfloat16 q, k, v of one dtype, got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
     if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} is not one the kernel is built for: {HEAD_DIMS}")
+        raise ValueError(
+            f"head dim {d} is not one the kernel is built for: {HEAD_DIMS}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -152,7 +154,8 @@ def flash_attention(
     if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention runs on cuda or cpu (or meta: shapes only), "
                          f"not {q.device}")
-    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
     return FlashAttention.apply(q, k, v, causal, grad)
 
 
@@ -162,8 +165,10 @@ def _flash_on_mesh(q, k, v, causal: bool):
 
     from repro_torch.models.pspec import head_placements, local_call
 
-    if not (isinstance(q, DTensor) and isinstance(k, DTensor) and isinstance(v, DTensor)):
-        raise TypeError("flash_attention takes q, k and v all DTensors or all plain tensors")
+    if not (isinstance(q, DTensor) and isinstance(k, DTensor)
+            and isinstance(v, DTensor)):
+        raise TypeError(
+            "flash_attention takes q, k and v all DTensors or all plain tensors")
     q_pl, kv_pl = head_placements(q, k)
     return local_call(
         lambda a, b, c: flash_attention(a.contiguous(), b.contiguous(), c.contiguous(),
@@ -192,7 +197,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, lse = ctx.saved_tensors
-        dq, dk, dv = torch.ops.repro_torch.flash_bwd(q, k, v, lse, do.to(q.dtype).contiguous(),
+        dq, dk, dv = torch.ops.repro_torch.flash_bwd(q, k, v, lse,
+                                                     do.to(q.dtype).contiguous(),
                                                      ctx.causal)
         return dq, dk, dv, None, None
 
@@ -209,12 +215,14 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 @_flash_fwd.register_fake
 def _(q, k, v, causal, grad):
     b, s, h, _ = q.shape
-    return torch.empty_like(q), q.new_empty((b, h, s) if grad else (0,), dtype=torch.float32)
+    return torch.empty_like(q), q.new_empty((b, h, s) if grad else (0,),
+                                            dtype=torch.float32)
 
 
 @torch.library.custom_op("repro_torch::flash_bwd", mutates_args=())
 def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor,
-               do: torch.Tensor, causal: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+               do: torch.Tensor,
+               causal: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``_backward`` as a dispatcher op: (dq, dk, dv)."""
     return tuple(_backward(q, k, v, lse, do, causal))
 
@@ -237,7 +245,8 @@ def _(q_shape, k_shape, v_shape, causal, grad, out_shape=None, **kw) -> int:
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_bwd)
-def _(q_shape, k_shape, v_shape, lse_shape, do_shape, causal, out_shape=None, **kw) -> int:
+def _(q_shape, k_shape, v_shape, lse_shape, do_shape, causal, out_shape=None,
+      **kw) -> int:
     qs, ks, vs = _sdpa_shapes(q_shape, k_shape)
     return sdpa_backward_flop_count(qs, qs, ks, vs)
 
@@ -279,7 +288,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
             b, s, t, h, k.shape[2], d, _DTYPES[q.dtype], int(causal),
-            q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
             stream,
         )
     native.check(err, ENTRIES[path])
@@ -318,7 +328,8 @@ def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tens
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
             None if part is None else part.data_ptr(),
             b, s, t, h, kv, d, _DTYPES[q.dtype], int(causal),
-            q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
             stream,
         )
     native.check(err, BWD_ENTRIES[path])

@@ -23,14 +23,16 @@ import math
 
 import torch
 
-__all__ = ["attention_bwd_lse_ref", "attention_bwd_ref", "attention_lse_ref", "attention_ref"]
+__all__ = ["attention_bwd_lse_ref", "attention_bwd_ref", "attention_lse_ref",
+           "attention_ref"]
 
 
 def _acc(*xs: torch.Tensor) -> torch.dtype:
     return torch.float64 if any(x.dtype == torch.float64 for x in xs) else torch.float32
 
 
-def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+def _scores(q: torch.Tensor, k: torch.Tensor,
+            causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """(qg (B, S, KV, G, D), scaled masked scores (B, KV, G, S, T)) in the
     accumulation dtype."""
     b, s, h, d = q.shape
@@ -45,7 +47,8 @@ def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> tuple[torch.Tenso
     return qg, scores
 
 
-def _probs(q: torch.Tensor, k: torch.Tensor, causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+def _probs(q: torch.Tensor, k: torch.Tensor,
+           causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """(qg (B, S, KV, G, D), P (B, KV, G, S, T)) in the accumulation dtype."""
     qg, scores = _scores(q, k, causal)
     return qg, torch.softmax(scores, dim=-1)

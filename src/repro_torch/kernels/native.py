@@ -28,7 +28,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["ErrorWord", "LaunchCounter", "NVCC_FLAGS", "build", "check", "library", "nvcc"]
+__all__ = ["ErrorWord", "LaunchCounter", "NVCC_FLAGS", "build", "check", "library",
+           "nvcc"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -160,7 +161,8 @@ def nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME  # locates the toolkit
 
     if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME): cannot build kernels")
+        raise RuntimeError(
+            "no CUDA toolkit found (set CUDA_HOME): cannot build kernels")
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 

@@ -150,7 +150,8 @@ def route_queries(
 
 def _check_lookup_args(keys: torch.Tensor, queries: torch.Tensor) -> None:
     if keys.dtype != torch.int64 or queries.dtype != torch.int64:
-        raise TypeError(f"lookup takes int64 keys and queries, got {keys.dtype}, {queries.dtype}")
+        raise TypeError(
+            f"lookup takes int64 keys and queries, got {keys.dtype}, {queries.dtype}")
     if keys.dim() != 2 or queries.dim() != 2 or keys.shape[0] != queries.shape[0]:
         raise ValueError(
             f"lookup takes keys (P, C) and queries (P, Q), got "

@@ -145,13 +145,15 @@ def gather_slot_ts(
     return event_ts[idx], creation_ts[idx]
 
 
-def _check_merge_args(keys, event_ts, creation_ts, values, q_keys, q_ev, q_values) -> None:
-    for name, t in (("keys", keys), ("event_ts", event_ts), ("creation_ts", creation_ts),
-                    ("q_keys", q_keys), ("q_ev", q_ev)):
+def _check_merge_args(keys, event_ts, creation_ts, values, q_keys, q_ev,
+                      q_values) -> None:
+    for name, t in (("keys", keys), ("event_ts", event_ts),
+                    ("creation_ts", creation_ts), ("q_keys", q_keys), ("q_ev", q_ev)):
         if t.dtype != torch.int64:
             raise TypeError(f"merge takes int64 {name}, got {t.dtype}")
     if values.dtype != torch.float32 or q_values.dtype != torch.float32:
-        raise TypeError(f"merge takes float32 values, got {values.dtype}, {q_values.dtype}")
+        raise TypeError(
+            f"merge takes float32 values, got {values.dtype}, {q_values.dtype}")
     if keys.dim() != 2 or q_keys.dim() != 2 or values.dim() != 3:
         raise ValueError("merge takes keys (P, C), values (P, C, D) and q_keys (P, Q)")
     p, c = keys.shape
@@ -292,8 +294,8 @@ def route_and_merge(
     q_ids, q_ev, q_vals = route_winners(keys.shape[0], ids, ev, vals)
     t_ev, t_cr = up(event_ts, np.int64), up(creation_ts, np.int64)
     t_vals = up(values, np.float32)
-    merge(up(keys, np.int64), t_ev, t_cr, t_vals, up(q_ids, np.int64), up(q_ev, np.int64),
-          up(q_vals, np.float32), batch_creation_ts)
+    merge(up(keys, np.int64), t_ev, t_cr, t_vals, up(q_ids, np.int64),
+          up(q_ev, np.int64), up(q_vals, np.float32), batch_creation_ts)
     out = t_ev.cpu().numpy(), t_cr.cpu().numpy(), t_vals.cpu().numpy()
     if dev.type == "cuda":
         check_error(dev)

@@ -54,7 +54,8 @@ def merge_scan_ref(
     if q_keys.shape[1] == 0 or keys.shape[1] == 0:
         return
     hit, j, new_ev = match_winners(keys, q_keys, q_ev, sorted_q, order)
-    win = hit & ((new_ev > event_ts) | ((new_ev == event_ts) & (creation > creation_ts)))
+    win = hit & (
+        (new_ev > event_ts) | ((new_ev == event_ts) & (creation > creation_ts)))
     part, slot = win.nonzero(as_tuple=True)
     event_ts[part, slot] = new_ev[part, slot]
     creation_ts[part, slot] = creation

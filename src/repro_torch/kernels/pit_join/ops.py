@@ -48,7 +48,8 @@ def _check_args(table_ts, q_ts, q_lo, q_hi) -> None:
     if q_lo.dtype not in (torch.int32, torch.int64) or q_hi.dtype not in (
         torch.int32, torch.int64
     ):
-        raise TypeError(f"pit_search takes int32/int64 bounds, got {q_lo.dtype}, {q_hi.dtype}")
+        raise TypeError(
+            f"pit_search takes int32/int64 bounds, got {q_lo.dtype}, {q_hi.dtype}")
     b = q_ts.shape
     if table_ts.dim() != 1 or q_ts.dim() != 1 or q_lo.shape != b or q_hi.shape != b:
         raise ValueError(
@@ -112,8 +113,8 @@ def _launch(table_ts, q_ts, lo, hi, idx, valid) -> None:
     errors.raise_if_set(table_ts.device)
     err = native.library().pit_search_i64(
         table_ts.data_ptr(), q_ts.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        idx.data_ptr(), valid.data_ptr(), errors.ptr(table_ts.device), table_ts.shape[0], b,
-        torch.cuda.current_stream().cuda_stream,
+        idx.data_ptr(), valid.data_ptr(), errors.ptr(table_ts.device),
+        table_ts.shape[0], b, torch.cuda.current_stream().cuda_stream,
     )
     native.check(err, "pit_search_i64")
     counter.add()

@@ -26,7 +26,8 @@ import torch
 from repro_torch.kernels import native
 from repro_torch.kernels.rolling_agg.ref import rolling_minmax, rolling_sum_ref
 
-__all__ = ["check_error", "counter", "errors", "rolling_agg", "rolling_sum", "window_starts"]
+__all__ = ["check_error", "counter", "errors", "rolling_agg", "rolling_sum",
+           "window_starts"]
 
 STARTS_MESSAGE = "window starts must satisfy 0 <= starts[i] <= i"
 # rows of the kernel's tile (kTile in csrc/rolling_sum.cu), which sizes its
@@ -100,7 +101,8 @@ def rolling_sum(values: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"rolling_sum runs on cuda or cpu, not {values.device}")
     with torch.cuda.device(values.device):
         out = torch.empty((n, f), dtype=torch.float32, device=values.device)
-        scratch = torch.empty(scratch_len(n, f), dtype=torch.float64, device=values.device)
+        scratch = torch.empty(scratch_len(n, f), dtype=torch.float64,
+                              device=values.device)
         _launch(values, starts, out, scratch)
     return out
 
@@ -136,7 +138,8 @@ def rolling_agg(values: torch.Tensor, starts: np.ndarray, agg: str) -> torch.Ten
     starts = np.asarray(starts)
     n = values.shape[0]
     if n == 0:
-        return torch.zeros((0, values.shape[1]), dtype=torch.float32, device=values.device)
+        return torch.zeros((0, values.shape[1]), dtype=torch.float32,
+                           device=values.device)
     spans = np.arange(n) + 1 - starts
     if (spans <= 0).any():
         raise ValueError("window starts must satisfy starts[i] <= i")

@@ -17,12 +17,14 @@ def rolling_sum_ref(values: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     float32, starts (N,) int -> (N, F) float32.  The float64 prefix keeps
     the cancellation error far below float32 resolution at any span."""
     v = values.to(torch.float64)
-    prefix = torch.zeros((v.shape[0] + 1, v.shape[1]), dtype=torch.float64, device=v.device)
+    prefix = torch.zeros((v.shape[0] + 1, v.shape[1]), dtype=torch.float64,
+                         device=v.device)
     torch.cumsum(v, dim=0, out=prefix[1:])
     return (prefix[1:] - prefix[starts.long()]).to(torch.float32)
 
 
-def rolling_minmax(values: torch.Tensor, starts: torch.Tensor, agg: str) -> torch.Tensor:
+def rolling_minmax(values: torch.Tensor, starts: torch.Tensor,
+                   agg: str) -> torch.Tensor:
     """Windowed min or max through a sparse table: level k holds the
     min/max of each run of 2**k rows, and a window of span s is covered by
     two overlapping runs of 2**floor(log2 s) rows.  min/max round nothing,

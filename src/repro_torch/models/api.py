@@ -101,7 +101,8 @@ def make_dummy_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0,
                            dtype=torch.int32)
     out = {"tokens": tokens}
     cdt = torch_dtype(cfg.compute_dtype)
-    normal = lambda shape: torch.randn(shape, generator=gen, device=dev).to(cdt)  # noqa: E731
+    normal = lambda shape: (  # noqa: E731
+        torch.randn(shape, generator=gen, device=dev).to(cdt))
     if cfg.encoder_decoder:
         out["frames"] = normal((batch, cfg.encoder_seq, cfg.d_model))
     if cfg.vision_prefix:

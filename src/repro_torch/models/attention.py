@@ -27,7 +27,8 @@ from typing import Optional
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import ParamModule, apply_rope, dense_init, reduce_boundary, rope
+from repro_torch.models.layers import (ParamModule, apply_rope, dense_init,
+                                       reduce_boundary, rope)
 from repro_torch.models.pspec import (
     head_placements,
     is_dtensor,
@@ -91,7 +92,8 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig):
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    return split_last(q, b, s, h, hd), split_last(k, b, s, kv, hd), split_last(v, b, s, kv, hd)
+    return (split_last(q, b, s, h, hd), split_last(k, b, s, kv, hd),
+            split_last(v, b, s, kv, hd))
 
 
 def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
@@ -139,8 +141,8 @@ def make_mask(
     if causal:
         m = kp <= qp
     else:
-        m = placed(torch.ones(torch.broadcast_shapes(qp.shape, kp.shape), dtype=torch.bool,
-                              device=qp.device))
+        m = placed(torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                              dtype=torch.bool, device=qp.device))
     if window:
         local = (qp - kp) < window
         m = m & (local | is_global)
@@ -185,7 +187,8 @@ def attention(
         return reduce_boundary(out, x.dtype) @ params["wo"]
 
     pos2 = positions if positions.ndim == 2 else positions[None]
-    mask = make_mask(pos2, pos2, causal=causal, window=cfg.sliding_window, is_global=is_global)
+    mask = make_mask(pos2, pos2, causal=causal, window=cfg.sliding_window,
+                     is_global=is_global)
     return reduce_boundary(_sdpa(q, k, v, mask, cfg), x.dtype) @ params["wo"]
 
 
@@ -205,7 +208,8 @@ def init_kv_cache(
     return {
         "k": torch.zeros((batch, size, kv, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, size, kv, hd), dtype=dtype, device=device),
-        "pos": torch.full((batch, size), -1, dtype=torch.int32, device=device),  # -1 = empty
+        # -1 = empty
+        "pos": torch.full((batch, size), -1, dtype=torch.int32, device=device),
     }
 
 

@@ -111,7 +111,8 @@ class EncDec(ParamModule):
         dev = gen.device if gen is not None else device
         d = cfg.d_model
         super().__init__({
-            "embed": dense_init(gen, (cfg.vocab_size, d), fan_in=d, dtype=dtype, device=dev),
+            "embed": dense_init(gen, (cfg.vocab_size, d), fan_in=d, dtype=dtype,
+                                device=dev),
             "pos_dec": dense_init(gen, (max_pos, d), fan_in=d, dtype=dtype, device=dev),
         })
         self.cfg = cfg
@@ -145,7 +146,8 @@ def _heads(params, x: torch.Tensor, name: str, cfg: ModelConfig) -> torch.Tensor
     return split_last(x @ params[name], b, s, cfg.num_heads, cfg.head_dim)
 
 
-def _attn_nope(params, x: torch.Tensor, cfg: ModelConfig, *, causal: bool) -> torch.Tensor:
+def _attn_nope(params, x: torch.Tensor, cfg: ModelConfig, *,
+               causal: bool) -> torch.Tensor:
     q, k, v = (_heads(params, x, w, cfg) for w in ("wq", "wk", "wv"))
     pos = placed(torch.arange(x.shape[1], device=x.device))[None]
     mask = make_mask(pos, pos, causal=causal)
@@ -155,7 +157,8 @@ def _attn_nope(params, x: torch.Tensor, cfg: ModelConfig, *, causal: bool) -> to
 def _cross(params, x: torch.Tensor, mem_k: torch.Tensor, mem_v: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
     q = _heads(params, x, "wq", cfg)
-    mask = placed(torch.ones((1, x.shape[1], mem_k.shape[1]), dtype=torch.bool, device=x.device))
+    mask = placed(
+        torch.ones((1, x.shape[1], mem_k.shape[1]), dtype=torch.bool, device=x.device))
     return _sdpa(q, mem_k, mem_v, mask, cfg) @ params["wo"]
 
 
@@ -181,7 +184,8 @@ def encode(params: EncDec, frames, cfg: ModelConfig) -> torch.Tensor:
     """frames (B, T_enc, D) from the stub frontend -> encoder memory."""
     cdt = torch_dtype(cfg.compute_dtype)
     frames = placed(torch.as_tensor(frames, device=params.device))
-    x = frames.to(cdt) + placed(_sinusoid(frames.shape[1], cfg.d_model, frames.device)).to(cdt)
+    x = frames.to(cdt) + placed(
+        _sinusoid(frames.shape[1], cfg.d_model, frames.device)).to(cdt)
     remat = _remat(params)
     for lp in params["enc"]:
         x = (checkpoint(_enc_layer, lp, x, cfg, use_reentrant=False) if remat
@@ -189,11 +193,13 @@ def encode(params: EncDec, frames, cfg: ModelConfig) -> torch.Tensor:
     return _norm(x, params["enc_ln"])
 
 
-def _cross_kv(params, memory: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def _cross_kv(params, memory: torch.Tensor,
+              cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     return _heads(params, memory, "wk", cfg), _heads(params, memory, "wv", cfg)
 
 
-def _dec_layer(lp, x: torch.Tensor, memory: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _dec_layer(lp, x: torch.Tensor, memory: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
     x = constrain(x, BATCH, None, None)
     x = x + _attn_nope(lp["self_attn"], _norm(x, lp["ln1"]), cfg, causal=True)
     mem_k, mem_v = _cross_kv(lp["cross_attn"], memory, cfg)
@@ -201,7 +207,8 @@ def _dec_layer(lp, x: torch.Tensor, memory: torch.Tensor, cfg: ModelConfig) -> t
     return x + mlp_apply(lp["mlp"], _norm(x, lp["ln3"]), "gelu")
 
 
-def decode_full(params: EncDec, memory: torch.Tensor, tokens, cfg: ModelConfig) -> torch.Tensor:
+def decode_full(params: EncDec, memory: torch.Tensor, tokens,
+                cfg: ModelConfig) -> torch.Tensor:
     """Logits (B, S, V) of the whole token sequence against ``memory``, in
     the compute dtype."""
     cdt = torch_dtype(cfg.compute_dtype)
@@ -212,10 +219,12 @@ def decode_full(params: EncDec, memory: torch.Tensor, tokens, cfg: ModelConfig) 
     for lp in params["dec"]:
         x = (checkpoint(_dec_layer, lp, x, memory, cfg, use_reentrant=False) if remat
              else _dec_layer(lp, x, memory, cfg))
-    return constrain(_norm(x, params["dec_ln"]) @ params["embed"].T, BATCH, None, "model")
+    return constrain(_norm(x, params["dec_ln"]) @ params["embed"].T, BATCH, None,
+                     "model")
 
 
-def train_loss(params: EncDec, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+def train_loss(params: EncDec, batch: dict,
+               cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """Next-token loss of ``batch["tokens"]`` decoded against the encoding of
     ``batch["frames"]``; metrics ``lm_loss`` and ``total_loss``, as JAX's."""
     memory = encode(params, batch["frames"], cfg)
@@ -232,7 +241,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     ``precompute_cross`` fills the cross ones."""
     dtype = torch_dtype(cfg.compute_dtype)
     h, hd, n = cfg.num_heads, cfg.head_dim, cfg.num_layers
-    zeros = lambda t: torch.zeros((n, batch, t, h, hd), dtype=dtype, device=device)  # noqa: E731
+    zeros = lambda t: (  # noqa: E731
+        torch.zeros((n, batch, t, h, hd), dtype=dtype, device=device))
     return {"t": 0, "self_k": zeros(max_len), "self_v": zeros(max_len),
             "mem_k": zeros(cfg.encoder_seq), "mem_v": zeros(cfg.encoder_seq)}
 
@@ -265,18 +275,21 @@ def decode_step(params: EncDec, cache: dict, tokens_new,
         sa = lp["self_attn"]
         hdn = _norm(x, lp["ln1"])
         q, k, v = (_heads(sa, hdn, w, cfg) for w in ("wq", "wk", "wv"))
-        x = x + _cache_attend(q, cache["self_k"], cache["self_v"], i, cfg, (k, v), slot, t) \
+        x = x + _cache_attend(q, cache["self_k"], cache["self_v"], i, cfg, (k, v),
+                              slot, t) \
             @ sa["wo"]
         ca = lp["cross_attn"]
         q = _heads(ca, _norm(x, lp["ln2"]), "wq", cfg)
         x = x + _cache_attend(q, cache["mem_k"], cache["mem_v"], i, cfg) @ ca["wo"]
         x = x + mlp_apply(lp["mlp"], _norm(x, lp["ln3"]), "gelu")
     cache["t"] = t + 1
-    return constrain(_norm(x, params["dec_ln"]) @ params["embed"].T, BATCH, None, "model"), cache
+    return constrain(_norm(x, params["dec_ln"]) @ params["embed"].T, BATCH, None,
+                     "model"), cache
 
 
 def _cache_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, layer: int,
-                  cfg: ModelConfig, new=(None, None), slot: int = 0, t: int = 0) -> torch.Tensor:
+                  cfg: ModelConfig, new=(None, None), slot: int = 0,
+                  t: int = 0) -> torch.Tensor:
     """q (B, 1, H, hd) over layer ``layer`` of the stacked K/V ``ck``/``cv``
     (L, B, S, H, hd) -> (B, 1, H·hd).  The self attention's ``new`` key and
     value (B, 1, H, hd) go in at ``slot`` first, and the query sees the
@@ -294,8 +307,8 @@ def _cache_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, layer: in
                       (q_pl, ck.placements, cv.placements, new_pl, new_pl), q_pl)
 
 
-def _attend_layer(q, ck, cv, k_new, v_new, layer: int, cfg: ModelConfig, slot: int, t: int,
-                  seq=None) -> torch.Tensor:
+def _attend_layer(q, ck, cv, k_new, v_new, layer: int, cfg: ModelConfig, slot: int,
+                  t: int, seq=None) -> torch.Tensor:
     k, v = ck[layer], cv[layer]
     chunk = k.shape[1]
     lo = 0 if seq is None else seq[1] * chunk

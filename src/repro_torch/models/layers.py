@@ -70,7 +70,8 @@ class ParamModule(nn.Module):
         return name in self._parameters or name in self._modules
 
 
-def reduce_boundary(x: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+def reduce_boundary(x: torch.Tensor,
+                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """The operand of a row-parallel matmul in a compact dtype: a cast."""
     return x.to(dtype)
 
@@ -107,7 +108,8 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 # -- rotary position embeddings ------------------------------------------------
-def rope(positions: torch.Tensor, dim: int, theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+def rope(positions: torch.Tensor, dim: int,
+         theta: float) -> tuple[torch.Tensor, torch.Tensor]:
     """positions (...,) -> (cos, sin) of shape (..., dim//2), float32."""
     freqs = placed(torch.exp(
         -math.log(theta)
@@ -130,7 +132,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 def mlp_init(gen: Optional[torch.Generator], d_model: int, d_ff: int, variant: str,
              dtype: torch.dtype = torch.bfloat16,
              device: Optional[torch.device] = None) -> dict:
-    init = lambda shape: dense_init(gen, shape, dtype=dtype, device=device)  # noqa: E731
+    init = lambda shape: (  # noqa: E731
+        dense_init(gen, shape, dtype=dtype, device=device))
     if variant in ("swiglu", "geglu"):
         return {
             "w_gate": init((d_model, d_ff)),
@@ -186,8 +189,8 @@ def embedding(tokens: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     tok_pl = [Replicate() if i in vocab else p for i, p in enumerate(tokens.placements)]
     tokens = tokens.redistribute(mesh, tok_pl)
     # the local weight's gradient sums over the ranks that hold other tokens
-    grad_pl = [Shard(0) if i in vocab else Replicate() if p == Replicate() else Partial()
-               for i, p in enumerate(tok_pl)]
+    grad_pl = [Shard(0) if i in vocab else Replicate() if p == Replicate()
+               else Partial() for i, p in enumerate(tok_pl)]
     w_loc, tok = w.to_local(grad_placements=grad_pl), tokens.to_local()
     if not vocab:
         out = F.embedding(tok, w_loc)
@@ -200,4 +203,5 @@ def embedding(tokens: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
         out = F.embedding(torch.where(inside, tok - lo, 0), w_loc)
         out = torch.where(inside[..., None], out, 0.0)
     return DTensor.from_local(out, mesh, [Partial() if i in vocab else p
-                                          for i, p in enumerate(tok_pl)], run_check=False)
+                                          for i, p in enumerate(tok_pl)],
+                              run_check=False)

@@ -94,15 +94,19 @@ class Block(ParamModule):
     hybrid config's ``d_ff`` sizes the shared attention block's MLP only."""
 
     def __init__(self, gen, cfg: ModelConfig, *, dtype: torch.dtype,
-                 device: Optional[torch.device] = None, dense_ffn: bool = False) -> None:
+                 device: Optional[torch.device] = None,
+                 dense_ffn: bool = False) -> None:
         dev = gen.device if gen is not None else device
-        super().__init__({"norm1": torch.zeros((cfg.d_model,), dtype=dtype, device=dev)})
-        mixer = ssm_mod.Mamba if cfg.ssm else mla_mod.MLA if cfg.use_mla else attn.Attention
+        super().__init__(
+            {"norm1": torch.zeros((cfg.d_model,), dtype=dtype, device=dev)})
+        mixer = (ssm_mod.Mamba if cfg.ssm else mla_mod.MLA if cfg.use_mla
+                 else attn.Attention)
         self.mixer = mixer(gen, cfg, dtype=dtype, device=device)
         moe = cfg.moe and not dense_ffn
         if moe or (cfg.d_ff and not cfg.ssm):
             self.register_parameter("norm2", nn.Parameter(
-                torch.zeros((cfg.d_model,), dtype=dtype, device=dev), requires_grad=False))
+                torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+                requires_grad=False))
         if moe:
             self.ffn = moe_mod.MoE(gen, cfg, dtype=dtype, device=device)
         elif cfg.d_ff and not cfg.ssm:
@@ -117,12 +121,13 @@ class SharedAttnBlock(ParamModule):
     def __init__(self, gen, cfg: ModelConfig, *, dtype: torch.dtype,
                  device: Optional[torch.device] = None) -> None:
         dev = gen.device if gen is not None else device
-        super().__init__({"norm1": torch.zeros((cfg.d_model,), dtype=dtype, device=dev)})
+        super().__init__(
+            {"norm1": torch.zeros((cfg.d_model,), dtype=dtype, device=dev)})
         self.attn = attn.Attention(gen, cfg, dtype=dtype, device=device)
         self.register_parameter("norm2", nn.Parameter(
             torch.zeros((cfg.d_model,), dtype=dtype, device=dev), requires_grad=False))
-        self.mlp = MLP(gen, cfg.d_model, cfg.d_ff or 4 * cfg.d_model, "gelu", dtype=dtype,
-                       device=device)
+        self.mlp = MLP(gen, cfg.d_model, cfg.d_ff or 4 * cfg.d_model, "gelu",
+                       dtype=dtype, device=device)
 
 
 def _layer_plan(cfg: ModelConfig) -> dict:
@@ -155,8 +160,8 @@ class LM(ParamModule):
             "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
         }
         if not cfg.tie_embeddings:
-            tensors["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype=dtype,
-                                            device=dev)
+            tensors["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                            dtype=dtype, device=dev)
         super().__init__(tensors)
         self.cfg = cfg
         self.prefix = nn.ModuleList(
@@ -178,10 +183,12 @@ class LM(ParamModule):
             # MTP depth-1 (deepseek-v3): the training loss runs it, serving
             # does not
             self.mtp = ParamModule({
-                "proj": dense_init(gen, (2 * cfg.d_model, cfg.d_model), dtype=dtype, device=dev),
+                "proj": dense_init(gen, (2 * cfg.d_model, cfg.d_model), dtype=dtype,
+                                   device=dev),
                 "norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
             })
-            self.mtp.block = Block(gen, cfg, dtype=dtype, device=dev, dense_ffn=not cfg.moe)
+            self.mtp.block = Block(gen, cfg, dtype=dtype, device=dev,
+                                   dense_ffn=not cfg.moe)
 
     @property
     def device(self) -> torch.device:
@@ -200,7 +207,8 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig, *,
 # forward (train / prefill shared body)
 # =============================================================================
 def _block_apply(bp, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, *,
-                 is_global=True, dense_ffn: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+                 is_global=True, dense_ffn: bool = False) -> tuple[torch.Tensor,
+                                                                   torch.Tensor]:
     """Returns (y, aux_loss)."""
     aux = placed(torch.zeros((), dtype=torch.float32, device=x.device))
     x = constrain(x, BATCH, None, None)
@@ -233,13 +241,15 @@ def _tokens(params: LM, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens, device=params.device).long()
 
 
-def _embed_inputs(params: LM, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+def _embed_inputs(params: LM, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor,
+                                                                      torch.Tensor]:
     """Token (+ optional vision-prefix) embedding.  Returns (x, positions)."""
     cdt = torch_dtype(cfg.compute_dtype)
     x = constrain(embedding(_tokens(params, batch["tokens"]), params["embed"]),
                   BATCH, None, None).to(cdt)
     if cfg.vision_prefix and "patch_embeds" in batch:
-        patches = placed(torch.as_tensor(batch["patch_embeds"], device=params.device)).to(cdt)
+        patches = placed(
+            torch.as_tensor(batch["patch_embeds"], device=params.device)).to(cdt)
         x = torch.cat([(patches @ params["vision_proj"]).to(cdt), x], dim=1)
     positions = placed(torch.arange(x.shape[1], dtype=torch.int32, device=x.device))
     return x, positions
@@ -269,14 +279,16 @@ def forward(params: LM, batch: dict,
     x, positions = _embed_inputs(params, cfg, batch)
     x = constrain(x, BATCH, None, None)
     aux_total = placed(torch.zeros((), dtype=torch.float32, device=x.device))
-    remat = torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters())
+    remat = torch.is_grad_enabled() and any(p.requires_grad
+                                            for p in params.parameters())
     for layer in _layers(params, cfg):
         if layer is None:
             x = _shared_attn_apply(params["shared_attn"], x, positions, cfg)
             continue
         bp, is_global, dense_ffn = layer
         if remat and not dense_ffn:
-            x, aux = checkpoint(_block_apply, bp, x, positions, cfg, is_global=is_global,
+            x, aux = checkpoint(_block_apply, bp, x, positions, cfg,
+                                is_global=is_global,
                                 use_reentrant=False)
         else:
             x, aux = _block_apply(bp, x, positions, cfg, is_global=is_global,
@@ -300,7 +312,8 @@ def _mtp_loss(params: LM, pre_final: torch.Tensor, tokens: torch.Tensor,
     emb_next = constrain(embedding(tokens, params["embed"]), BATCH, None, None).to(cdt)
     emb_next = torch.cat([emb_next[:, 1:], torch.zeros_like(emb_next[:, :1])], dim=1)
     h_in = torch.cat([pre_final, emb_next], dim=-1) @ mp["proj"]
-    positions = placed(torch.arange(h_in.shape[1], dtype=torch.int32, device=h_in.device))
+    positions = placed(
+        torch.arange(h_in.shape[1], dtype=torch.int32, device=h_in.device))
     h_out, aux = _block_apply(mp["block"], h_in, positions, cfg, dense_ffn=not cfg.moe)
     mtp_logits = rms_norm(h_out, mp["norm"], cfg.norm_eps) @ params.head()
     return softmax_cross_entropy(mtp_logits[:, :-2], tokens[:, 2:]), aux
@@ -336,8 +349,8 @@ def _layer_cache(cfg: ModelConfig, batch: int, max_len: int, window_cache: bool,
         return ssm_mod.init_mamba_state(cfg, batch, dtype=dtype, device=device)
     if cfg.use_mla:
         return mla_mod.init_mla_cache(cfg, batch, max_len, dtype=dtype, device=device)
-    return attn.init_kv_cache(cfg, batch, max_len, window_cache=window_cache, dtype=dtype,
-                              device=device)
+    return attn.init_kv_cache(cfg, batch, max_len, window_cache=window_cache,
+                              dtype=dtype, device=device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -362,10 +375,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                            for i in range(plan["prefix"])]
     if plan["groups"]:
         per = plan["group_len"]
-        cache["groups"] = [[_layer_cache(cfg, batch, max_len, local(g * per + i), dtype, device)
-                            for i in range(per)] for g in range(plan["groups"])]
-        cache["shared"] = [attn.init_kv_cache(cfg, batch, max_len, dtype=dtype, device=device)
-                           for _ in range(plan["groups"])]
+        cache["groups"] = [
+            [_layer_cache(cfg, batch, max_len, local(g * per + i), dtype, device)
+             for i in range(per)] for g in range(plan["groups"])]
+        cache["shared"] = [
+            attn.init_kv_cache(cfg, batch, max_len, dtype=dtype, device=device)
+            for _ in range(plan["groups"])]
     if plan["tail"]:
         window_all = all(local(plan["prefix"] + i) for i in range(plan["tail"]))
         cache["tail"] = [_layer_cache(cfg, batch, max_len, window_all, dtype, device)
@@ -390,7 +405,8 @@ def _block_decode(bp, x: torch.Tensor, lcache: dict, t: int, cfg: ModelConfig, *
     elif cfg.use_mla:
         y, _ = mla_mod.mla_decode(bp["mixer"], h, lcache, t, cfg)
     else:
-        y, _ = attn.attention_decode(bp["mixer"], h, lcache, t, cfg, is_global=is_global)
+        y, _ = attn.attention_decode(bp["mixer"], h, lcache, t, cfg,
+                                     is_global=is_global)
     x = x + y
     if "ffn" in bp:
         h = rms_norm(x, bp["norm2"], cfg.norm_eps)
@@ -432,7 +448,8 @@ def decode_step(params: LM, cache: dict, tokens_new,
             x = _shared_attn_decode(params["shared_attn"], x, lc, t, cfg)
         else:
             bp, is_global, dense_ffn = layer
-            x = _block_decode(bp, x, lc, t, cfg, is_global=is_global, dense_ffn=dense_ffn)
+            x = _block_decode(bp, x, lc, t, cfg, is_global=is_global,
+                              dense_ffn=dense_ffn)
     cache["t"] = t + 1
     hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return constrain(hidden @ params.head(), BATCH, None, "model"), cache

@@ -57,7 +57,8 @@ class _ShardedTokenNLL(torch.autograd.Function):
     log-sum-exp and the label's logit summed over ``group``."""
 
     @staticmethod
-    def forward(ctx, logits: torch.Tensor, labels: torch.Tensor, lo: int, group) -> torch.Tensor:
+    def forward(ctx, logits: torch.Tensor, labels: torch.Tensor, lo: int,
+                group) -> torch.Tensor:
         import torch.distributed as dist
 
         l32 = logits.float()
@@ -92,7 +93,8 @@ def _sharded_token_nll(logits, labels: torch.Tensor) -> torch.Tensor:
     if any(p.is_partial() for p in logits.placements):
         logits = logits.redistribute(mesh, [Replicate() if p.is_partial() else p
                                             for p in logits.placements])
-    vocab = [i for i, p in enumerate(logits.placements) if p == Shard(last) and mesh.size(i) > 1]
+    vocab = [i for i, p in enumerate(logits.placements) if p == Shard(last)
+             and mesh.size(i) > 1]
     rows = [Replicate() if p == Shard(last) else p for p in logits.placements]
     labels = placed(labels).redistribute(mesh, rows)
     l_loc, y_loc = logits.to_local(), labels.to_local()
@@ -100,7 +102,8 @@ def _sharded_token_nll(logits, labels: torch.Tensor) -> torch.Tensor:
         nll = _TokenNLL.apply(l_loc, y_loc)
     elif len(vocab) == 1:
         (i,) = vocab
-        nll = _ShardedTokenNLL.apply(l_loc, y_loc, mesh.get_local_rank(i) * l_loc.shape[-1],
+        nll = _ShardedTokenNLL.apply(l_loc, y_loc,
+                                     mesh.get_local_rank(i) * l_loc.shape[-1],
                                      mesh.get_group(i))
     else:
         raise NotImplementedError(f"logits with the vocab over {len(vocab)} mesh dims")

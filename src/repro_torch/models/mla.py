@@ -89,7 +89,8 @@ class MLA(ParamModule):
         super().__init__(mla_init(gen, cfg, dtype, device))
 
 
-def _q_proj(params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def _q_proj(params, x: torch.Tensor,
+            cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     b, s, _ = x.shape
     h, nope, pe = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
     if cfg.q_lora_rank:
@@ -101,7 +102,8 @@ def _q_proj(params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, to
     return q[..., :nope], q[..., nope:]
 
 
-def _rope(positions: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def _rope(positions: torch.Tensor,
+          cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     cos, sin = rope(positions, cfg.qk_rope_dim, cfg.rope_theta)
     if positions.ndim == 1:
         cos, sin = cos[None], sin[None]
@@ -172,8 +174,10 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     kv_lora_rank + qk_rope_dim values (576 for deepseek), vs 2·H·head_dim
     for plain GQA.  ``pos`` -1 marks an empty slot."""
     return {
-        "c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=device),
-        "k_pe": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype, device=device),
+        "c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                            device=device),
+        "k_pe": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype,
+                            device=device),
         "pos": torch.full((batch, max_len), -1, dtype=torch.int32, device=device),
     }
 
@@ -238,7 +242,8 @@ def _absorbed(q_nope, q_pe, c_new, k_pe_new, c_kv, k_pe, pos, wkv_b, t: int,
     pos[:, t] = t
     pos = pos[:, lo:lo + chunk]
 
-    wkv_b = wkv_b.reshape(r, -1, nope + vd)          # (R, H or this rank's heads, nope+vd)
+    # (R, H or this rank's heads, nope+vd)
+    wkv_b = wkv_b.reshape(r, -1, nope + vd)
     w_uk = wkv_b[..., :nope]                         # (R, H, nope)
     w_uv = wkv_b[..., nope:]                         # (R, H, vd)
 

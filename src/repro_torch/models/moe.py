@@ -59,7 +59,8 @@ import torch.nn.functional as F
 from repro_torch.launch.mesh import axis_names, mesh_shape
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamModule, dense_init, torch_dtype
-from repro_torch.models.pspec import BATCH, constrain, current_mesh, weight_grad_placements
+from repro_torch.models.pspec import (BATCH, constrain, current_mesh,
+                                      weight_grad_placements)
 
 __all__ = ["MoE", "moe_apply", "moe_apply_einsum", "moe_init"]
 
@@ -215,7 +216,8 @@ def _combine(he: torch.Tensor, rows: torch.Tensor, gate_k: torch.Tensor,
     e, cap = he.shape[1], he.shape[2]
     cdt = torch_dtype(cfg.compute_dtype)
     he_flat = torch.cat([he.reshape(g, e * cap, d),
-                         torch.zeros((g, 1, d), dtype=he.dtype, device=he.device)], dim=1)
+                         torch.zeros((g, 1, d), dtype=he.dtype, device=he.device)],
+                         dim=1)
     y = torch.zeros((g, gs, d), dtype=cdt, device=he.device)
     for j in range(k):
         yj = torch.gather(he_flat, 1, rows[:, :, j])             # (G,S,D)
@@ -253,7 +255,8 @@ def _mean_over_ranks(local: torch.Tensor, mesh, token_pl: list):
         mesh, [Replicate()] * mesh.ndim)
 
 
-def _moe_local(params, x, cfg: ModelConfig, mesh, group_size: int, capacity_factor: float):
+def _moe_local(params, x, cfg: ModelConfig, mesh, group_size: int,
+               capacity_factor: float):
     """The GSPMD path on a mesh: groups over the batch axes, the weights
     whole on every rank, local routing and dispatch, the aux loss of the
     global means."""
@@ -285,7 +288,8 @@ def _unflatten_tokens(y, mesh, b: int, s: int):
 
     ranks = math.prod(mesh.size(i) for i, p in enumerate(y.placements) if p == Shard(0))
     if b % ranks:
-        y = y.redistribute(mesh, [Replicate() if p == Shard(0) else p for p in y.placements])
+        y = y.redistribute(mesh,
+                           [Replicate() if p == Shard(0) else p for p in y.placements])
     return y.reshape(b, s, y.shape[-1])
 
 
@@ -322,7 +326,8 @@ def _moe_ep(params, x, cfg: ModelConfig, mesh, group_size: int, capacity_factor:
     group = mesh.get_group(m_dim)
 
     def a2a(t: torch.Tensor) -> torch.Tensor:
-        return wait_tensor(all_to_all_single_autograd(t.contiguous(), None, None, group))
+        return wait_tensor(
+            all_to_all_single_autograd(t.contiguous(), None, None, group))
 
     xg = toks.to_local().reshape(-1, gs, d)                      # (G_loc,S,D)
     gate_k, idx_k, me, ce = _route_parts({"router": router}, xg, cfg)
@@ -334,15 +339,17 @@ def _moe_ep(params, x, cfg: ModelConfig, mesh, group_size: int, capacity_factor:
     # <- back to token owners: expert block j from rank j
     he = a2a(he.reshape(ep, g, e // ep, cap, d)).transpose(0, 1).reshape(g, e, cap, d)
     y = _combine(he, rows, gate_k, cfg)
-    aux = DTensor.from_local(_aux(me, ce, cfg) / mesh.size(), mesh, [Partial()] * mesh.ndim,
-                             run_check=False).redistribute(mesh, [Replicate()] * mesh.ndim)
+    aux = DTensor.from_local(_aux(me, ce, cfg) / mesh.size(), mesh,
+                             [Partial()] * mesh.ndim, run_check=False
+                             ).redistribute(mesh, [Replicate()] * mesh.ndim)
     y = DTensor.from_local(y.reshape(-1, d), mesh, tok_pl, run_check=False)
     y = constrain(y, tok_axes, None)
     return constrain(_unflatten_tokens(y, mesh, b, s), BATCH, None, None), aux
 
 
 def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *, group_size: int = 2048,
-              capacity_factor: Optional[float] = None) -> tuple[torch.Tensor, torch.Tensor]:
+              capacity_factor: Optional[float] = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (y (B, S, D), aux_loss scalar).  Tokens go to groups of
     ``group_size`` (snapped to a divisor of B·S); each expert takes at most
     the capacity of ``capacity_factor`` (default ``cfg.capacity_factor``)
@@ -365,7 +372,8 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *, group_size: int = 20
         xg = _group(x, group_size)
         cap = _capacity(cfg, xg.shape[1], capacity_factor)
         gate_k, idx_k, aux = _route(params, xg, cfg)
-        y = _dispatch_ffn_combine_local(params, xg, gate_k, idx_k, cfg, cap).reshape(b, s, d)
+        y = _dispatch_ffn_combine_local(params, xg, gate_k, idx_k, cfg, cap).reshape(
+            b, s, d)
 
     # shared experts: dense on every token
     if "shared" in params:
@@ -377,8 +385,9 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *, group_size: int = 20
 # reference: textbook GShard einsum dispatch (test oracle; O(S^2·E·C) memory —
 # never use on large cells)
 # =============================================================================
-def moe_apply_einsum(params, x: torch.Tensor, cfg: ModelConfig, *, group_size: int = 2048,
-                     capacity_factor: float = 1.25) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_apply_einsum(params, x: torch.Tensor, cfg: ModelConfig, *,
+                     group_size: int = 2048, capacity_factor: float = 1.25
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     xg = _group(x, group_size)

@@ -64,7 +64,8 @@ import torch
 
 __all__ = ["BATCH", "activation_mesh", "constrain", "current_mesh", "gather_over",
            "head_placements", "is_dtensor", "local_call", "placed", "resolve_spec",
-           "row_placements", "seq_placements", "shard_of", "split_last", "split_softmax",
+           "row_placements", "seq_placements", "shard_of", "split_last",
+           "split_softmax",
            "sum_over", "weight_grad_placements"]
 
 BATCH = "__batch__"
@@ -130,8 +131,9 @@ def constrain(x: torch.Tensor, *spec) -> torch.Tensor:
     from repro_torch.models.sharding import placements
 
     if not isinstance(x, DTensor):
-        raise TypeError(f"constrain under a mesh takes a DTensor, got a {type(x).__name__} "
-                        f"of shape {tuple(x.shape)}: place it first")
+        raise TypeError(
+            f"constrain under a mesh takes a DTensor, got a {type(x).__name__} "
+            f"of shape {tuple(x.shape)}: place it first")
     want = placements(resolve_spec(x.shape, spec, mesh), mesh)
     if tuple(x.placements) == tuple(want):
         return x
@@ -164,7 +166,8 @@ def split_last(x: torch.Tensor, *shape: int) -> torch.Tensor:
         mesh, last = x.device_mesh, Shard(x.ndim - 1)
         ranks = math.prod(mesh.size(i) for i, p in enumerate(x.placements) if p == last)
         if shape[-2] % ranks:
-            x = x.redistribute(mesh, [Replicate() if p == last else p for p in x.placements])
+            x = x.redistribute(mesh,
+                               [Replicate() if p == last else p for p in x.placements])
     return x.reshape(*shape)
 
 
@@ -180,7 +183,8 @@ def row_placements(x, row_pl: list) -> list:
     leading dim of 1 (a mask shared by the rows) is replicated."""
     from torch.distributed.tensor import Replicate, Shard
 
-    return [Shard(0) if x.shape[0] != 1 and p == Shard(0) else Replicate() for p in row_pl]
+    return [Shard(0) if x.shape[0] != 1 and p == Shard(0) else Replicate()
+            for p in row_pl]
 
 
 def head_placements(q, k) -> tuple[list, list]:
@@ -224,7 +228,8 @@ def seq_placements(cache, dims: dict) -> list:
     ranks that split the sequence."""
     from torch.distributed.tensor import Replicate, Shard
 
-    return [Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims else Replicate()
+    return [Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims
+            else Replicate()
             for p in cache.placements]
 
 
@@ -235,12 +240,14 @@ def shard_of(x, dim: int):
     from torch.distributed.tensor import Shard
 
     mesh = x.device_mesh
-    found = [i for i, p in enumerate(x.placements) if p == Shard(dim) and mesh.size(i) > 1]
+    found = [i for i, p in enumerate(x.placements) if p == Shard(dim)
+             and mesh.size(i) > 1]
     if not found:
         return None
     if len(found) > 1:
-        raise ValueError(f"dim {dim} of {tuple(x.shape)} is split over mesh dims {found}: "
-                         "a decode block takes one")
+        raise ValueError(
+            f"dim {dim} of {tuple(x.shape)} is split over mesh dims {found}: "
+            "a decode block takes one")
     i = found[0]
     return mesh.get_group(i), mesh.get_local_rank(i), mesh.size(i)
 

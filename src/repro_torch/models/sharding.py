@@ -108,7 +108,8 @@ _STACK_DIMS = {"tail": 1, "enc": 1, "dec": 1, "groups": 2}
 def _leaf_rule(names: list[str]) -> tuple:
     name = names[-1] if names else ""
     # expert-stacked MoE weights: under ffn, not the (dense) "shared" experts
-    if name in ("w_gate", "w_up", "w_down") and _MOE_PARENT in names and "shared" not in names:
+    if (name in ("w_gate", "w_up", "w_down") and _MOE_PARENT in names
+            and "shared" not in names):
         return _BASE_RULES[f"moe.{name}"]
     return _BASE_RULES.get(name, ())
 
@@ -150,7 +151,8 @@ def _divisible(spec: tuple, shape: tuple, sizes: Mapping[str, int]) -> tuple:
 
 def _leaf_spec(names: list[str], shape: tuple, mesh) -> tuple:
     """The JAX ``param_specs`` of one leaf of ``shape`` (its full JAX shape)."""
-    spec = _drop_missing_axes(_right_align(_leaf_rule(names), len(shape)), axis_names(mesh))
+    spec = _drop_missing_axes(_right_align(_leaf_rule(names), len(shape)),
+                              axis_names(mesh))
     spec = spec + (None,) * (len(shape) - len(spec))
     return _divisible(spec, shape, mesh_shape(mesh))
 
@@ -206,7 +208,8 @@ def batch_specs(batch: Mapping[str, Any], mesh) -> dict[str, tuple]:
     out = {}
     for name, leaf in batch.items():
         shape = tuple(getattr(leaf, "shape", leaf))
-        out[name] = (_batch_spec_first_dim(shape[0], mesh),) + (None,) * (len(shape) - 1)
+        out[name] = ((_batch_spec_first_dim(shape[0], mesh),)
+                     + (None,) * (len(shape) - 1))
     return out
 
 
@@ -229,7 +232,8 @@ def _cache_leaf_spec(name: str, shape: tuple, mesh) -> tuple:
         base = ["__batch__", None, TP if shape[-1] % tp_size == 0 else None]
     elif name in ("self_k", "self_v", "mem_k", "mem_v"):  # (L,B,S,H,hd)
         heads_ok = shape[-2] % tp_size == 0
-        base = [None, "__batch__", None if heads_ok else TP, TP if heads_ok else None, None]
+        base = [None, "__batch__", None if heads_ok else TP, TP if heads_ok else None,
+                None]
     else:
         return (None,) * ndim
     if name in ("k", "v"):
@@ -332,8 +336,9 @@ def placements(spec: tuple, mesh) -> list:
         axes = (entry,) if isinstance(entry, str) else tuple(entry)
         idx = [names.index(a) for a in axes]
         if idx != sorted(idx):
-            raise ValueError(f"spec {spec}: axes {axes} of dim {d} are not in the mesh's "
-                             f"order {names}")
+            raise ValueError(
+                f"spec {spec}: axes {axes} of dim {d} are not in the mesh's "
+                f"order {names}")
         for i in idx:
             if sizes[names[i]] > 1:
                 out[i] = Shard(d)
@@ -365,7 +370,8 @@ def distribute_cache(cache: dict, cfg: Optional[ModelConfig], mesh) -> dict:
     return place(cache, specs)
 
 
-def distribute_model(model: nn.Module, cfg: Optional[ModelConfig], mesh) -> dict[str, tuple]:
+def distribute_model(model: nn.Module, cfg: Optional[ModelConfig],
+                     mesh) -> dict[str, tuple]:
     """Replace every parameter of ``model`` by a DTensor placed by
     ``param_specs`` (its ``requires_grad`` kept); returns the specs."""
     specs = param_specs(model, cfg, mesh)
@@ -379,4 +385,5 @@ def replace_parameters(model: nn.Module, make) -> None:
     for name, p in list(model.named_parameters()):
         owner, _, leaf = name.rpartition(".")
         mod = model.get_submodule(owner) if owner else model
-        mod._parameters[leaf] = nn.Parameter(make(name, p), requires_grad=p.requires_grad)
+        mod._parameters[leaf] = nn.Parameter(make(name, p),
+                                             requires_grad=p.requires_grad)

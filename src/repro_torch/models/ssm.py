@@ -82,8 +82,10 @@ def mamba_init(gen, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
         "w_in": init((d, 2 * di + 2 * cfg.ssm_groups * cfg.ssm_state + h)),
         "conv_w": init((cfg.ssm_conv_width, cdim), fan_in=cfg.ssm_conv_width),
         "conv_b": torch.zeros((cdim,), dtype=dtype, device=dev),
-        "a_log": torch.zeros((h,), dtype=torch.float32, device=dev),  # A = -exp(a_log) = -1
-        "dt_bias": torch.full((h,), -2.0, dtype=torch.float32, device=dev),  # softplus ~ 0.12
+        # A = -exp(a_log) = -1
+        "a_log": torch.zeros((h,), dtype=torch.float32, device=dev),
+        # softplus ~ 0.12
+        "dt_bias": torch.full((h,), -2.0, dtype=torch.float32, device=dev),
         "d_skip": torch.ones((h,), dtype=torch.float32, device=dev),
         "gate_norm": torch.zeros((di,), dtype=dtype, device=dev),
         "w_out": init((di, d), fan_in=di),
@@ -120,7 +122,8 @@ def _causal_conv(params, xbc: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def _split_xbc(xbc: torch.Tensor, cfg: ModelConfig):
     b, l, _ = xbc.shape
-    di, g, n, h, p = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    di, g, n, h, p = (cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads,
+                      cfg.ssm_head_dim)
     xs = xbc[..., :di].reshape(b, l, h, p)
     bs = xbc[..., di: di + g * n].reshape(b, l, g, n)
     cs = xbc[..., di + g * n:].reshape(b, l, g, n)
@@ -134,7 +137,8 @@ def _intra_decay(cum: torch.Tensor) -> torch.Tensor:
     q = cum.shape[2]
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B,NC,Qi,Qj,H)
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=cum.device))
-    diff = torch.where(tri[None, None, :, :, None], diff, -torch.inf)  # frees the unmasked
+    # frees the unmasked
+    diff = torch.where(tri[None, None, :, :, None], diff, -torch.inf)
     return torch.exp(diff)
 
 
@@ -200,7 +204,8 @@ def _ssd_inter(s_c, c_c, cum, total, rep: int) -> tuple[torch.Tensor, torch.Tens
         s = s * chunk_decay[:, c][..., None, None] + s_c[:, c]
     s_prev = torch.stack(s_prevs, dim=1)                     # (B,NC,H,P,N)
     c_h = torch.repeat_interleave(c_c, rep, dim=3)           # (B,NC,Q,H,N)
-    return torch.einsum("bcihn,bchpn->bcihp", c_h, s_prev) * torch.exp(cum)[..., None], s
+    return (torch.einsum("bcihn,bchpn->bcihp", c_h, s_prev)
+            * torch.exp(cum)[..., None], s)
 
 
 def ssd_reference(xs, dt, a, bs, cs):
@@ -261,16 +266,19 @@ def _mixer(proj: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
     return _gated_norm(params, y, z, cfg)
 
 
-def _gated_norm(params, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _gated_norm(params, y: torch.Tensor, z: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
     """RMSNorm of y gated by silu(z): silu in float32, the product in y's
     dtype."""
-    return rms_norm(y * F.silu(z.float()).to(y.dtype), params["gate_norm"], cfg.norm_eps)
+    return rms_norm(y * F.silu(z.float()).to(y.dtype), params["gate_norm"],
+                    cfg.norm_eps)
 
 
 def init_mamba_state(cfg: ModelConfig, batch: int, dtype: torch.dtype = torch.bfloat16,
                      device: Optional[torch.device] = None) -> dict:
     return {
-        "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, _conv_dim(cfg)), dtype=dtype,
+        "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, _conv_dim(cfg)),
+                            dtype=dtype,
                             device=device),
         "ssm": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
                            dtype=torch.float32, device=device),
@@ -292,7 +300,8 @@ def mamba_decode(params, x: torch.Tensor, state: dict,
         whole = [Replicate()] * len(rows)
         heads, chans = shard_of(ssm, 1), shard_of(conv, 2)
         y = local_call(
-            lambda p, c, st, *w: _mixer_step(p, c, st, dict(zip(_MIXER, w)), cfg, heads, chans),
+            lambda p, c, st, *w: _mixer_step(p, c, st, dict(zip(_MIXER, w)), cfg,
+                                             heads, chans),
             (proj, conv, ssm, *small),
             (rows, conv.placements, ssm.placements) + (whole,) * len(small), rows)
     else:
@@ -329,7 +338,8 @@ def _mixer_step(proj: torch.Tensor, conv: torch.Tensor, ssm: torch.Tensor, param
         own = slice(heads[1] * n, (heads[1] + 1) * n)
         da, xs, xdt, b_h, c_h = (v[:, own] for v in (da, xs, xdt, b_h, c_h))
         d_skip = d_skip[own]
-    ssm.mul_(torch.exp(da)[..., None, None]).add_(torch.einsum("bhn,bhp->bhpn", b_h, xdt))
+    ssm.mul_(torch.exp(da)[..., None, None]).add_(
+        torch.einsum("bhn,bhp->bhpn", b_h, xdt))
     if chans is None:
         conv.copy_(window[:, 1:, :])
     else:

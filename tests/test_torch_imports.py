@@ -20,7 +20,8 @@ ROOT = Path(__file__).resolve().parents[1]
 # the port's counterparts of examples/*.py and scripts/*.py
 PORT_SCRIPTS = [ROOT / "examples" / f"{n}_torch.py" for n in (
     "quickstart", "serving_front", "online_serving", "train_lm", "geo_failover")] + [
-    ROOT / "scripts" / f"{n}_torch.py" for n in ("transport_smoke", "perf_probe")]
+    ROOT / "scripts" / f"{n}_torch.py" for n in (
+        "transport_smoke", "perf_probe", "render_experiments")]
 
 _PROBE = r"""
 import importlib, json, pkgutil, runpy, sys
