@@ -39,6 +39,7 @@ from __future__ import annotations
 import cProfile
 import dataclasses
 import pstats
+import subprocess
 import sys
 import time
 
@@ -127,8 +128,8 @@ def summary(window: str, wall: float, ops: dict, **extra) -> dict:
 def flash_device_ms(ops: dict) -> tuple[float, float]:
     """Device ms of the flash forward kernels (``flash_fwd``, either route)
     and of the flash backward's kernels (``flash_bwd``: the tensor-core
-    ``flash_bwd_tc`` passes, the CUDA-core ``flash_bwd_cc`` ones, and the
-    ``flash_bwd::`` row-term and group-sum passes around them)."""
+    ``flash_bwd_delta`` and ``flash_bwd_fused`` passes, the CUDA-core
+    ``flash_bwd_cc`` ones, and the ``flash_bwd::`` group sum)."""
     return (sum(v["device_ms"] for k, v in ops.items() if "flash_fwd" in k),
             sum(v["device_ms"] for k, v in ops.items() if "flash_bwd" in k))
 
@@ -447,10 +448,42 @@ def ssm_train_trace(card: str) -> None:
              "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
 
 
+def flash_bwd_kernels(ops: dict) -> dict:
+    """Device ms of each flash backward kernel, by name."""
+    return {k: v["device_ms"] for k, v in ops.items() if "flash_bwd" in k}
+
+
+def flash_bwd_turn_waits(step, dev: torch.device, fused_ms: float) -> dict:
+    """What summing in a fixed order costs the tensor-core backward within
+    ``step()``: as shares of the fused pass's consumer warpgroup time (two a
+    block, a block an SM, ``fused_ms`` of it), the cycles its consumers
+    waited to hand a dQ share over and for a dK/dV turn, and its writer
+    lanes for a dQ turn, counted by the kernel (``flash_ops.wait_cycles``)
+    and converted at the card's maximum SM clock (so each share is a lower
+    bound)."""
+    fo = cs.flash_ops
+    waits = torch.zeros(3, dtype=torch.int64, device=dev)
+    fo.wait_cycles = waits
+    try:
+        step()
+        torch.cuda.synchronize(dev)
+    finally:
+        fo.wait_cycles = None
+    clock_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0]) * 1e6
+    wg_ms = 2 * torch.cuda.get_device_properties(dev).multi_processor_count * fused_ms
+    dq, dkv, lane = (int(x) / clock_hz * 1e3 / wg_ms for x in waits.tolist())
+    return {"turn_wait_dq_share": dq, "turn_wait_dkv_share": dkv,
+            "writer_lane_wait_share": lane}
+
+
 def train_trace(card: str) -> None:
     """One train step of ``chip_smoke.py``'s ``lm_train`` shape, split into
     its forward + backward (``loss_and_grads``) and its optimizer update,
-    each traced on its own after a warm-up step."""
+    each traced on its own after a warm-up step.  The forward + backward's
+    row adds each flash backward kernel's device ms and, from
+    ``flash_bwd_turn_waits``, what the backward's fixed order costs."""
     cfg = dataclasses.replace(cs.get_config(cs.TRAIN_ARCH), attn_impl="pallas_flash")
     dev = torch.device("cuda", torch.cuda.current_device())
     optimizer = cs.lm_train.train_optimizer(cs.TRAIN_LR, cs.TRAIN_STEPS)
@@ -460,9 +493,13 @@ def train_trace(card: str) -> None:
     grads = {}
     wall, ops = traced(lambda: grads.update(cs.loss_and_grads(state.params, batch, cfg)[1]), dev)
     flash_ms, bwd_ms = flash_device_ms(ops)
+    bwd_kernels = flash_bwd_kernels(ops)
+    costs = flash_bwd_turn_waits(lambda: cs.loss_and_grads(state.params, batch, cfg), dev,
+                                 sum(v for k, v in bwd_kernels.items() if "flash_bwd_fused" in k))
     cs.emit({"phase": "lm_train_trace", "card": card, "arch": cfg.name, "part": "fwd_bwd",
              **summary(f"loss_and_grads at {cs.TRAIN_BATCH} x {cs.TRAIN_SEQ}", wall, ops,
                        flash_fwd_device_ms=flash_ms, flash_bwd_device_ms=bwd_ms,
+                       flash_bwd_kernels_ms=bwd_kernels, flash_bwd_order=costs,
                        device_launches=sum(v["count"] for v in ops.values()))})
     named = dict(state.params.named_parameters())
     wall, ops = traced(lambda: optimizer.update(grads, state.opt, named), dev)

@@ -586,9 +586,15 @@ COUNTERS = (lookup_ops.counter, rolling_ops.counter, pit_ops.counter, merge_ops.
             flash_ops.counter, flash_ops.tc_counter, flash_ops.bwd_counter,
             flash_ops.bwd_tc_counter)
 # the tensor-core flash kernels the build must hold: the forward at each of
-# its head dims, the backward's delta (0), dQ (1) and dK/dV (2) passes at each
-TC_KERNELS = sorted([f"flash_fwd_tc<{d}>" for d in flash_ops.TC_HEAD_DIMS]
-                    + [f"flash_bwd_tc<{d},{p}>" for d in flash_ops.TC_HEAD_DIMS for p in range(3)])
+# its head dims, the backward's delta pass and fused dK/dV/dQ pass at each
+TC_KERNELS = sorted(f"{k}<{d}>" for d in flash_ops.TC_HEAD_DIMS
+                    for k in ("flash_fwd_tc", "flash_bwd_delta", "flash_bwd_fused"))
+# products of 2·D operations per visible (query head, key) pair that each
+# backward route's schedule does: tensor cores, the delta pass's QKᵀ and
+# dO·Vᵀ, then each of the five once; CUDA cores, QKᵀ and dO·Vᵀ in each of its
+# three passes, dV and dK, dQ.  A flash backward's least is five
+BWD_PRODUCTS = {"wgmma": 7, "cuda_cores": 9}
+BWD_BOUND_PRODUCTS = 5
 
 
 def reset_counts() -> None:
@@ -619,7 +625,8 @@ def card_line() -> str:
 
 def tc_sass(so: Path) -> dict:
     """Per tensor-core flash kernel in the built library (the forward
-    ``flash_fwd_tc<D>``, the backward's passes ``flash_bwd_tc<D,pass>``), from
+    ``flash_fwd_tc<D>``, the backward's ``flash_bwd_delta<D>`` and
+    ``flash_bwd_fused<D>``), from
     ``cuobjdump``: its HGMMA (wgmma) instructions, and the registers a thread
     starts with (before ``setmaxnreg``) and its stack bytes (spills) from the
     resource usage table."""
@@ -628,10 +635,8 @@ def tc_sass(so: Path) -> dict:
                                     check=True, timeout=300).stdout
 
     def name(mangled: str) -> str | None:
-        m = re.search(r"(flash_(?:fwd|bwd)_tc)ILi(\d+)E(?:Li(\d)E)?", mangled)
-        if m is None:
-            return None
-        return f"{m.group(1)}<{m.group(2)}" + (f",{m.group(3)}>" if m.group(3) else ">")
+        m = re.search(r"(flash_fwd_tc|flash_bwd_delta|flash_bwd_fused)ILi(\d+)E", mangled)
+        return None if m is None else f"{m.group(1)}<{m.group(2)}>"
 
     out, fn = {}, None
     for line in run("-sass").splitlines():
@@ -2739,7 +2744,8 @@ def check_flash_backward(b: int, s: int, h: int, kv: int, d: int, rng, label: st
     a flash backward's least work: five products (QKᵀ again, dV, dP, dQ, dK)
     of 2·D operations per (query head, visible key) pair at the rate of the
     input type; bytes: q, k, v, dO and the log-sum-exp read and dq, dk, dv
-    written once."""
+    written once.  The row names the products the route's schedule does
+    (``BWD_PRODUCTS``) beside the bound's."""
     up = lambda shape: torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
         device).to(dtype)
     q, k, v, do = up((b, s, h, d)), up((b, s, kv, d)), up((b, s, kv, d)), up((b, s, h, d))
@@ -2768,10 +2774,11 @@ def check_flash_backward(b: int, s: int, h: int, kv: int, d: int, rng, label: st
     pairs = s * (s + 1) // 2
     rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
     b_ms, b_by = bound(q.element_size() * (3 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
-                       5 * 2 * d * b * h * pairs, rate)
+                       BWD_BOUND_PRODUCTS * 2 * d * b * h * pairs, rate)
     row = {
         "phase": "flash_backward", "shape": label, "route": route, "B": b, "S": s, "H": h,
         "KV": kv, "D": d, "dtype": str(dtype).removeprefix("torch."), **errs,
+        "products": BWD_PRODUCTS[route], "bound_products": BWD_BOUND_PRODUCTS,
         "max_abs_err": max(errs[f"d{n}_max_abs_err"] for n in "qkv"),
         "ms": cuda_ms(lambda: flash_ops._backward(q, k, v, lse, do, True), reps),
         "plain_ms": cuda_ms(lambda: attention_bwd_ref(q, k, v, do), 3),

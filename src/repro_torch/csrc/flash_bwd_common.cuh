@@ -1,19 +1,21 @@
 // What both flash backward routes (flash_attn_bwd.cu on the CUDA cores,
 // flash_attn_bwd_tc.cu on the tensor cores) share around their kernels.
 //  - The row term of the softmax backward, delta = rowsum(P * dP), is summed
-//    from the backward's own P and dP (a pass before dK/dV and dQ), not taken
-//    as rowsum(dO * O) from the forward's output: where a row's attention is
-//    sharp, dP - delta is a small difference, and the error of an O rounded
-//    to bf16, or of a P rounded to bf16 before P.V in the forward, swamps it
-//    (a gemma-2b train step's query and key projection gradients fell far
-//    outside chip_smoke.py's bound against the einsum path that way, and
-//    inside it with this delta).  Each (b, h, query row) gets one (lse,
-//    delta) pair in a (B*H, S_pad) array, S_pad = S rounded up to 128; rows
-//    S..S_pad-1 get (+inf, 0), so a tile of them has P = exp(x - inf) = 0.
+//    from the backward's own P and dP (a pass of its own, before the
+//    others), not as rowsum(dO * O) from the forward's output: where a row's
+//    attention is sharp, dP - delta is a small difference, and the error of
+//    an O rounded to bf16, or of a P rounded to bf16 before P.V in the
+//    forward, swamps it (a gemma-2b train step's query and key projection
+//    gradients fell far outside chip_smoke.py's bound against the einsum
+//    path that way, and inside it with this delta).  Each (b, h, query row)
+//    gets one (lse, delta) pair in a (B*H, S_pad) array, S_pad = S rounded
+//    up to 128; rows S..S_pad-1 get (+inf, 0), so a tile of them has P =
+//    exp(x - inf) = 0.
 //  - bwd_group_sum: with GQA each query head's dK and dV come out of the
-//    dK/dV kernel as float32 partials (B, T, H, D); kv head j's gradient is
-//    the sum of heads j*G .. j*G+G-1 in that order, rounded once, so two
-//    calls give the same bits.
+//    CUDA-core dK/dV kernel as float32 partials (B, T, H, D); kv head j's
+//    gradient is the sum of heads j*G .. j*G+G-1 in that order, rounded
+//    once, so two calls give the same bits.  (The tensor-core route sums a
+//    group's heads in its fused pass.)
 #pragma once
 
 #include <cuda_bf16.h>

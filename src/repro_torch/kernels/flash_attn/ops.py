@@ -20,11 +20,13 @@ launches the backward kernel of the forward's route:
 cores, exact float32).  Both rebuild P from the log-sum-exp tile by tile,
 sum delta = rowsum(P * dP) in float32 in a pass of their own (from the
 forward's output, rounded, delta would swamp dP - delta wherever a row's
-attention is sharp) and sum each GQA group's dK and dV in a fixed order,
-so two calls give the same bits.  A CUDA tensor never reaches the plain
-version; a CPU tensor runs ``ref.attention_bwd_lse_ref``, the plain version
-of the kernels' contract.  The TPU package has no backward kernel to port
-(XLA differentiates its einsum path).  ``flash_bytes`` is the JAX
+attention is sharp) and sum dQ over key tiles and each GQA group's dK and
+dV in a fixed order, so two calls give the same bits; the tensor-core
+route's scratch in global memory is what ``bwd_workspace`` gives.  A CUDA
+tensor never reaches the plain version; a CPU tensor runs
+``ref.attention_bwd_lse_ref``, the plain version of the kernels' contract.
+The TPU package has no backward kernel to port (XLA differentiates its
+einsum path).  ``flash_bytes`` is the JAX
 package's analytic HBM-traffic model, verbatim.
 
 On a mesh q, k and v are DTensors (batch over the data axes, heads over
@@ -63,9 +65,9 @@ from repro_torch.kernels.flash_attn.ref import (
     attention_ref,
 )
 
-__all__ = ["BWD_ENTRIES", "ENTRIES", "HEAD_DIMS", "TC_HEAD_DIMS", "FlashAttention",
-           "bwd_counter", "bwd_tc_counter", "counter", "flash_attention", "flash_bytes",
-           "route", "tc_counter"]
+__all__ = ["BWD_ENTRIES", "ENTRIES", "HEAD_DIMS", "TC_HEAD_DIMS",
+           "FlashAttention", "bwd_counter", "bwd_tc_counter", "bwd_workspace",
+           "counter", "flash_attention", "flash_bytes", "route", "tc_counter"]
 
 #: head dims the kernels are built for (phi3/qwen 128, gemma 256, zamba2 112,
 #: small checks)
@@ -88,6 +90,20 @@ bwd_counter = native.LaunchCounter("flash_attn_bwd")
 bwd_tc_counter = native.LaunchCounter("flash_attn_bwd_wgmma")
 # the backward's per-row (log-sum-exp, delta) pairs are padded to this many rows
 _STAT_ROWS = 128
+#: None, or an int64 CUDA tensor of 3 to which every tensor-core backward adds
+#: the cycles its consumer warpgroups spent waiting to hand over a dQ share
+#: and for a dK/dV turn, and its writer lanes spent waiting for a dQ turn (for
+#: measurement)
+wait_cycles: torch.Tensor | None = None
+# the tensor-core backward's fused pass: queries a streamed tile, rows of a
+# float32 sum's slab
+_BWD_QUERIES = _SLAB_ROWS = 64
+
+
+def _bwd_keys(d: int) -> int:
+    """Keys of a fused-pass work item: two warpgroups of 64, or at D=256 64
+    split by columns."""
+    return 64 if d == 256 else 128
 
 
 def route(dtype: torch.dtype, d: int) -> str:
@@ -98,6 +114,25 @@ def route(dtype: torch.dtype, d: int) -> str:
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+def bwd_workspace(b: int, s: int, t: int, h: int, kv: int, d: int) -> dict[str, int]:
+    """Bytes of each scratch array the tensor-core backward takes for q (b,
+    s, h, d) and k, v (b, t, kv, d), in the order they lie in its one
+    buffer: ``stats``, each query row's float32 (log-sum-exp, delta), s
+    padded to 128; ``dq_acc``, float32 dQ sums of slabs of 64 query rows;
+    ``dkv`` (GQA only), the float32 group sums of dK and dV in slabs of 64
+    key rows; ``counters``, int32 (the delta pass zeroes them): the work
+    items claimed, a dQ turn for each column half of each (b, h, query tile)
+    and a dK/dV turn for each warpgroup of each (b, kv head, key tile).
+    All but the last are multiples of 16 bytes, so each starts 16-byte
+    aligned."""
+    m = -(-s // _BWD_QUERIES)
+    n = -(-t // _bwd_keys(d))
+    return {"stats": b * h * _round_up(s, _STAT_ROWS) * 2 * 4,
+            "dq_acc": b * h * m * _BWD_QUERIES * d * 4,
+            "dkv": 2 * b * kv * _round_up(t, _SLAB_ROWS) * d * 4 if h != kv else 0,
+            "counters": (1 + 2 * b * h * m + 2 * b * kv * n) * 4}
 
 
 def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -303,8 +338,13 @@ def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tens
               do: torch.Tensor, causal: bool):
     """(dq, dk, dv) in the inputs' dtype from the forward's log-sum-exp: the
     plain version for a CPU tensor, else the backward kernels of ``route``
-    (one C call: the delta, dK/dV and dQ passes, and the fixed-order GQA
-    sum), or a raise."""
+    in one C call, or a raise.  The tensor-core route: the delta pass, the
+    fused pass (S and dP once, dK and dV in registers, dQ added over key
+    tiles in order into float32 sums, GQA dK and dV summed over each group's
+    heads in order) and the dQ epilogue (the sums scaled and rounded once),
+    in one buffer of the scratch ``bwd_workspace`` sizes, whose turn
+    counters the delta pass zeroes.  The CUDA-core route: the delta, dK/dV
+    and dQ passes and, with GQA, the fixed-order group sum."""
     if q.device.type == "cpu":
         return attention_bwd_lse_ref(q, k, v, lse, do, causal=causal)
     b, s, h, d = q.shape
@@ -314,19 +354,35 @@ def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tens
     _check_launch(q, k, v, do)
     path = route(q.dtype, d)
     entry = getattr(native.library(), BWD_ENTRIES[path])
+    f32 = dict(dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        # (log-sum-exp, delta) per query row, padded; per-query-head float32
-        # dK and dV, summed over each group afterwards (none when H == KV)
-        stats = torch.empty((b * h, _round_up(s, _STAT_ROWS), 2), dtype=torch.float32,
-                            device=q.device)
-        part = (torch.empty((2, b, t, h, d), dtype=torch.float32, device=q.device)
-                if h != kv else None)
+        if path == "wgmma":
+            waits = wait_cycles
+            if waits is not None and (waits.device != q.device or waits.numel() < 3
+                                      or waits.dtype != torch.int64):
+                raise ValueError(
+                    "wait_cycles is an int64 tensor of 3 on the inputs' device")
+            ws = bwd_workspace(b, s, t, h, kv, d)
+            scratch = torch.empty(sum(ws.values()) // 4, **f32)
+            # stats, dq_acc, dkv (or null), counters: pointers into one buffer
+            at = scratch.data_ptr()
+            ptrs = []
+            for name in ("stats", "dq_acc", "dkv", "counters"):
+                ptrs.append(at if ws[name] else None)
+                at += ws[name]
+            extra = (*ptrs, None if waits is None else waits.data_ptr())
+        else:
+            # (log-sum-exp, delta) per query row, padded; per-query-head
+            # float32 dK and dV, summed over each group afterwards (none when
+            # H == KV)
+            stats = torch.empty((b * h, _round_up(s, _STAT_ROWS), 2), **f32)
+            part = torch.empty((2, b, t, h, d), **f32) if h != kv else None
+            extra = (stats.data_ptr(), None if part is None else part.data_ptr())
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(), do.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-            None if part is None else part.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *extra,
             b, s, t, h, kv, d, _DTYPES[q.dtype], int(causal),
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),

@@ -70,8 +70,13 @@ _SIGNATURES = {
     # strides (b, s, h), k/v/dk/dv strides (b, t, h), stream
     "flash_attn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _P),
-    # the same arguments; bf16 at D 64, 112, 128, 256 on the tensor cores
-    "flash_attn_bwd_tc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    # bf16 at D 64, 112, 128, 256 on the tensor cores: q, k, v, lse, dO, dq,
+    # dk, dv; (log-sum-exp, delta) scratch as above; float32 dQ sums (B*H, S
+    # rounded up to 64, D); GQA dK, dV group sums f32 (2, B*KV, T rounded up
+    # to 64, D) or null when H == KV; int32 turn counters (the delta pass
+    # zeroes them); int64 wait cycles (3) or null; B, S, T, H, KV, D, dtype,
+    # causal, q/dO/dq strides (b, s, h), k/v/dk/dv strides (b, t, h), stream
+    "flash_attn_bwd_tc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _P),
 }
 

@@ -156,12 +156,17 @@ def test_flash_cpu_counts_no_launch():
 def test_flash_route_choice(dtype, d, want):
     """bf16 at D 64/112/128/256 takes the tensor cores; float32, and bf16 at
     D 16/32, the exact CUDA-core kernel, forward and backward alike.  Both
-    routes' C entries take the same arguments."""
+    routes' C entries take the same arguments, but for the backward's
+    scratch: the tensor-core route takes float32 dQ sums, the GQA group
+    sums, turn counters and wait cycles where the CUDA-core route takes
+    per-head partials."""
     assert tops.route(dtype, d) == want
     assert tops.ENTRIES == {"wgmma": "flash_attn_fwd_tc", "cuda_cores": "flash_attn_fwd"}
     assert tops.BWD_ENTRIES == {"wgmma": "flash_attn_bwd_tc", "cuda_cores": "flash_attn_bwd"}
     assert (native._SIGNATURES["flash_attn_fwd_tc"] == native._SIGNATURES["flash_attn_fwd"])
-    assert (native._SIGNATURES["flash_attn_bwd_tc"] == native._SIGNATURES["flash_attn_bwd"])
+    tc, cc = native._SIGNATURES["flash_attn_bwd_tc"], native._SIGNATURES["flash_attn_bwd"]
+    # q, k, v, lse, dO, dq, dk, dv, stats; then B ... causal, strides, stream
+    assert tc[:9] == cc[:9] and tc[-15:] == cc[-15:]
 
 
 def _attention_bf16_p(q, k, v):

@@ -5,8 +5,13 @@ scores as the JAX package's ``attention_ref`` builds them;
 from the log-sum-exp, delta = rowsum(P * dP)) against ``attention_bwd_ref`` (the
 einsum path's gradient) and against ``jax.vjp`` of JAX's ``attention_ref``.
 On the card (``gpu``-marked) the backward kernels of both routes against
-that plain version: their gradients, their bits across two calls, their
-launch counts and routes.
+that plain version: their gradients, their bits across five calls, their
+launch counts and routes; shapes that stress the tensor-core route's
+ordered dQ adds (gemma-2b's full shape, GQA 8 at D=256, a non-causal T != S
+over more than one wave of work items).  On the CPU, the tensor-core
+route's scratch sizes (``ops.bwd_workspace``) against their formula and
+against the scratch the three-pass design took (stats and per-head
+partials).
 
 Tolerances: float32 differs from autograd's and JAX's gradients in
 summation order only: F32_TOL of each gradient's largest entry, and LSE_TOL
@@ -150,6 +155,10 @@ CARD_SHAPES = [
     (1, 257, 257, 8, 2, 128, torch.bfloat16),
     (1, 300, 300, 8, 1, 256, torch.bfloat16),
     (2, 100, 130, 8, 8, 128, torch.bfloat16),
+    # the ordered dQ adds: gemma-2b's training shape (1,024 work items, a
+    # query tile's dQ summed over up to 32 key tiles), GQA 8 at D=256, ragged
+    (4, 2048, 2048, 8, 1, 256, torch.bfloat16),
+    (2, 700, 700, 8, 1, 256, torch.bfloat16),
     # the CUDA-core route: float32, bf16 at D 16
     (2, 100, 100, 8, 2, 64, torch.float32),
     (1, 70, 70, 4, 2, 16, torch.float32),
@@ -157,37 +166,62 @@ CARD_SHAPES = [
 ]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,s,t,h,kv,d,dtype", CARD_SHAPES)
-def test_backward_kernel_matches_plain_on_card(cuda_device, b, s, t, h, kv, d, dtype):
-    """One forward and one backward launch on the route ``ops.route``
-    names; the forward's log-sum-exp against the plain one; dq, dk, dv
-    against the plain version of the contract on the kernel's own output and
-    log-sum-exp, and against autograd through the plain forward; two
-    backward calls bit-equal."""
-    q, k, v, do = (torch.from_numpy(x).to(cuda_device, dtype)
+# non-causal, T != S: every query tile's dQ summed over all 8 key tiles, 256
+# work items (two waves on 132 SMs), ragged S and T
+NON_CAUSAL_CARD_SHAPES = [
+    (2, 700, 1000, 16, 4, 128, torch.bfloat16),
+]
+
+
+# backward calls a card check makes, every one bit-equal to the first
+CALLS = 5
+
+
+def _check_on_card(device, b, s, t, h, kv, d, dtype, causal):
+    """One forward and ``CALLS`` backward launches on the route
+    ``ops.route`` names; the forward's log-sum-exp against the plain one;
+    dq, dk, dv against the plain version of the contract on the kernel's own
+    output and log-sum-exp, and against autograd through the plain forward;
+    every backward call bit-equal to the first."""
+    q, k, v, do = (torch.from_numpy(x).to(device, dtype)
                    for x in _rand(b, s, t, h, kv, d, seed=s + t))
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     before = [c.launches for c in (ops.counter, ops.tc_counter, ops.bwd_counter,
                                    ops.bwd_tc_counter)]
-    out, lse = ops._forward(q, k, v, True, True)
-    grads = ops._backward(q, k, v, lse, do, True)
-    again = ops._backward(q, k, v, lse, do, True)
+    out, lse = ops._forward(q, k, v, causal, True)
+    grads = ops._backward(q, k, v, lse, do, causal)
+    again = [ops._backward(q, k, v, lse, do, causal) for _ in range(CALLS - 1)]
     torch.cuda.synchronize()
     on_tc = ops.route(dtype, d) == "wgmma"
     assert [c.launches for c in (ops.counter, ops.tc_counter, ops.bwd_counter,
                                  ops.bwd_tc_counter)] == [
-        before[0] + 1, before[1] + on_tc, before[2] + 2, before[3] + 2 * on_tc]
-    _, want_lse = attention_lse_ref(q, k, v)
+        before[0] + 1, before[1] + on_tc, before[2] + CALLS, before[3] + CALLS * on_tc]
+    _, want_lse = attention_lse_ref(q, k, v, causal=causal)
     torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-    plain = attention_bwd_lse_ref(q, k, v, lse, do)
-    truth = torch.autograd.grad(attention_ref(*leaves), leaves, do.float())
-    for name, g, g2, p, w in zip("qkv", grads, again, plain, truth):
+    plain = attention_bwd_lse_ref(q, k, v, lse, do, causal=causal)
+    truth = torch.autograd.grad(attention_ref(*leaves, causal=causal), leaves, do.float())
+    for i, (name, g, p, w) in enumerate(zip("qkv", grads, plain, truth)):
         assert g.dtype == dtype and g.shape == w.shape
-        assert torch.equal(g, g2), f"d{name} differs between two calls"
+        for call, g2 in enumerate(again, 2):
+            assert torch.equal(g, g2[i]), f"d{name} of call {call} differs from call 1"
         _close(g, p, tol, f"d{name} vs the plain contract")
         _close(g, w, tol, f"d{name} vs autograd through the plain forward")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,t,h,kv,d,dtype", CARD_SHAPES)
+def test_backward_kernel_matches_plain_on_card(cuda_device, b, s, t, h, kv, d, dtype):
+    """Causal: ``_check_on_card``."""
+    _check_on_card(cuda_device, b, s, t, h, kv, d, dtype, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,t,h,kv,d,dtype", NON_CAUSAL_CARD_SHAPES)
+def test_backward_kernel_matches_plain_on_card_non_causal(cuda_device, b, s, t, h, kv, d,
+                                                          dtype):
+    """Non-causal: ``_check_on_card``."""
+    _check_on_card(cuda_device, b, s, t, h, kv, d, dtype, False)
 
 
 @pytest.mark.gpu
@@ -205,3 +239,36 @@ def test_backward_never_runs_the_plain_version_on_card(cuda_device, monkeypatch)
     grads = torch.autograd.grad(ops.flash_attention(*leaves), leaves, do)
     torch.cuda.synchronize()
     assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
+
+
+# (b, s, t, h, kv, d) of the four training shapes: three GQA, one MHA
+WORKSPACE_SHAPES = {
+    "gemma-2b": (4, 2048, 2048, 8, 1, 256),
+    "phi3-medium-14b": (4, 2048, 2048, 40, 10, 128),
+    "pixtral-12b": (4, 3072, 3072, 32, 8, 128),
+    "zamba2-7b shared block": (4, 2048, 2048, 32, 32, 112),
+}
+
+
+@pytest.mark.parametrize("name", list(WORKSPACE_SHAPES))
+def test_bwd_workspace_matches_its_formula_and_the_old_scratch(name):
+    """``bwd_workspace`` at each training shape: its formula, and (GQA) no
+    more bytes than the three-pass design's (B*H, S_pad, 2) stats and (2, B,
+    T, H, D) per-head partials; at the MHA shape, which had no partials, the
+    dQ sums are new memory."""
+    b, s, t, h, kv, d = WORKSPACE_SHAPES[name]
+    up = lambda x, m: -(-x // m) * m  # noqa: E731
+    keys = 64 if d == 256 else 128  # a work item's keys
+    m, n = up(s, 64) // 64, up(t, keys) // keys
+    stats = b * h * up(s, 128) * 2 * 4
+    partials = 2 * b * t * h * d * 4 if h != kv else 0
+    ws = ops.bwd_workspace(b, s, t, h, kv, d)
+    assert ws == {"stats": stats, "dq_acc": b * h * m * 64 * d * 4,
+                  "dkv": 2 * b * kv * up(t, 64) * d * 4 if h != kv else 0,
+                  "counters": 4 * (1 + 2 * b * h * m + 2 * b * kv * n)}
+    # in the one buffer, each array starts 16-byte aligned
+    assert all(x % 16 == 0 for x in list(ws.values())[:-1])
+    if h != kv:
+        assert sum(ws.values()) <= stats + partials, (ws, stats + partials)
+    else:
+        assert ws["dkv"] == 0 and ws["dq_acc"] == b * h * s * d * 4
