@@ -1,0 +1,7 @@
+"""Share of the traced window that no kernel interval covers, in %."""
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
