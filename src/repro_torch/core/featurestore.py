@@ -22,7 +22,7 @@ from repro_torch.core.consistency import (
 )
 from repro_torch.core.lineage import LineageGraph, ModelNode
 from repro_torch.core.materializer import FaultInjector, Materializer
-from repro_torch.core.monitoring import HealthMonitor
+from repro_torch.core.monitoring import HealthMonitor, span
 from repro_torch.core.offline_store import OfflineStore
 from repro_torch.core.online_store import OnlineStore
 from repro_torch.core.pit import get_offline_features
@@ -247,19 +247,17 @@ class FeatureStore:
     ) -> tuple[np.ndarray, np.ndarray]:
         """Low-latency online retrieval (§2.1 item 4), routed through the
         serving front: this GET joins any tickets already queued for the
-        table, so concurrent callers share one coalesced store dispatch."""
-        import time as _time
-
-        t0 = _time.perf_counter()
-        out = self.serving.get(
-            name,
-            version,
-            id_columns,
-            now=self.clock(),
-            engine="kernel" if use_kernel else "host",
-        )
-        self.monitor.record_lookup_latency((_time.perf_counter() - t0) * 1e6)
-        return out
+        table, so concurrent callers share one coalesced store dispatch.
+        The span ``store.get`` roots the GET's spans; its host µs go to the
+        ``online_lookup_us`` histogram on every call."""
+        with span("store.get", self.monitor.system, "online_lookup_us"):
+            return self.serving.get(
+                name,
+                version,
+                id_columns,
+                now=self.clock(),
+                engine="kernel" if use_kernel else "host",
+            )
 
     # -- consistency & bootstrap ----------------------------------------------------
     def check_consistency(self, name: str, version: int):

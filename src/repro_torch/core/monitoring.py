@@ -8,17 +8,32 @@ Latency distributions are tracked by ``BoundedHistogram``: geometric
 buckets of fixed relative width, so the serving front can observe every
 request's stage latencies forever (p50/p99/p999) in O(1) memory instead of
 accumulating one float per sample.
+
+Spans and counters (``span``, ``count``, ``read_out``) record where the
+program's time and work go while a ``torch.profiler`` session records, and
+only then: tracing is on exactly while torch's own profiler flag is set.
+Their timestamps are ``time.time_ns()``, the clock of the profiler's
+events (nanoseconds since the epoch), so a record lines up with the
+device trace of the same window.  A span with a histogram sink also times
+the host on every call, tracing on or off, into a ``Metrics`` histogram:
+the serving front's always-on stage latencies.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
+import threading
+import time
 from collections import defaultdict
 from typing import Callable, Optional
 
 import numpy as np
+import torch
+import torch.autograd.profiler as _profiler
 
-__all__ = ["BoundedHistogram", "Metrics", "HealthMonitor"]
+__all__ = ["BoundedHistogram", "Metrics", "HealthMonitor", "count", "read_out", "span",
+           "tracing"]
 
 
 class BoundedHistogram:
@@ -133,6 +148,183 @@ class Metrics:
         }
 
 
+# -- spans and counters ----------------------------------------------------------
+def tracing() -> bool:
+    """True while a ``torch.profiler`` session records (torch's own flag):
+    guard device work done only for a ``count`` with it."""
+    return _profiler._is_profiler_enabled
+
+
+class _Record:
+    """One span: ``id``, its ``parent``'s id (None for a root), the
+    ``request`` id every span under one root shares (the root's id), host
+    start and end in ns since the epoch, and where CUDA was initialised the
+    (entry, exit) events recorded on the current stream."""
+
+    __slots__ = ("name", "id", "parent", "request", "start_ns", "end_ns", "events")
+
+    def __init__(self, name: str, rid: int, parent: Optional["_Record"]) -> None:
+        self.name, self.id = name, rid
+        self.parent = parent.id if parent is not None else None
+        self.request = parent.request if parent is not None else rid
+        self.start_ns = self.end_ns = 0
+        self.events = None
+
+
+class _Tracer:
+    """The process's records and counters.  Each thread keeps its own stack
+    of open spans, so autograd's and a server's threads nest on their own:
+    under ``torch.utils.checkpoint`` a block's spans and counters run again
+    in the backward, where on the card's autograd thread they are roots."""
+
+    def __init__(self) -> None:
+        self._local = threading.local()
+        self._ids = itertools.count(1)
+        self._lock = threading.Lock()
+        self._records: list[_Record] = []
+        self._counters: dict = {}
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def open(self, name: str) -> _Record:
+        """A new record on this thread's stack.  Its host interval starts
+        after its entry event is recorded and ends before its exit event
+        (``close``), so a span's own events (tens of µs under the
+        profiler) stay out of its host time, though not out of its
+        parent's."""
+        stack = self._stack()
+        rec = _Record(name, next(self._ids), stack[-1] if stack else None)
+        if torch.cuda.is_initialized():
+            rec.events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            rec.events[0].record()
+        stack.append(rec)
+        rec.start_ns = time.time_ns()
+        return rec
+
+    def close(self, rec: _Record) -> None:
+        rec.end_ns = time.time_ns()
+        if rec.events is not None:
+            rec.events[1].record()
+        self._stack().pop()  # ``with`` blocks close in order on a thread
+        with self._lock:
+            self._records.append(rec)
+
+    def count(self, name: str, n) -> None:
+        if isinstance(n, torch.Tensor):
+            n = n.detach()
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0) + n
+
+    def read_out(self) -> dict:
+        with self._lock:
+            records, self._records = self._records, []
+            counters, self._counters = self._counters, {}
+        if any(r.events is not None for r in records):
+            torch.cuda.synchronize()
+        children_ns: dict = defaultdict(int)
+        for r in records:
+            if r.parent is not None:
+                children_ns[r.parent] += r.end_ns - r.start_ns
+        out, spans = [], {}
+        for r in records:
+            host = (r.end_ns - r.start_ns) / 1e9
+            device = (r.events[0].elapsed_time(r.events[1]) / 1e3
+                      if r.events is not None else None)
+            s = spans.setdefault(r.name, {"calls": 0, "host_s": 0.0, "self_s": 0.0,
+                                          "device_s": None})
+            s["calls"] += 1
+            s["host_s"] += host
+            s["self_s"] += host - children_ns[r.id] / 1e9
+            if device is not None:
+                s["device_s"] = (s["device_s"] or 0.0) + device
+            out.append({"name": r.name, "id": r.id, "parent": r.parent,
+                        "request": r.request, "start_ns": r.start_ns,
+                        "end_ns": r.end_ns, "device_s": device})
+        totals = {k: v.item() if isinstance(v, torch.Tensor) else v
+                  for k, v in counters.items()}
+        return {"records": out, "counters": totals, "spans": spans}
+
+
+_TRACER = _Tracer()
+
+
+class _NullSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    __slots__ = ("name", "metrics", "hist", "record", "start_ns", "seconds")
+
+    def __init__(
+        self, name: str, metrics: Optional[Metrics], hist: Optional[str]
+    ) -> None:
+        self.name, self.metrics, self.hist = name, metrics, hist
+
+    def __enter__(self):
+        if _profiler._is_profiler_enabled:
+            self.record = _TRACER.open(self.name)
+            self.start_ns = self.record.start_ns
+        else:
+            self.record = None
+            self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self.record is not None:
+            _TRACER.close(self.record)
+            end = self.record.end_ns
+        else:
+            end = time.time_ns()
+        self.seconds = (end - self.start_ns) / 1e9
+        if self.metrics is not None:
+            self.metrics.observe(self.hist, self.seconds * 1e6)
+        return False
+
+
+def span(name: str, metrics: Optional[Metrics] = None, hist: Optional[str] = None):
+    """A context manager over one unit of the program's work.  With tracing
+    on (``tracing()``) it records itself for ``read_out``; with tracing off
+    and no ``hist`` it is one shared do-nothing context.  With ``hist`` it
+    is timed on every call: its host duration is its ``seconds`` on exit,
+    observed in µs into ``metrics``'s histogram ``hist`` where ``metrics``
+    is given."""
+    if hist is None and not _profiler._is_profiler_enabled:
+        return _NULL_SPAN
+    return _Span(name, metrics, hist)
+
+
+def count(name: str, n) -> None:
+    """Adds ``n`` (a host number, or a device tensor summed on the device
+    and read only by ``read_out``) to the counter ``name`` while tracing is
+    on; otherwise returns before touching ``n``."""
+    if _profiler._is_profiler_enabled:
+        _TRACER.count(name, n)
+
+
+def read_out() -> dict:
+    """The records and counters since the last read-out, then none:
+    ``records`` (each span as a dict, ``device_s`` its events' elapsed
+    seconds or None), ``counters`` (name -> total) and ``spans`` (name ->
+    ``calls``, ``host_s``, ``self_s``: the duration less its child spans',
+    and ``device_s``: None where no record of the name had events).  Waits
+    for the card where a record holds events."""
+    return _TRACER.read_out()
+
+
 class HealthMonitor:
     """System + custom metrics, alerting, and staleness tracking."""
 
@@ -158,15 +350,6 @@ class HealthMonitor:
     ) -> None:
         if ms is not None:
             self.system.set_gauge(f"staleness_ms/{feature_set}:v{version}", float(ms))
-
-    def record_lookup_latency(self, us: float) -> None:
-        self.system.observe("online_lookup_us", us)
-
-    def record_serving_stage(self, stage: str, us: float) -> None:
-        """One serving-front pipeline stage (queue_wait / assembly / kernel /
-        decode / request) for one dispatch — p50/p99/p999 per stage ride the
-        bounded histograms, so the front can observe every request."""
-        self.system.observe(f"serving/{stage}_us", us)
 
     def record_serving_stale_age(self, ms: float) -> None:
         """Age (logical ms since the cached row was superseded) of one

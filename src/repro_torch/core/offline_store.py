@@ -47,6 +47,7 @@ import numpy as np
 from repro_torch.core.assets import FeatureSetSpec
 from repro_torch.core.keys import encode_full_keys, encode_keys
 from repro_torch.core.merge_engine import merge_sorted
+from repro_torch.core.monitoring import span
 from repro_torch.core.table import Table, concat_tables
 from repro_torch.kernels.online_lookup.ops import partition_of
 
@@ -468,18 +469,20 @@ class OfflineStore:
         window: Optional[tuple[int, int]] = None,
         shards: Optional[Iterable[int]] = None,
     ) -> Table:
-        """Full history (optionally clipped to an event-ts window / shard set)."""
-        shard_list = list(shards) if shards is not None else range(self.num_shards)
-        parts = [
-            c
-            for s in shard_list
-            for c in self._shards[(name, version)][s].chunks
-        ]
-        out = concat_tables(parts)
-        if window is not None and len(out):
-            ev = out[EVENT_TS]
-            out = out.filter((ev >= window[0]) & (ev < window[1]))
-        return out
+        """Full history (optionally clipped to an event-ts window / shard
+        set): every chunk concatenated on each call (span ``offline.read``)."""
+        with span("offline.read"):
+            shard_list = list(shards) if shards is not None else range(self.num_shards)
+            parts = [
+                c
+                for s in shard_list
+                for c in self._shards[(name, version)][s].chunks
+            ]
+            out = concat_tables(parts)
+            if window is not None and len(out):
+                ev = out[EVENT_TS]
+                out = out.filter((ev >= window[0]) & (ev < window[1]))
+            return out
 
     def latest_per_key(self, name: str, version: int) -> Table:
         """max(tuple(event_ts, creation_ts)) per ID — the §4.5.5

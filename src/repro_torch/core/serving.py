@@ -60,7 +60,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 
 from repro_torch.core.keys import encode_keys
-from repro_torch.core.monitoring import HealthMonitor
+from repro_torch.core.monitoring import HealthMonitor, span
 from repro_torch.core.online_store import OnlineStore
 
 __all__ = ["HotKeyCache", "ServingConfig", "ServingFront", "Ticket"]
@@ -506,8 +506,13 @@ class ServingFront:
     ) -> None:
         """One coalesced store round-trip for a set of tickets: dedup ->
         cache re-probe -> ONE ``lookup_encoded`` for the residual -> scatter
-        rows back -> refill the cache.  Per-stage wall latency is observed
-        for every dispatch."""
+        rows back -> refill the cache.  Three spans time its stages on every
+        dispatch, into the histograms (µs) ``serving/assembly_us`` (dedup
+        and cache re-probe), ``serving/kernel_us`` (the whole store round
+        trip of ``lookup_encoded``: routing on the host, the probe and
+        gather kernels with their uploads and three copies back to the host,
+        and the TTL mask; not the kernels alone) and
+        ``serving/decode_us`` (cache refill and scatter to the tickets)."""
         engine = engine or self.config.engine
         name, version = tkey
         spec = store.spec(name, version)
@@ -521,80 +526,83 @@ class ServingFront:
                 waits
             )
 
-        t0 = time.perf_counter()
-        all_ids = (
-            tickets[0].ids[tickets[0].pending]
-            if len(tickets) == 1
-            else np.concatenate([t.ids[t.pending] for t in tickets])
-        )
-        uids, inverse = np.unique(all_ids, return_inverse=True)
-        uvals = np.zeros((len(uids), d), np.float32)
-        ufound = np.zeros(len(uids), bool)
-        ucr = np.zeros(len(uids), np.int64)
-        # re-probe: an earlier dispatch this flush may have refilled entries
-        need: list[int] = []
-        if self.cache.capacity > 0:
-            get = self.cache.get
-            for j in range(len(uids)):
-                e = get(tkey, int(uids[j]))
-                if e is not None and e.stale_since is None:
-                    e.ref = True
-                    if e.found and not self._expired(e, now_l, ttl):
-                        uvals[j] = e.values
-                        ufound[j] = True
-                        ucr[j] = e.creation_ts
-                else:
-                    need.append(j)
-        else:
-            need = list(range(len(uids)))
-        t1 = time.perf_counter()
-
-        if need:
-            miss = np.asarray(need, np.int64)
-            vals, found, cr = store.lookup_encoded(
-                name,
-                version,
-                uids[miss],
-                now=now_l,
-                use_kernel=(engine == "kernel"),
+        sink = self.monitor.system if self.monitor is not None else None
+        with span("serving.assembly", sink, "serving/assembly_us") as assembly:
+            all_ids = (
+                tickets[0].ids[tickets[0].pending]
+                if len(tickets) == 1
+                else np.concatenate([t.ids[t.pending] for t in tickets])
             )
-            uvals[miss] = vals
-            ufound[miss] = found
-            ucr[miss] = cr
-        t2 = time.perf_counter()
+            uids, inverse = np.unique(all_ids, return_inverse=True)
+            uvals = np.zeros((len(uids), d), np.float32)
+            ufound = np.zeros(len(uids), bool)
+            ucr = np.zeros(len(uids), np.int64)
+            # re-probe: an earlier dispatch this flush may have refilled entries
+            need: list[int] = []
+            if self.cache.capacity > 0:
+                get = self.cache.get
+                for j in range(len(uids)):
+                    e = get(tkey, int(uids[j]))
+                    if e is not None and e.stale_since is None:
+                        e.ref = True
+                        if e.found and not self._expired(e, now_l, ttl):
+                            uvals[j] = e.values
+                            ufound[j] = True
+                            ucr[j] = e.creation_ts
+                    else:
+                        need.append(j)
+            else:
+                need = list(range(len(uids)))
 
-        if need and self.cache.capacity > 0:
-            put = self.cache.put
-            for j in need:
-                put(tkey, int(uids[j]), uvals[j].copy(), int(ucr[j]), bool(ufound[j]))
-        res_v = uvals[inverse]
-        res_f = ufound[inverse]
-        res_c = ucr[inverse]
-        off = 0
-        done_ms = self._rclock()
-        for t in tickets:
-            m = len(t.pending)
-            t.values[t.pending] = res_v[off : off + m]
-            t.found[t.pending] = res_f[off : off + m]
-            t.creation_ts[t.pending] = res_c[off : off + m]
-            t.pending = None
-            t.status = DONE
-            t.done_ms = done_ms
-            off += m
-        t3 = time.perf_counter()
+        with span("serving.lookup", sink, "serving/kernel_us") as lookup:
+            if need:
+                miss = np.asarray(need, np.int64)
+                vals, found, cr = store.lookup_encoded(
+                    name,
+                    version,
+                    uids[miss],
+                    now=now_l,
+                    use_kernel=(engine == "kernel"),
+                )
+                uvals[miss] = vals
+                ufound[miss] = found
+                ucr[miss] = cr
+
+        with span("serving.decode", sink, "serving/decode_us") as decode:
+            if need and self.cache.capacity > 0:
+                put = self.cache.put
+                for j in need:
+                    put(
+                        tkey,
+                        int(uids[j]),
+                        uvals[j].copy(),
+                        int(ucr[j]),
+                        bool(ufound[j]),
+                    )
+            res_v = uvals[inverse]
+            res_f = ufound[inverse]
+            res_c = ucr[inverse]
+            off = 0
+            done_ms = self._rclock()
+            for t in tickets:
+                m = len(t.pending)
+                t.values[t.pending] = res_v[off : off + m]
+                t.found[t.pending] = res_f[off : off + m]
+                t.creation_ts[t.pending] = res_c[off : off + m]
+                t.pending = None
+                t.status = DONE
+                t.done_ms = done_ms
+                off += m
 
         self._inc("dispatches")
         self._inc("coalesced_keys", len(all_ids))
         self._inc("unique_keys", len(uids))
         self._inc("store_keys", len(need))
         if self.monitor is not None:
-            self.monitor.record_serving_stage("assembly", (t1 - t0) * 1e6)
-            self.monitor.record_serving_stage("kernel", (t2 - t1) * 1e6)
-            self.monitor.record_serving_stage("decode", (t3 - t2) * 1e6)
             self.monitor.system.histograms["serving/request_us"].observe_batch(
                 [(done_ms - t.enqueued_ms) * 1e3 for t in tickets]
             )
-        service_ms = (t3 - t0) * 1e3
+        service_ms = (assembly.seconds + lookup.seconds + decode.seconds) * 1e3
         if service_ms > 0 and len(all_ids):
             rate = len(all_ids) / service_ms
             self._ema_keys_per_ms = (

@@ -12,6 +12,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.core.monitoring import span
 from repro_torch.models import api
 from repro_torch.models.api import Model
 from repro_torch.models.config import ModelConfig
@@ -91,24 +92,29 @@ def make_train_step(
     consumed: the optimizer writes the new weights into ``state.params`` and
     the new float32 moments into ``state.opt`` in place (one copy of each,
     not two), and the returned state holds the same model and optimizer
-    state.  A caller that needs the state from before a step rebuilds it."""
+    state.  A caller that needs the state from before a step rebuilds it.
+    Each step is a root span ``step.train``, its update ``step.optimizer``."""
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
-        if num_microbatches == 1:
-            metrics, grads = loss_and_grads(state.params, batch, cfg)
-        else:
-            mb = {k: _microbatches(x, num_microbatches) for k, x in batch.items()}
-            grads = {n: torch.zeros_like(p, dtype=torch.float32,
-                                         memory_format=torch.contiguous_format)
-                     for n, p in state.params.named_parameters()}
-            for i in range(num_microbatches):
-                metrics, g = loss_and_grads(state.params, {k: x[i] for k, x in mb.items()}, cfg)
-                for n, gi in g.items():
-                    grads[n] += gi.float()
-            grads = {n: a / num_microbatches for n, a in grads.items()}
+        with span("step.train"):
+            if num_microbatches == 1:
+                metrics, grads = loss_and_grads(state.params, batch, cfg)
+            else:
+                mb = {k: _microbatches(x, num_microbatches) for k, x in batch.items()}
+                grads = {n: torch.zeros_like(p, dtype=torch.float32,
+                                             memory_format=torch.contiguous_format)
+                         for n, p in state.params.named_parameters()}
+                for i in range(num_microbatches):
+                    metrics, g = loss_and_grads(state.params,
+                                                {k: x[i] for k, x in mb.items()}, cfg)
+                    for n, gi in g.items():
+                        grads[n] += gi.float()
+                grads = {n: a / num_microbatches for n, a in grads.items()}
 
-        _, opt = optimizer.update(grads, state.opt, dict(state.params.named_parameters()))
-        return TrainState(state.params, opt, state.step + 1), metrics
+            with span("step.optimizer"):
+                _, opt = optimizer.update(grads, state.opt,
+                                          dict(state.params.named_parameters()))
+            return TrainState(state.params, opt, state.step + 1), metrics
 
     return train_step
 
@@ -174,8 +180,10 @@ def _greedy_local(logits: torch.Tensor, vocab) -> torch.Tensor:
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
     """Full-sequence logits of ``batch``: its ``tokens``, and its ``frames``
-    (encoder/decoder) or ``patch_embeds`` (vision prefix) if given."""
+    (encoder/decoder) or ``patch_embeds`` (vision prefix) if given; each
+    call a root span ``step.prefill``."""
     def prefill_step(params, batch):
-        return api.forward_logits(params, batch, cfg)
+        with span("step.prefill"):
+            return api.forward_logits(params, batch, cfg)
 
     return prefill_step

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.monitoring import span
 from repro_torch.models.pspec import BATCH, constrain, current_mesh, placed
 
 __all__ = [
@@ -91,10 +92,12 @@ def dense_init(gen: Optional[torch.Generator], shape, fan_in: Optional[int] = No
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
-    out = x32 * torch.rsqrt(var + eps) * (1.0 + gamma.float())
-    return out.to(x.dtype)
+    """Every call a span ``norm``."""
+    with span("norm"):
+        x32 = x.float()
+        var = (x32 * x32).mean(dim=-1, keepdim=True)
+        out = x32 * torch.rsqrt(var + eps) * (1.0 + gamma.float())
+        return out.to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,

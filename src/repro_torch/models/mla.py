@@ -28,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.monitoring import span
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     ParamModule,
@@ -124,34 +125,36 @@ def _kv_latent(params, x: torch.Tensor, positions: torch.Tensor,
 def mla_attention(params, x: torch.Tensor, positions: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     """Full-sequence MLA (train / prefill): expand the latent, float32
-    attention masked causally by ``positions`` (S,) or (B, S)."""
-    b, s, _ = x.shape
-    h, nope, vd = cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim
-    q_nope, q_pe = _q_proj(params, x, cfg)
-    cos, sin = _rope(positions, cfg)
-    q_pe = apply_rope(q_pe, cos, sin)
+    attention masked causally by ``positions`` (S,) or (B, S).  Each call a
+    span ``mla``, the latent norms' ``norm`` spans inside it."""
+    with span("mla"):
+        b, s, _ = x.shape
+        h, nope, vd = cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim
+        q_nope, q_pe = _q_proj(params, x, cfg)
+        cos, sin = _rope(positions, cfg)
+        q_pe = apply_rope(q_pe, cos, sin)
 
-    c_kv, k_pe = _kv_latent(params, x, positions, cfg)
-    kv = split_last(c_kv @ params["wkv_b"], b, s, h, nope + vd)
-    k_nope, v = kv[..., :nope], kv[..., nope:]
+        c_kv, k_pe = _kv_latent(params, x, positions, cfg)
+        kv = split_last(c_kv @ params["wkv_b"], b, s, h, nope + vd)
+        k_nope, v = kv[..., :nope], kv[..., nope:]
 
-    pos2 = positions if positions.ndim == 2 else positions[None]
-    causal = pos2[..., None, :] <= pos2[..., :, None]
-    args = (q_nope, q_pe, k_nope, k_pe, v, causal)
-    if is_dtensor(q_nope):
-        # each rank's batch rows and heads (pspec.local_call); k_pe serves
-        # every head, so its gradient sums over the ranks of split heads
-        from torch.distributed.tensor import Partial, Shard
+        pos2 = positions if positions.ndim == 2 else positions[None]
+        causal = pos2[..., None, :] <= pos2[..., :, None]
+        args = (q_nope, q_pe, k_nope, k_pe, v, causal)
+        if is_dtensor(q_nope):
+            # each rank's batch rows and heads (pspec.local_call); k_pe serves
+            # every head, so its gradient sums over the ranks of split heads
+            from torch.distributed.tensor import Partial, Shard
 
-        q_pl, kv_pl = head_placements(q_nope, k_nope)
-        pe_pl = row_placements(k_pe, q_pl)
-        pe_grad = [Partial() if p == Shard(2) else r for p, r in zip(q_pl, pe_pl)]
-        out = local_call(_attend, args, (q_pl, q_pl, kv_pl, pe_pl, kv_pl,
-                                         row_placements(causal, q_pl)), q_pl,
-                         (q_pl, q_pl, kv_pl, pe_grad, kv_pl, None))
-    else:
-        out = _attend(*args)
-    return reduce_boundary(out, x.dtype) @ params["wo"]
+            q_pl, kv_pl = head_placements(q_nope, k_nope)
+            pe_pl = row_placements(k_pe, q_pl)
+            pe_grad = [Partial() if p == Shard(2) else r for p, r in zip(q_pl, pe_pl)]
+            out = local_call(_attend, args, (q_pl, q_pl, kv_pl, pe_pl, kv_pl,
+                                             row_placements(causal, q_pl)), q_pl,
+                             (q_pl, q_pl, kv_pl, pe_grad, kv_pl, None))
+        else:
+            out = _attend(*args)
+        return reduce_boundary(out, x.dtype) @ params["wo"]
 
 
 def _attend(q_nope, q_pe, k_nope, k_pe, v, causal) -> torch.Tensor:

@@ -56,6 +56,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.monitoring import count, span, tracing
 from repro_torch.launch.mesh import axis_names, mesh_shape
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamModule, dense_init, torch_dtype
@@ -193,12 +194,17 @@ def _dispatch_ffn_combine_local(params, xg: torch.Tensor, gate_k: torch.Tensor,
 def _dispatch(xg: torch.Tensor, gate_k: torch.Tensor, idx_k: torch.Tensor,
               cfg: ModelConfig, cap: int):
     """Step 3: (the expert buffer (G, E, C, D), the slot rows (G,S,k,D) of
-    each assignment, the gates with the dropped assignments zeroed)."""
+    each assignment, the gates with the dropped assignments zeroed).  While
+    tracing, counts the kept assignments (``moe.kept``, on the card) and the
+    buffer's slots (``moe.slots``, G·E·C)."""
     g, gs, d = xg.shape
     e, k = cfg.num_experts, cfg.top_k
     cdt = torch_dtype(cfg.compute_dtype)
 
     dst, keep = _dispatch_indices(idx_k, e, cap)
+    if tracing():
+        count("moe.kept", keep.sum())
+        count("moe.slots", g * e * cap)
     gate_k = gate_k * keep.to(gate_k.dtype)                      # drop overflow
     rows = dst.long()[..., None].expand(g, gs, k, d)             # (G,S,k,D) view
 
@@ -353,32 +359,35 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *, group_size: int = 20
     """x (B, S, D) -> (y (B, S, D), aux_loss scalar).  Tokens go to groups of
     ``group_size`` (snapped to a divisor of B·S); each expert takes at most
     the capacity of ``capacity_factor`` (default ``cfg.capacity_factor``)
-    assignments a group and drops the rest."""
+    assignments a group and drops the rest.  Each call a span ``moe``
+    (routing, dispatch, experts, combine, shared experts)."""
     if capacity_factor is None:
         capacity_factor = cfg.capacity_factor
-    b, s, d = x.shape
-    mesh = current_mesh()
-    if mesh is not None:
-        sizes = mesh_shape(mesh)
-        use_ep = (
-            sizes.get("model", 1) > 1
-            and cfg.num_experts % sizes["model"] == 0
-            and (b * s) % mesh.size() == 0
-            and (b * s) // mesh.size() >= 64   # decode cells: payload too small for EP
-        )
-        run = _moe_ep if use_ep else _moe_local
-        y, aux = run(params, x, cfg, mesh, group_size, capacity_factor)
-    else:
-        xg = _group(x, group_size)
-        cap = _capacity(cfg, xg.shape[1], capacity_factor)
-        gate_k, idx_k, aux = _route(params, xg, cfg)
-        y = _dispatch_ffn_combine_local(params, xg, gate_k, idx_k, cfg, cap).reshape(
-            b, s, d)
+    with span("moe"):
+        b, s, d = x.shape
+        mesh = current_mesh()
+        if mesh is not None:
+            sizes = mesh_shape(mesh)
+            use_ep = (
+                sizes.get("model", 1) > 1
+                and cfg.num_experts % sizes["model"] == 0
+                and (b * s) % mesh.size() == 0
+                # decode cells: payload too small for EP
+                and (b * s) // mesh.size() >= 64
+            )
+            run = _moe_ep if use_ep else _moe_local
+            y, aux = run(params, x, cfg, mesh, group_size, capacity_factor)
+        else:
+            xg = _group(x, group_size)
+            cap = _capacity(cfg, xg.shape[1], capacity_factor)
+            gate_k, idx_k, aux = _route(params, xg, cfg)
+            y = _dispatch_ffn_combine_local(params, xg, gate_k, idx_k, cfg,
+                                            cap).reshape(b, s, d)
 
-    # shared experts: dense on every token
-    if "shared" in params:
-        y = y + _shared_experts(params, x, torch_dtype(cfg.compute_dtype))
-    return y.to(x.dtype), aux
+        # shared experts: dense on every token
+        if "shared" in params:
+            y = y + _shared_experts(params, x, torch_dtype(cfg.compute_dtype))
+        return y.to(x.dtype), aux
 
 
 # =============================================================================
