@@ -41,6 +41,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry -> argtypes; every entry returns a cudaError_t as int
 _SIGNATURES = {
     # keys (P, C) i64, queries (P, Q) i64, out (P, Q) i32 (written whole),
@@ -78,6 +79,16 @@ _SIGNATURES = {
     # causal, q/dO/dq strides (b, s, h), k/v/dk/dv strides (b, t, h), stream
     "flash_attn_bwd_tc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _P),
+    # host arrays over n leaves: gradient pointers (i64), numels (i64), dtype
+    # codes (i32: 0 f32, 1 bf16), blocks (i32); n, float64 partials (sum of
+    # blocks), float32 out (0-d), stream
+    "adamw_sqnorm": (_P, _P, _P, _P, _I, _P, _P, _P),
+    # host arrays over n leaves: p, g, m, v pointers (i64), numels (i64), p
+    # and g dtype codes (i32); n; 0-d float32 device scale (or null), bc1,
+    # bc2, step (or null); the constant step, b1, 1 - b1, b2, 1 - b2, eps,
+    # weight decay (f32), decay applied, stream
+    "adamw_update": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                     _F, _F, _F, _F, _F, _F, _F, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -30,6 +30,16 @@ for the whole model.  The JAX package's ``sequential_updates`` forces that
 order on XLA's scheduler with an ``optimization_barrier`` chain; eager
 PyTorch runs in program order, so neither the barrier nor the option has a
 counterpart here.
+
+On the card a leaf whose weight, gradient and moments are plain CUDA
+tensors (no DTensor, no int8 blocks: ``kernels/adamw/ops.py`` ``takes``)
+is updated by one hand-written pass (``kernels/adamw``, ``csrc/adamw.cu``)
+with the same roundings, and its share of the clip's sum of squares is the
+kernel's; such a leaf that is strided or of a dtype the kernel lacks
+raises.  Every other leaf (on the CPU, on a mesh, with int8 moments) runs
+the passes above.  The counters ``adamw.fused`` and ``adamw.elems``
+(``core/monitoring.py``) count the parameters the kernel updated (on a
+card only) and all of them.
 """
 
 from __future__ import annotations
@@ -40,6 +50,8 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import monitoring
+from repro_torch.kernels.adamw import ops as fused_ops
 from repro_torch.models.pspec import is_dtensor
 
 __all__ = ["Optimizer", "adamw", "dequantize_q8", "quantize_q8"]
@@ -116,6 +128,23 @@ def _block_placements(x) -> list:
     return list(x.placements)
 
 
+def _update_leaf(p, g, m, v, *, scale, bc1, bc2, step, b1, b2, eps, weight_decay) -> None:
+    """One leaf by PyTorch passes, in place on ``p`` and its float32
+    moments ``m`` and ``v`` (tensors or DTensors)."""
+    if scale is not None:
+        g = g * scale.to(g.dtype)
+    g32 = g.float()
+    m.mul_(b1).add_((1 - b1) * g32)
+    v.mul_(b2).add_(((1 - b2) * g32).mul_(g32))
+    del g, g32
+    # (m/bc1) / (sqrt(v/bc2) + eps) [+ wd·p], then p32 - lr·upd: the
+    # same roundings, in place on one leaf-sized temporary at a time
+    upd = (m / bc1).div_((v / bc2).sqrt_().add_(eps))
+    if weight_decay:
+        upd.add_(weight_decay * p.float())
+    p.copy_(p.float().sub_(upd.mul_(step)).to(p.dtype))
+
+
 class Optimizer(NamedTuple):
     init: Callable[[dict], Any]
     update: Callable[[dict, Any, dict], tuple[dict, Any]]
@@ -150,35 +179,40 @@ def adamw(
     @torch.no_grad()
     def update(grads: dict, state: dict, params: dict) -> tuple[dict, dict]:
         count = state["count"] + 1
+        fused, leafwise = [], {}
+        for n, g in grads.items():
+            if fused_ops.takes(params[n], g, state["m"][n], state["v"][n]):
+                fused.append(n)
+            else:
+                leafwise[n] = g
         scale = None
         if grad_clip is not None:
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads.values()))
+            sums = [torch.sum(torch.square(g.float())) for g in leafwise.values()]
+            if fused:
+                sums.insert(0, fused_ops.sqnorm([grads[n] for n in fused]))
+            gnorm = torch.sqrt(sum(sums))
             scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
 
         step_size = lr(count) if callable(lr) else lr
         bc1 = 1.0 - b1 ** count.float()
         bc2 = 1.0 - b2 ** count.float()
 
-        for name, g in grads.items():
+        fused_ops.update([(params[n], grads[n], state["m"][n], state["v"][n]) for n in fused],
+                         scale=scale, bc1=bc1, bc2=bc2, step=step_size, b1=b1, b2=b2,
+                         eps=eps, weight_decay=weight_decay)
+        if monitoring.tracing():
+            if count.device.type == "cuda":  # where the kernel exists
+                monitoring.count("adamw.fused", sum(grads[n].numel() for n in fused))
+            monitoring.count("adamw.elems", sum(g.numel() for g in grads.values()))
+        for name, g in leafwise.items():
             p = params[name]
-            if scale is not None:
-                g = g * scale.to(g.dtype)
-            g32 = g.float()
             if quantize_moments:
                 m = dequantize_q8(state["m"][name], p.shape)
                 v = dequantize_q8(state["v"][name], p.shape)
             else:
                 m, v = state["m"][name], state["v"][name]
-            m.mul_(b1).add_((1 - b1) * g32)
-            v.mul_(b2).add_(((1 - b2) * g32).mul_(g32))
-            del g, g32
-            # (m/bc1) / (sqrt(v/bc2) + eps) [+ wd·p], then p32 - lr·upd: the
-            # same roundings, in place on one leaf-sized temporary at a time
-            upd = (m / bc1).div_((v / bc2).sqrt_().add_(eps))
-            if weight_decay:
-                upd.add_(weight_decay * p.float())
-            p.copy_(p.float().sub_(upd.mul_(step_size)).to(p.dtype))
-            del upd
+            _update_leaf(p, g, m, v, scale=scale, bc1=bc1, bc2=bc2, step=step_size, b1=b1,
+                         b2=b2, eps=eps, weight_decay=weight_decay)
             if quantize_moments:
                 state["m"][name], state["v"][name] = quantize_q8(m), quantize_q8(v)
         state["count"] = count

@@ -136,7 +136,7 @@ def test_device_pointer_guards_the_kernel_wrappers(tmp_path):
     on ``kernels/``); the lookup wrapper with one address taken of
     ``keys.contiguous()`` is flagged at that line."""
     ops = sorted((ROOT / "src" / "repro_torch" / "kernels").glob("*/ops.py"))
-    assert len(ops) == 5
+    assert len(ops) == 6
     uses = sum(f.read_text().count(".data_ptr()") for f in ops)
     assert uses > 13
     clean = port_engine.run(["src/repro_torch/kernels"], select=["device-pointer"],
