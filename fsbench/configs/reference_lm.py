@@ -88,7 +88,7 @@ def _gqa(c, p, h, mm):
     """One prompt's attention, h (S, D)."""
     s, d = h.shape
     nh, kv = c["num_attention_heads"], c["num_key_value_heads"]
-    hd = d // nh
+    hd = c.get("head_dim") or d // nh
     pos = torch.arange(s, device=h.device)
     q = _rope(mm(h, p["mixer.wq"]).view(s, nh, hd), pos, c["rope_theta"])
     k = _rope(mm(h, p["mixer.wk"]).view(s, kv, hd), pos, c["rope_theta"])
@@ -155,8 +155,10 @@ def _moe(c, p, x, mm):
 
 def _block(c, p, x, i, mm):
     """Layer i over x (n, S, D): (its output, its load-balance loss)."""
-    if c.get("rope_scaling") or c.get("sliding_window"):
-        raise ValueError("the reference has no rope scaling and no sliding window")
+    if any(c.get(k) for k in ("rope_scaling", "sliding_window", "q_lora_rank", "share",
+                                "extra_leaves")):
+        raise ValueError("the reference has no rope scaling, sliding window, query LoRA, "
+                         "chip's share or extra leaves")
     n, s, _ = x.shape
     mixer = _mla if c.get("kv_lora_rank") else _gqa
     h = _rms(x, p["norm1"], c["rms_norm_eps"])
